@@ -1,0 +1,36 @@
+"""Numerical ops: L0 primitives, PSWF windows, the B3 kernel and the
+SwiftlyCore."""
+
+from .core import SwiftlyCore, resolve_device, validate_core_params
+from .io_slices import (
+    create_slice,
+    roll_and_extract_mid,
+    roll_and_extract_mid_axis,
+)
+from .kernels import cmatmul, cmatmul_plain, cmatmul_stats
+from .oracle import (
+    generate_masks,
+    make_facet_from_sources,
+    make_subgrid_from_sources,
+    mask_from_slices,
+)
+from .pswf import pswf_fb, pswf_fn, pswf_samples
+
+__all__ = [
+    "SwiftlyCore",
+    "cmatmul",
+    "cmatmul_plain",
+    "cmatmul_stats",
+    "create_slice",
+    "generate_masks",
+    "make_facet_from_sources",
+    "make_subgrid_from_sources",
+    "mask_from_slices",
+    "pswf_fb",
+    "pswf_fn",
+    "pswf_samples",
+    "resolve_device",
+    "roll_and_extract_mid",
+    "roll_and_extract_mid_axis",
+    "validate_core_params",
+]
