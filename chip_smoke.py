@@ -8,17 +8,16 @@ points a user calls, builds its hand-written kernels from the sources in
 this checkout, and holds each kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit;
-2. build: every CUDA source under ``swiftly_tpu_torch/csrc`` (one ``nvcc``
-   each, all started together), with ptxas's registers/shared
-   memory/spills;
+2. build: the CUDA source of kernel B3 (``swiftly_tpu_torch/csrc``), with
+   ptxas's registers/shared memory/spills;
 3. kernel B3 (planar complex matmul) against its plain version at a
    ragged shape, in float32 and float64;
 4. a float64 round trip at ``1k[1]-n512-256`` on the card, fused and per
    subgrid, against the analytic oracle;
 5. the main path: the fused round trip (``SwiftlyForward.all_subgrids``
-   then ``backward_all``) at ``32k[1]-n16k-512``, planar float32, a warm
-   run and a timed run, checked against the oracle on sampled subgrids and
-   on all facets;
+   then ``backward_all``) at ``32k[1]-n16k-512``, planar float32, from
+   facets held as numpy arrays on the host, a warm run and a timed run,
+   checked against the oracle on sampled subgrids and on all facets;
 6. B3 against its plain version and one PyTorch library call, timed with
    CUDA events at every shape the main path gave it (the most frequent
    first).
@@ -35,7 +34,6 @@ import json
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -75,12 +73,6 @@ MIN_SUBGRID_SAMPLES = 100
 # float64 bound far above f64 rounding over K <= 1024 terms.
 KERNEL_REL_TOL = {"float32": 1e-5, "float64": 1e-12}
 
-# H100 SXM (NVIDIA data sheet, 700 W): HBM rate and float32 rate outside
-# the tensor cores; the kernel's products are plain f32 FMAs (timings are
-# taken in float32 only).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-
 
 class PhaseFailed(RuntimeError):
     pass
@@ -105,21 +97,17 @@ def sources_for(N):
 # -- phase 2: build ----------------------------------------------------------
 
 
-def build_all():
-    """Build every CUDA source of the port in parallel (one nvcc each)."""
+def build_b3():
+    """Build kernel B3 from its source and print ptxas's report."""
     from swiftly_tpu_torch.ops import _build
 
-    names = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        results = dict(zip(names, pool.map(_build.build, names)))
-    seconds = time.perf_counter() - t0
-    for name, (path, report) in results.items():
-        log(f"built {name}: {path.relative_to(ROOT)}")
-        for line in report.splitlines():
-            if "ptxas" in line or "spill" in line:
-                log(f"  {line.strip()}")
-    log(f"build: {len(names)} source(s) in {seconds:.1f} s")
+    path, report = _build.build("cmatmul")
+    log(f"built cmatmul: {path.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        if "ptxas" in line or "spill" in line:
+            log(f"  {line.strip()}")
 
 
 # -- kernel checks -----------------------------------------------------------
@@ -153,6 +141,7 @@ def check_cmatmul(torch, shape, dtype, seed=0, timed=False):
     """B3 against its plain version at one (B, K, N); with `timed`, also
     the kernel, plain and library times and the bound."""
     from swiftly_tpu_torch.ops.kernels import cmatmul, cmatmul_plain
+    from swiftly_tpu_torch.utils.flops import H100_F32_TFLOPS, H100_HBM_TB_PER_S
 
     B, K, N = shape
     zr, zi, wr, wi = _planes(torch, (B, K), (K, N), dtype, seed)
@@ -183,7 +172,10 @@ def check_cmatmul(torch, shape, dtype, seed=0, timed=False):
         item = zr.element_size()
         nbytes = item * (2 * B * K + 2 * K * N + 2 * B * N)
         flops = 8 * B * K * N
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+        # H100 SXM peaks (utils/flops.py); B3's products are plain f32 FMAs
+        # and it is timed in float32 only
+        t_bytes = nbytes / (H100_HBM_TB_PER_S * 1e12)
+        t_ops = flops / (H100_F32_TFLOPS * 1e12)
         res["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         res["bound_by"] = "bytes" if t_bytes > t_ops else "operations"
         res["tflops"] = flops / res["ms"] / 1e9
@@ -250,22 +242,23 @@ def roundtrip_main(torch, config_name=MAIN_CONFIG, device="cuda",
     fcs = st.make_full_facet_cover(cfg)
     sgcs = st.make_full_subgrid_cover(cfg)
     t0 = time.perf_counter()
-    facets_in = [core._prep(st.make_facet(N, fc, sources)) for fc in fcs]
+    facets_in = [st.make_facet(N, fc, sources) for fc in fcs]  # numpy, host
     setup_s = time.perf_counter() - t0
     log(f"{config_name}: {len(fcs)} facets of {fcs[0].size}, {len(sgcs)} "
-        f"subgrids of {sgcs[0].size}; facets on the card in {setup_s:.1f} s")
+        f"subgrids of {sgcs[0].size}; facets made on the host in "
+        f"{setup_s:.1f} s")
 
     def sync():
         if device == "cuda":
             torch.cuda.synchronize()
 
     def one_run():
+        # forward time includes moving the host facets to the card
         t0 = time.perf_counter()
         fwd = st.SwiftlyForward(cfg, list(zip(fcs, facets_in)))
         subgrids = fwd.all_subgrids(sgcs)
         sync()
         t_fwd = time.perf_counter() - t0
-        del fwd  # frees the prepared facet stack before the backward
         t0 = time.perf_counter()
         facets = st.backward_all(cfg, fcs, list(zip(sgcs, subgrids)))
         sync()
@@ -351,7 +344,7 @@ def main():
     log(f"device: {name} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     log(smi)
 
-    build_all()
+    build_b3()
     for dt in (torch.float32, torch.float64):
         check_cmatmul(torch, (300, 228, 228), dt)
     roundtrip_small(torch)

@@ -394,6 +394,11 @@ class SwiftlyForward:
         zero-mask entries (exact); only the numpy backend falls back to
         per-column streaming. All subgrids must share one size (the output
         is stacked); raises ValueError otherwise.
+
+        The prepared facet stack ([F, yN, yB], the largest forward
+        intermediate) is released when the call returns, so a following
+        backward does not hold it beside its accumulator; a later request
+        on this object prepares the facets again.
         """
         subgrid_configs = list(subgrid_configs)
         groups, rectangular = _group_columns(
@@ -433,6 +438,7 @@ class SwiftlyForward:
         elif flat.shape[0] != n:  # identity order but tail padding rows
             flat = flat[:n]
         self.queue.admit([flat] * n)
+        self._BF_Fs = None
         return flat
 
 

@@ -45,9 +45,7 @@ def find_nvcc() -> str:
 
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
+    h.update((CSRC / f"{name}.cu").read_bytes())
     return h.hexdigest()[:16]
 
 

@@ -69,8 +69,11 @@ def to_planar(a, dtype=torch.float32, device="cpu"):
             a = a.to(torch.complex128)
         return torch.view_as_real(a).to(device=device, dtype=dtype)
     a = np.asarray(a)
-    planar = np.stack([a.real, a.imag], axis=-1)
-    return torch.from_numpy(planar).to(device=device, dtype=dtype)
+    if a.dtype not in (np.complex64, np.complex128):
+        a = a.astype(np.complex128)
+    # a zero-copy (re, im) view of the input; one copy (cast and move) out
+    planar = torch.view_as_real(torch.from_numpy(np.ascontiguousarray(a)))
+    return planar.to(device=device, dtype=dtype, copy=True)
 
 
 def from_planar(a) -> np.ndarray:

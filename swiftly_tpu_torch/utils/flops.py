@@ -16,6 +16,7 @@ from ..ops.planar_backend import _DIRECT_MAX, _factor
 
 __all__ = [
     "H100_F32_TFLOPS",
+    "H100_HBM_TB_PER_S",
     "backward_batched_flops",
     "fft_flops",
     "forward_batched_flops",
@@ -26,6 +27,9 @@ __all__ = [
 # GPU data sheet. The planar pipeline's products are full f32 (no TF32),
 # so this is the rate its kernels are held against.
 H100_F32_TFLOPS = 67.0
+# Its HBM3 memory rate, TB/s (same data sheet): the bytes side of a
+# kernel's bound.
+H100_HBM_TB_PER_S = 3.35
 
 
 def fft_flops(n: int, batch: int) -> int:

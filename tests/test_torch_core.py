@@ -21,6 +21,15 @@ import swiftly_tpu_torch.ops.planar_backend as plk
 from swiftly_tpu_torch.ops.core import SwiftlyCore as TorchCore
 from swiftly_tpu_torch.ops.core import scaled_offset
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # the suite runs beside other pytest-xdist workers on the same cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 PARAMS = {"W": 13.5625, "N": 1024, "yB_size": 416, "yN_size": 512,
           "xA_size": 228, "xM_size": 256}
 ATOL = 1e-12

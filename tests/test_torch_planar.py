@@ -14,6 +14,15 @@ import swiftly_tpu.ops.planar_backend as jplk
 import swiftly_tpu_torch.ops.planar_backend as plk
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    # the suite runs beside other pytest-xdist workers on the same cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a, dtype=torch.float64):
     return plk.to_planar(a, dtype=dtype, device="cpu")
 
