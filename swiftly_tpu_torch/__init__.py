@@ -1,7 +1,9 @@
 """swiftly_tpu_torch: the PyTorch/CUDA port of swiftly-tpu.
 
 Bidirectional facet <-> subgrid transforms between image space and uv-grid
-space that never materialise the full N x N plane, on one NVIDIA GPU:
+space that never materialise the full N x N plane, on one NVIDIA GPU,
+whole-cover (``SwiftlyForward`` / ``backward_all``) or streamed with the
+facets resident (``StreamedForward`` / ``StreamedBackward``):
 complex torch tensors (``backend="torch"``), or the planar (re, im) layout
 whose DFTs run in hand-written Hopper kernels (``backend="planar"``), with
 a float64 numpy host reference (``backend="numpy"``). The JAX package
@@ -26,6 +28,7 @@ from .api import (
     make_facet,
     make_full_facet_cover,
     make_full_subgrid_cover,
+    make_real_facet,
     make_sparse_facet_cover,
     make_subgrid,
     sparse_fov_cover_offsets,
@@ -34,9 +37,12 @@ from .models import SWIFT_CONFIGS
 from .ops import (
     SwiftlyCore,
     cmatmul_stats,
+    colpass_stats,
+    fold_stats,
     make_facet_from_sources,
     make_subgrid_from_sources,
 )
+from .parallel import StreamedBackward, StreamedForward, feed_backward_passes
 
 __version__ = "0.1.0"
 
@@ -45,6 +51,8 @@ __all__ = [
     "FlightQueue",
     "LRUCache",
     "SWIFT_CONFIGS",
+    "StreamedBackward",
+    "StreamedForward",
     "SubgridConfig",
     "SwiftlyBackward",
     "SwiftlyConfig",
@@ -55,10 +63,14 @@ __all__ = [
     "check_residual",
     "check_subgrid",
     "cmatmul_stats",
+    "colpass_stats",
+    "feed_backward_passes",
+    "fold_stats",
     "make_facet",
     "make_facet_from_sources",
     "make_full_facet_cover",
     "make_full_subgrid_cover",
+    "make_real_facet",
     "make_sparse_facet_cover",
     "make_subgrid",
     "make_subgrid_from_sources",

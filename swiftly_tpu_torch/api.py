@@ -33,7 +33,11 @@ from .models.covers import (
     make_sparse_facet_cover,
     sparse_fov_cover_offsets,
 )
-from .ops.oracle import make_facet_from_sources, make_subgrid_from_sources
+from .ops.oracle import (
+    make_facet_from_sources,
+    make_real_facet_plane_from_sources,
+    make_subgrid_from_sources,
+)
 from .parallel import batched
 
 __all__ = [
@@ -51,6 +55,7 @@ __all__ = [
     "make_facet",
     "make_full_facet_cover",
     "make_full_subgrid_cover",
+    "make_real_facet",
     "make_sparse_facet_cover",
     "make_subgrid",
     "sparse_fov_cover_offsets",
@@ -70,6 +75,22 @@ def make_facet(image_size, facet_config, sources):
         facet_config.size,
         [facet_config.off0, facet_config.off1],
         [facet_config.mask0, facet_config.mask1],
+    )
+
+
+def make_real_facet(image_size, facet_config, sources, dtype=None):
+    """`make_facet` as a real plane built pointwise (float32 by default):
+    ``== make_facet(...).real`` without the dense complex intermediate,
+    the input of large-N streamed runs (a 32k facet is 2 GB complex128 but
+    0.5 GB as its real float32 plane)."""
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    return make_real_facet_plane_from_sources(
+        sources,
+        image_size,
+        facet_config.size,
+        [facet_config.off0, facet_config.off1],
+        [facet_config.mask0, facet_config.mask1],
+        **kwargs,
     )
 
 
@@ -216,7 +237,10 @@ class FlightQueue:
 
 
 class _FacetStack:
-    """Stacked facet metadata: offsets and realised masks as arrays."""
+    """Stacked facet metadata: offsets and realised masks as arrays.
+
+    ``n_real`` and ``n_total`` count the facets (equal: the port runs on
+    one device, so the stack is never padded to a mesh size)."""
 
     def __init__(self, facet_configs):
         if not facet_configs:
@@ -226,6 +250,7 @@ class _FacetStack:
             raise ValueError("All facets must share one size")
         self.size = sizes.pop()
         self.configs = list(facet_configs)
+        self.n_real = self.n_total = len(self.configs)
 
         def mask_row(mask):
             return np.ones(self.size) if mask is None else np.asarray(mask)

@@ -191,6 +191,6 @@ extern "C" int swiftly_cmatmul_f64(const void* zr, const void* zi,
   return launch<double>(zr, zi, wr, wi, outr, outi, B, K, N, stream);
 }
 
-extern "C" const char* swiftly_cuda_error_string(int code) {
+extern "C" const char* swiftly_cmatmul_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

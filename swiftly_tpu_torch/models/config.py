@@ -82,6 +82,9 @@ class SwiftlyConfig:
     :param device: torch device of the tensor backends; None means the
         GPU, and raises on a host without CUDA
     :param mesh: multi-device meshes are not ported yet (ROADMAP A8)
+    :param core_state: optional (Fb, Fn) window constants as numpy float64
+        arrays (e.g. the JAX core's ``_Fb``/``_Fn``), taken as they are
+        instead of recomputed (``SwiftlyCore.from_numpy_state``)
     """
 
     def __init__(
@@ -97,6 +100,7 @@ class SwiftlyConfig:
         dtype=None,
         device=None,
         mesh=None,
+        core_state=None,
         **_other,
     ):
         if mesh is not None:
@@ -111,9 +115,25 @@ class SwiftlyConfig:
         self._yN_size = yN_size
         self._xA_size = xA_size
         self._xM_size = xM_size
-        self.core = SwiftlyCore(
-            W, N, xM_size, yN_size, backend=backend, dtype=dtype, device=device
-        )
+        if core_state is None:
+            self.core = SwiftlyCore(
+                W, N, xM_size, yN_size, backend=backend, dtype=dtype,
+                device=device,
+            )
+        else:
+            Fb, Fn = core_state
+            self.core = SwiftlyCore.from_numpy_state(
+                W, N, xM_size, yN_size, Fb, Fn, backend=backend, dtype=dtype,
+                device=device,
+            )
+
+    @classmethod
+    def from_numpy_state(cls, Fb, Fn, **params):
+        """A configuration whose core takes the window constants (Fb, Fn)
+        as given (numpy float64, e.g. the JAX core's ``_Fb``/``_Fn``), so
+        its operators and windows come from the same numbers; `params`
+        are this class's other arguments."""
+        return cls(core_state=(Fb, Fn), **params)
 
     @property
     def image_size(self):

@@ -1,5 +1,5 @@
-"""Numerical ops: L0 primitives, PSWF windows, the B3 kernel and the
-SwiftlyCore."""
+"""Numerical ops: L0 primitives, PSWF windows, the kernels B1, B2 and B3
+and the SwiftlyCore."""
 
 from .core import SwiftlyCore, resolve_device, validate_core_params
 from .io_slices import (
@@ -7,10 +7,21 @@ from .io_slices import (
     roll_and_extract_mid,
     roll_and_extract_mid_axis,
 )
-from .kernels import cmatmul, cmatmul_plain, cmatmul_stats
+from .kernels import (
+    cmatmul,
+    cmatmul_plain,
+    cmatmul_stats,
+    colpass,
+    colpass_plain,
+    colpass_stats,
+    fold,
+    fold_plain,
+    fold_stats,
+)
 from .oracle import (
     generate_masks,
     make_facet_from_sources,
+    make_real_facet_plane_from_sources,
     make_subgrid_from_sources,
     mask_from_slices,
 )
@@ -21,9 +32,16 @@ __all__ = [
     "cmatmul",
     "cmatmul_plain",
     "cmatmul_stats",
+    "colpass",
+    "colpass_plain",
+    "colpass_stats",
     "create_slice",
+    "fold",
+    "fold_plain",
+    "fold_stats",
     "generate_masks",
     "make_facet_from_sources",
+    "make_real_facet_plane_from_sources",
     "make_subgrid_from_sources",
     "mask_from_slices",
     "pswf_fb",

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``swiftly_tpu_torch/_build/lib<name>_<digest>.so``, a plain C interface that
-``ops/kernels.py`` loads with ``ctypes``. The digest covers the sources and
-the flags, so an edited source builds anew and an unchanged one is loaded
-as it is. Nothing is built at import: the CPU tests import every module on
-hosts that have no ``nvcc``.
+``ops/kernels.py`` loads with ``ctypes``. The digest covers the source, every
+shared header (``csrc/*.cuh``) and the flags, so an edited source or header
+builds anew and an unchanged one is loaded as it is. ``build_all`` starts one
+``nvcc`` per source at once. Nothing is built at import: the CPU tests import
+every module on hosts that have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "find_nvcc"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_all", "find_nvcc"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,7 +47,45 @@ def find_nvcc() -> str:
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
+
+
+def _paths(name: str) -> tuple[Path, Path, Path]:
+    src = CSRC / f"{name}.cu"
+    out = BUILD_DIR / f"lib{name}_{_digest(name)}.so"
+    return src, out, out.with_suffix(".log")
+
+
+def _start(name: str):
+    """Start nvcc for one source; None when an up-to-date library exists."""
+    src, out, _ = _paths(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, started) -> tuple[Path, str]:
+    src, out, log = _paths(name)
+    if started is None:
+        return out, log.read_text() if log.exists() else ""
+    proc, tmp = started
+    report, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}) for {src.name}:\n{report}"
+        )
+    log.write_text(report)
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return out, report
 
 
 def build(name: str) -> tuple[Path, str]:
@@ -56,21 +95,24 @@ def build(name: str) -> tuple[Path, str]:
         holds ``ptxas``'s registers / shared memory / spills per kernel)
     :raises RuntimeError: when nvcc is missing or the build fails
     """
-    src = CSRC / f"{name}.cu"
-    out = BUILD_DIR / f"lib{name}_{_digest(name)}.so"
-    log = out.with_suffix(".log")
-    if out.exists():
-        return out, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    report = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) for {src.name}:\n{report}"
-        )
-    log.write_text(report)
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, report
+    return _finish(name, _start(name))
+
+
+def build_all(names) -> dict[str, tuple[Path, str]]:
+    """``build`` for several sources, their ``nvcc`` runs started together.
+
+    :return: {name: (library path, compiler report)}
+    :raises RuntimeError: when nvcc is missing or any build fails (after
+        every started build has ended)
+    """
+    names = list(names)
+    started = {name: _start(name) for name in names}
+    results, errors = {}, []
+    for name in names:
+        try:
+            results[name] = _finish(name, started[name])
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return results

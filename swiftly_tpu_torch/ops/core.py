@@ -242,8 +242,8 @@ class SwiftlyCore:
         """A core built from given window constants (numpy float64 arrays,
         e.g. the JAX core's ``_Fb``/``_Fn``) instead of recomputing them."""
         validate_core_params(N, xM_size, yN_size)
-        Fb = np.asarray(Fb, dtype=np.float64)
-        Fn = np.asarray(Fn, dtype=np.float64)
+        Fb = np.array(Fb, dtype=np.float64)  # a writable copy: e.g. of a
+        Fn = np.array(Fn, dtype=np.float64)  # read-only JAX array's buffer
         if Fb.shape != (yN_size - 1,) or Fn.shape != (xM_size * yN_size // N,):
             raise ValueError(
                 f"window constants of shapes {Fb.shape}, {Fn.shape} do not "

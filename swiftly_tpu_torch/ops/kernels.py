@@ -1,17 +1,28 @@
 """Hand-written Hopper kernels of the port, their wrappers and their plain
 versions.
 
-Kernel B3, ``cmatmul``: the planar complex matrix product
-``(zr + i zi) @ (wr + i wi) -> (zr@wr - zi@wi, zr@wi + zi@wr)``, the port of
-the JAX package's Pallas kernel ``cmatmul_pallas``
-(``swiftly_tpu/ops/pallas_kernels.py:102``). CUDA C++ in
-``csrc/cmatmul.cu``, built by ``ops/_build.py`` at first use and bound with
-``ctypes``. The source's head comment says what bounds it on the card and
-what its design does about that.
+* Kernel B3, ``cmatmul``: the planar complex matrix product
+  ``(zr + i zi) @ (wr + i wi) -> (zr@wr - zi@wi, zr@wi + zi@wr)``, the port
+  of the JAX package's Pallas kernel ``cmatmul_pallas``
+  (``swiftly_tpu/ops/pallas_kernels.py:102``); ``csrc/cmatmul.cu``.
+* Kernel B1, ``colpass``: the streamed column pass's fused complex triple
+  product ``A_f @ X_sf @ B_f``, summed over the facets f or per facet, the
+  port of ``colpass_pallas`` (``pallas_kernels.py:265``);
+  ``csrc/colpass.cu``.
+* Kernel B2, ``fold``: the streamed backward's adjoint sampled fold
+  ``acc += w * ((Bc - i Bs)^T @ (Rr + i Ri))``, in place, the port of
+  ``bwd_fold_pallas`` (``pallas_kernels.py:171``); ``csrc/fold.cu``.
 
-The wrapper takes the plain version (four ``torch.matmul`` products) only
-when every tensor lies on the CPU. For CUDA tensors it launches the kernel
-or raises; nothing falls back.
+CUDA C++ for ``sm_90a``, built by ``ops/_build.py`` at first use and bound
+with ``ctypes``. Each source's head comment says what bounds it on the card
+and what its design does about that; B1 and B2 share the strided tile
+engine of ``csrc/cgemm.cuh``, so they take their operands as strided views
+(e.g. one plane of an interleaved (..., 2) tensor) without copies.
+
+Each wrapper takes its plain version (``torch.matmul`` products) only when
+every tensor lies on the CPU. For CUDA tensors it launches the kernel or
+raises; nothing falls back. Each kernel has a launch counter
+(``cmatmul_stats``, ``colpass_stats``, ``fold_stats``).
 """
 
 from __future__ import annotations
@@ -23,7 +34,19 @@ import torch
 
 from . import _build
 
-__all__ = ["KernelStats", "cmatmul", "cmatmul_plain", "cmatmul_stats", "load_cmatmul"]
+__all__ = [
+    "KernelStats",
+    "cmatmul",
+    "cmatmul_plain",
+    "cmatmul_stats",
+    "colpass",
+    "colpass_plain",
+    "colpass_stats",
+    "fold",
+    "fold_plain",
+    "fold_stats",
+    "load_cmatmul",
+]
 
 
 class KernelStats:
@@ -49,25 +72,85 @@ class KernelStats:
 
 
 cmatmul_stats = KernelStats("cmatmul")
+colpass_stats = KernelStats("colpass")
+fold_stats = KernelStats("fold")
 
-_lib = None
+_libs = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# argument types of each library's entry points swiftly_<name>_f32/_f64;
+# each library also exports swiftly_<name>_error_string
+_ARGTYPES = {
+    "cmatmul": [_P] * 6 + [_LL, _I, _I, _P],
+    "colpass": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES,
+                _I, _I, _I, _I, _LL, _I, _P],
+    "fold": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES, _P, _LL,
+             _LL, _I, _I, _I, _P],
+}
+
+
+def _load(name):
+    """Build (if needed) and load one kernel library; returns the ctypes
+    handle, with its entry points typed."""
+    if name not in _libs:
+        path, _ = _build.build(name)
+        lib = ctypes.CDLL(str(path))
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, f"swiftly_{name}{suffix}")
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = ctypes.c_int
+        err = getattr(lib, f"swiftly_{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
 
 
 def load_cmatmul():
     """Build (if needed) and load the B3 library; returns the ctypes handle."""
-    global _lib
-    if _lib is None:
-        path, _ = _build.build("cmatmul")
-        lib = ctypes.CDLL(str(path))
-        for fn in (lib.swiftly_cmatmul_f32, lib.swiftly_cmatmul_f64):
-            fn.argtypes = [ctypes.c_void_p] * 6 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-        lib.swiftly_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.swiftly_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return _load("cmatmul")
+
+
+def _launch(name, dtype, what, *args):
+    """Call the f32 or f64 entry point of one library; raise on a failed
+    launch."""
+    lib = _load(name)
+    suffix = "_f32" if dtype == torch.float32 else "_f64"
+    err = getattr(lib, f"swiftly_{name}{suffix}")(*args)
+    if err != 0:
+        msg = getattr(lib, f"swiftly_{name}_error_string")(err).decode()
+        raise RuntimeError(
+            f"{name} kernel launch failed for {what}: CUDA error {err} ({msg})"
+        )
+
+
+def _strides(*values):
+    return (ctypes.c_longlong * len(values))(*[int(v) for v in values])
+
+
+def _on_cpu(tensors):
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_cuda(name, tensors):
+    """One CUDA device and one float dtype (float32 or float64) for all."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{name}: all planes must lie on one CUDA device (got "
+            f"{[str(t.device) for t in tensors]})"
+        )
+    dt = tensors[0].dtype
+    if dt not in (torch.float32, torch.float64) or any(
+        t.dtype != dt for t in tensors
+    ):
+        raise TypeError(
+            f"{name}: planes must all be float32 or all float64 (got "
+            f"{[t.dtype for t in tensors]})"
+        )
 
 
 def cmatmul_plain(zr, zi, wr, wi):
@@ -79,19 +162,7 @@ def cmatmul_plain(zr, zi, wr, wi):
 
 
 def _check(zr, zi, wr, wi):
-    dev = zr.device
-    if dev.type != "cuda" or any(t.device != dev for t in (zi, wr, wi)):
-        raise ValueError(
-            "cmatmul: all four planes must lie on one CUDA device (got "
-            f"{[str(t.device) for t in (zr, zi, wr, wi)]})"
-        )
-    if zr.dtype not in (torch.float32, torch.float64) or any(
-        t.dtype != zr.dtype for t in (zi, wr, wi)
-    ):
-        raise TypeError(
-            "cmatmul: planes must all be float32 or all float64 (got "
-            f"{[t.dtype for t in (zr, zi, wr, wi)]})"
-        )
+    _check_cuda("cmatmul", (zr, zi, wr, wi))
     if (zr.ndim != 2 or wr.ndim != 2 or zi.shape != zr.shape
             or wi.shape != wr.shape or zr.shape[1] != wr.shape[0]):
         raise ValueError(
@@ -110,7 +181,7 @@ def cmatmul(zr, zi, wr, wi):
     :param wr, wi: [K, N] real and imaginary planes (contiguous)
     :return: two new [B, N] tensors
     """
-    if all(t.device.type == "cpu" for t in (zr, zi, wr, wi)):
+    if _on_cpu((zr, zi, wr, wi)):
         return cmatmul_plain(zr, zi, wr, wi)
     _check(zr, zi, wr, wi)
     B, K = zr.shape
@@ -119,18 +190,183 @@ def cmatmul(zr, zi, wr, wi):
     outi = torch.empty((B, N), dtype=zr.dtype, device=zr.device)
     if B == 0 or N == 0:
         return outr, outi
-    lib = load_cmatmul()
-    fn = (lib.swiftly_cmatmul_f32 if zr.dtype == torch.float32
-          else lib.swiftly_cmatmul_f64)
     with torch.cuda.device(zr.device):
         stream = torch.cuda.current_stream(zr.device).cuda_stream
-        err = fn(zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-                 outr.data_ptr(), outi.data_ptr(), B, K, N, stream)
-    if err != 0:
-        msg = lib.swiftly_cuda_error_string(err).decode()
-        raise RuntimeError(
-            f"cmatmul kernel launch failed for (B, K, N) = ({B}, {K}, {N}): "
-            f"CUDA error {err} ({msg})"
-        )
+        _launch("cmatmul", zr.dtype, f"(B, K, N) = ({B}, {K}, {N})",
+                zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+                outr.data_ptr(), outi.data_ptr(), B, K, N, stream)
     cmatmul_stats.record((B, K, N))
     return outr, outi
+
+
+# ---------------------------------------------------------------------------
+# B1: the fused column-pass product
+# ---------------------------------------------------------------------------
+
+
+def colpass_plain(ar, ai, xr, xi, br, bi, reduce_f=True):
+    """The plain PyTorch version of B1: ``T = A_f @ X_sf`` then
+    ``T @ B_f``, four real products each, summed over f with
+    ``reduce_f``."""
+    tr = torch.matmul(ar, xr) - torch.matmul(ai, xi)  # [S, F, M, Q]
+    ti = torch.matmul(ar, xi) + torch.matmul(ai, xr)
+    pr = torch.matmul(tr, br) - torch.matmul(ti, bi)  # [S, F, M, N]
+    pi = torch.matmul(tr, bi) + torch.matmul(ti, br)
+    if reduce_f:
+        return pr.sum(1), pi.sum(1)
+    return pr, pi
+
+
+def _colpass_shapes(ar, ai, xr, xi, br, bi):
+    if ar.ndim != 3 or xr.ndim != 4 or br.ndim != 3 or ai.shape != ar.shape \
+            or xi.shape != xr.shape or bi.shape != br.shape:
+        raise ValueError(
+            "colpass: expected A [F, M, P], X [S, Fx, P, Q] and B [F, Q, N] "
+            f"planes, got {[tuple(t.shape) for t in (ar, ai, xr, xi, br, bi)]}"
+        )
+    F, M, P = ar.shape
+    S, Fx, P2, Q = xr.shape
+    F2, Q2, N = br.shape
+    if P2 != P or Q2 != Q or F2 != F or Fx not in (1, F):
+        raise ValueError(
+            f"colpass: shapes do not chain: A {tuple(ar.shape)}, "
+            f"X {tuple(xr.shape)}, B {tuple(br.shape)}"
+        )
+    return F, M, P, S, Fx, Q, N
+
+
+def _same_strides(a, b):
+    if a.stride() != b.stride():
+        raise ValueError(
+            "the real and imaginary planes of an operand must share strides "
+            f"(got {a.stride()} and {b.stride()})"
+        )
+
+
+def colpass(ar, ai, xr, xi, br, bi, reduce_f=True):
+    """Kernel B1: the column pass's complex triple product.
+
+    ``out[s] = sum_f A[f] @ X[s, f] @ B[f]`` with ``reduce_f`` (the
+    forward body), else ``out[s, f] = A[f] @ X[s, f] @ B[f]`` (the adjoint
+    body). Planes may be strided views (e.g. ``t[..., 0]`` of an
+    interleaved planar tensor); the re and im planes of one operand share
+    their strides.
+
+    :param ar, ai: [F, M, P] left operator planes
+    :param xr, xi: [S, Fx, P, Q] middle planes; Fx is F, or 1 (broadcast
+        over the facet axis)
+    :param br, bi: [F, Q, N] right operator planes
+    :return: two new planes, [S, M, N] with ``reduce_f``, else [S, F, M, N]
+    """
+    planes = (ar, ai, xr, xi, br, bi)
+    F, M, P, S, Fx, Q, N = _colpass_shapes(*planes)
+    if _on_cpu(planes):
+        return colpass_plain(*planes, reduce_f=reduce_f)
+    _check_cuda("colpass", planes)
+    for a, b in ((ar, ai), (xr, xi), (br, bi)):
+        _same_strides(a, b)
+    dt, dev = ar.dtype, ar.device
+    out_shape = (S, M, N) if reduce_f else (S, F, M, N)
+    outr = torch.empty(out_shape, dtype=dt, device=dev)
+    outi = torch.empty(out_shape, dtype=dt, device=dev)
+    if min(S, F, M, N) == 0:
+        return outr, outi
+    if P == 0 or Q == 0:
+        return outr.zero_(), outi.zero_()
+    # Each call of the library is one product over the batch (b0, b1) with
+    # a contraction (r, k); strides are (b0, b1, r, row, col) per operand
+    # and (b0, b1, row, col) for the output.
+    # Launch 1: T[s, f] = A[f] @ X[s, f] for all (s, f), staged in global
+    # memory.
+    tr = torch.empty((S, F, M, Q), dtype=dt, device=dev)
+    ti = torch.empty_like(tr)
+    sa, sx, sb, st, so = (ar.stride(), xr.stride(), br.stride(), tr.stride(),
+                          outr.stride())
+    what = f"(S, F, Fx, M, P, Q, N) = ({S}, {F}, {Fx}, {M}, {P}, {Q}, {N})"
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("colpass", dt, what,
+                ar.data_ptr(), ai.data_ptr(), _strides(0, sa[0], 0, sa[1], sa[2]),
+                xr.data_ptr(), xi.data_ptr(),
+                _strides(sx[0], sx[1] if Fx == F else 0, 0, sx[2], sx[3]),
+                tr.data_ptr(), ti.data_ptr(), _strides(*st), M, Q, P, 1, S, F,
+                stream)
+        # Launch 2: out[s] = sum_f T[s, f] @ B[f] (f the summed axis r, so
+        # the sum stays in registers), or out[s, f] = T[s, f] @ B[f].
+        if reduce_f:
+            t_st = _strides(st[0], 0, st[1], st[2], st[3])
+            b_st = _strides(0, 0, sb[0], sb[1], sb[2])
+            o_st, nR, nb1 = _strides(so[0], 0, so[1], so[2]), F, 1
+        else:
+            t_st = _strides(st[0], st[1], 0, st[2], st[3])
+            b_st = _strides(0, sb[0], 0, sb[1], sb[2])
+            o_st, nR, nb1 = _strides(*so), 1, F
+        _launch("colpass", dt, what,
+                tr.data_ptr(), ti.data_ptr(), t_st, br.data_ptr(),
+                bi.data_ptr(), b_st, outr.data_ptr(), outi.data_ptr(), o_st,
+                M, N, Q, nR, S, nb1, stream)
+    colpass_stats.record((S, F, Fx, M, P, Q, N, bool(reduce_f)))
+    return outr, outi
+
+
+# ---------------------------------------------------------------------------
+# B2: the adjoint sampled fold
+# ---------------------------------------------------------------------------
+
+
+def fold_plain(acc_r, acc_i, bc, bs, rr, ri, w):
+    """The plain PyTorch version of B2, in place:
+    ``acc += w * ((Bc - i Bs)^T @ (Rr + i Ri))`` per facet."""
+    bct, bst = bc.transpose(0, 1), bs.transpose(0, 1)  # [B, R]
+    out_r = torch.matmul(bct, rr) + torch.matmul(bst, ri)  # [F, B, J]
+    out_i = torch.matmul(bct, ri) - torch.matmul(bst, rr)
+    wc = w.reshape(-1, 1)
+    acc_r += wc * out_r
+    acc_i += wc * out_i
+    return acc_r, acc_i
+
+
+def fold(acc_r, acc_i, bc, bs, rr, ri, w):
+    """Kernel B2: one adjoint-fold row block, accumulated in place.
+
+    ``acc[f] += w (.) ((Bc - i Bs)^T @ (Rr + i Ri)[f])`` for every facet f.
+    Every argument may be a strided view: the accumulator planes are
+    typically ``acc[:, rows, :, 0]`` and ``acc[:, rows, :, 1]`` of the
+    interleaved [F, yB, yB, 2] image accumulator, updated where they lie.
+
+    :param acc_r, acc_i: [F, B, J] accumulator planes (updated in place)
+    :param bc, bs: [R, B] adjoint DFT phase planes (cos/sin of kt * i)
+    :param rr, ri: [F, R, J] phase-rotated row planes
+    :param w: [B] per-output-row weights (Fb window x keep mask)
+    :return: (acc_r, acc_i)
+    """
+    tensors = (acc_r, acc_i, bc, bs, rr, ri, w)
+    if acc_r.ndim != 3 or rr.ndim != 3 or bc.ndim != 2 or w.ndim != 1:
+        raise ValueError(
+            "fold: expected acc [F, B, J], bc/bs [R, B], rows [F, R, J] and "
+            f"w [B], got {[tuple(t.shape) for t in tensors]}"
+        )
+    F, B, J = acc_r.shape
+    R = bc.shape[0]
+    if (acc_i.shape != acc_r.shape or bs.shape != bc.shape
+            or ri.shape != rr.shape or tuple(bc.shape) != (R, B)
+            or tuple(rr.shape) != (F, R, J) or tuple(w.shape) != (B,)):
+        raise ValueError(
+            f"fold: shapes do not match: {[tuple(t.shape) for t in tensors]}"
+        )
+    if _on_cpu(tensors):
+        return fold_plain(*tensors)
+    _check_cuda("fold", tensors)
+    for a, b in ((acc_r, acc_i), (bc, bs), (rr, ri)):
+        _same_strides(a, b)
+    if min(F, B, J, R) == 0:
+        return acc_r, acc_i
+    with torch.cuda.device(acc_r.device):
+        stream = torch.cuda.current_stream(acc_r.device).cuda_stream
+        _launch("fold", acc_r.dtype, f"(F, B, J, R) = ({F}, {B}, {J}, {R})",
+                acc_r.data_ptr(), acc_i.data_ptr(), _strides(*acc_r.stride()),
+                bc.data_ptr(), bs.data_ptr(), _strides(*bc.stride()),
+                rr.data_ptr(), ri.data_ptr(), _strides(*rr.stride()),
+                w.data_ptr(), w.stride(0), F, B, J, R, stream)
+    fold_stats.record((F, B, J, R))
+    return acc_r, acc_i

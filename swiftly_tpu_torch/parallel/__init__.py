@@ -1,5 +1,13 @@
-"""Batched execution over facet and subgrid stacks (single device)."""
+"""Execution over facet and subgrid stacks on one device: the batched
+whole-cover path and the streamed (facets-resident / sampled) path."""
 
-from . import batched
+from . import batched, streamed
+from .streamed import StreamedBackward, StreamedForward, feed_backward_passes
 
-__all__ = ["batched"]
+__all__ = [
+    "StreamedBackward",
+    "StreamedForward",
+    "batched",
+    "feed_backward_passes",
+    "streamed",
+]
