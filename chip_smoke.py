@@ -8,12 +8,17 @@ points a user calls, builds its hand-written kernels from the sources in
 this checkout, and holds each kernel against its plain PyTorch version:
 
 1. device: the card's name and power limit;
-2. build: the CUDA sources of kernels B3, B1 and B2
+2. build: the CUDA sources of kernels B3, B1, B2 and B4 with its adjoint
    (``swiftly_tpu_torch/csrc``), one nvcc each, started together, with
    ptxas's registers/shared memory/spills;
 3. kernel B3 (planar complex matmul) against its plain version at a
    ragged shape, in float32 and float64; kernels B1 (column pass, both
-   forms) and B2 (sampled fold) likewise at ragged shapes;
+   forms) and B2 (sampled fold) likewise at ragged shapes; kernel B4
+   (visibility degrid) and its adjoint ``grid`` likewise at ragged shapes
+   (B no power of two, rows no multiple of anything, taps at the rows'
+   edges, many samples on one pixel for ``grid``), with B4's lanes
+   bit-identical between B = 2 and B = 4096, two ``grid`` runs
+   bit-identical and ``grid`` writing nothing outside the patches;
 4. float64 round trips at ``1k[1]-n512-256`` on the card against the
    analytic oracle: fused and per subgrid, then streamed;
 5. the fused round trip (``SwiftlyForward.all_subgrids`` then
@@ -28,16 +33,39 @@ this checkout, and holds each kernel against its plain PyTorch version:
    sampled subgrids and on all facets, the two runs' facets bit-identical;
    then one more round trip under torch.profiler, its device-busy time
    against its own synchronised window;
-7. B3, B1 and B2 against their plain versions and one PyTorch library
-   call, timed with CUDA events at every shape each 32k path gave them
-   (B3 at the fused path's shapes and at the streamed path's).
+7. every kernel against its plain version and one PyTorch library call,
+   timed at every shape each 32k path gave it (B3 at the fused path's
+   shapes, the streamed path's and the visibility path's; ``grid``, whose
+   batch size varies per dispatch, at its four most frequent and its four
+   largest, beside its device time over all its launches traced in
+   phase 8): with CUDA
+   events around a run of calls, and for B4 and ``grid``, whose launches
+   take microseconds, with the run queued behind a device-side spin so
+   that the events time the device alone (``call_ms`` beside it is the
+   plain CUDA-event time per call, the host's call rate); it runs last,
+   after phase 8, whose shapes it times too;
+8. visibility serving and gridding at ``32k[1]-n16k-512``, planar f32
+   (the main path of the visibility slice): a ``SwiftlyForward`` over
+   facets of the grid-corrected, band-limited sky model, a cache feed
+   (``SpillCache`` / ``CachedColumnFeed``) seeded with the hottest
+   column's rows, 2^20 zipf-over-columns samples with a 10% uniform tail
+   served through ``VisibilityService`` in 16 batches (pumped dry after
+   every second, the feed force-evicted after the fourth), every served
+   sample gridded by a version-pinned ``VisGridder`` and ingested by a
+   sampled ``StreamedBackward``; gated on the oracle, the shed reasons,
+   the cache ladder, the adjoint identity, bit-identity to a fresh
+   forward's rows at another bucket and of a second gridding, and the
+   facet-update version gates; then the traffic's first batch (65,536
+   samples, from a freshly seeded feed) served again under torch.profiler
+   for the device's idle share.
 
 The launch counters are set to 0 just before each 32k path runs and read
 just after it. Every phase that fails ends the run with a non-zero exit
-code. The line before the last is the ``kernels`` JSON record: per
-kernel, ``launches`` and the times beside it are the streamed path's
-(the main path of the streamed slice), and ``paths`` holds each 32k
-path's launches with the times at that path's shapes. The last line is
+code. The last lines are the ``vis`` JSON record of phase 8, the
+``kernels`` JSON record (per kernel, ``launches`` and the times beside it
+are its main path's: the streamed path's for B3, B1 and B2, the
+visibility path's for B4 and ``grid``; ``paths`` holds each 32k path's
+launches with the times at that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 """
@@ -98,6 +126,28 @@ B1_RAGGED = [  # (S, F, Fx, M, P, Q, N, reduce_f)
 ]
 B2_RAGGED = [(3, 70, 100, 50), (2, 130, 200, 33)]  # (F, B, J, R)
 
+# (B, W, H) of B4 and its adjoint: ragged batches and rows, B4 also at
+# the 4096-sample cap for the lane bits
+VIS_RAGGED = [(5, 8, 37), (300, 8, 61), (17, 4, 24), (4096, 8, 448)]
+GRID_RAGGED = [(5, 8, 37), (300, 8, 61), (33, 6, 50), (1000, 8, 448)]
+
+# Phase 7's traffic (the reference benchmark's visibility leg,
+# bench.py:1747, at the full 2^20 samples)
+VIS_SAMPLES = 2**20
+VIS_BATCHES = 16
+VIS_SEED = 1234
+VIS_ZIPF_S = 1.1
+VIS_MAX_DEPTH = 65536
+VIS_MAX_BATCH = 64
+VIS_EVICT_AFTER = 4  # batches served from the feed before it is evicted
+# whole batches in the profiled serving window, from the traffic's first
+VIS_PROFILE_BATCHES = 1
+# the grid kernel is timed at its most frequent and at its largest shapes
+GRID_TIMED_SHAPES = 4
+
+# the library (csrc/<name>.cu) each kernel is built from
+KERNEL_LIBS = {"cmatmul": "cmatmul", "colpass": "colpass", "fold": "fold",
+               "degrid": "degrid", "grid": "degrid"}
 KERNEL_SOURCES = {
     "cmatmul": ("swiftly_tpu_torch/csrc/cmatmul.cu",
                 "swiftly_tpu/ops/pallas_kernels.py:102"),
@@ -105,6 +155,11 @@ KERNEL_SOURCES = {
                 "swiftly_tpu/ops/pallas_kernels.py:265"),
     "fold": ("swiftly_tpu_torch/csrc/fold.cu",
              "swiftly_tpu/ops/pallas_kernels.py:171"),
+    "degrid": ("swiftly_tpu_torch/csrc/degrid.cu",
+               "swiftly_tpu/vis/degrid.py:71"),
+    # not a TPU kernel: the port of the scatter-add adjoint of B4
+    "grid": ("swiftly_tpu_torch/csrc/degrid.cu",
+             "swiftly_tpu/vis/grid.py:42"),
 }
 
 
@@ -132,12 +187,12 @@ def sources_for(N):
 
 
 def build_kernels():
-    """Build kernels B3, B1 and B2 from their sources (one nvcc each,
-    started together) and print ptxas's reports."""
+    """Build kernels B3, B1, B2 and B4 (with its adjoint) from their
+    sources (one nvcc each, started together) and print ptxas's reports."""
     from swiftly_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    built = _build.build_all(KERNEL_SOURCES)
+    built = _build.build_all(sorted(set(KERNEL_LIBS.values())))
     log(f"built {', '.join(built)} in {time.perf_counter() - t0:.1f} s")
     for name, (path, report) in built.items():
         log(f"{name}: {path.relative_to(ROOT)}")
@@ -165,6 +220,28 @@ def _cuda_ms(torch, fn, iters):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def _device_ms(torch, fn, iters, hold_cycles=200_000_000):
+    """Mean device time of `fn` per call, for launches of a few
+    microseconds: CUDA events around a run of calls would time the host's
+    call rate instead. The device first spins for `hold_cycles` clock
+    cycles (~0.1 s), so the host enqueues the events and all `iters` calls
+    behind the spin and the device then runs them back to back. A call that
+    synchronises the host (the plain scatter's rounds do) breaks the queue:
+    its time then includes host work."""
+    for _ in range(2):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(hold_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -364,6 +441,176 @@ def check_cmatmul(torch, shape, dtype, seed=0, timed=False):
     return res
 
 
+def _vis_inputs(torch, shape, dtype, seed, one_pixel=False):
+    """Inputs of B4 and its adjoint at (B, W, H): an interleaved tensor
+    whose [H, H, 2] view (at an offset, so strided) is the row or the
+    accumulator, int64 first-tap indices (the first two samples at opposite
+    corners of the row), the kernel's tap weights and sample planes; the
+    host indices too."""
+    from swiftly_tpu_torch.vis import vis_kernel
+
+    B, W, H = shape
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(seed)
+    iu0 = rng.integers(0, H - W + 1, size=B)
+    iv0 = rng.integers(0, H - W + 1, size=B)
+    if one_pixel:
+        iu0[:], iv0[:] = H // 3, H // 2
+    iu0[:2], iv0[:2] = (0, H - W)[:B], (H - W, 0)[:B]
+    k = vis_kernel(support=W)
+    cu = k.weights(rng.uniform(0, 1, size=B), dtype=np_dt)
+    cv = k.weights(rng.uniform(0, 1, size=B), dtype=np_dt)
+    y = rng.standard_normal((2, B)).astype(np_dt)
+    big = torch.as_tensor(rng.standard_normal((H + 3, H + 2, 2)).astype(np_dt),
+                          device="cuda")
+    dev = [torch.as_tensor(a, device="cuda") for a in (iu0, iv0, cu, cv, y)]
+    return big, (iu0, iv0), dev
+
+
+def _touched(iu0, iv0, W, H):
+    """Flat indices (into an [H, H] plane) of the distinct pixels the
+    samples' patches cover."""
+    offs = np.arange(W)
+    u = (iu0[:, None] + offs)[:, :, None]
+    v = (iv0[:, None] + offs)[:, None, :]
+    return np.unique((u * H + v).reshape(-1))
+
+
+def check_degrid(torch, shape, dtype, seed=0, timed=False):
+    """B4 against its plain version at one (B, W, H), the row a strided
+    view; its lanes against runs of two (B = 2) at the start, middle and
+    end; with `timed`, also the times and the bound."""
+    from swiftly_tpu_torch.ops.kernels import degrid, degrid_plain
+
+    B, W, H = shape
+    big, (iu0_h, iv0_h), (iu0, iv0, cu, cv, _) = _vis_inputs(
+        torch, shape, dtype, seed)
+    row = big[1:1 + H, 2:2 + H]
+    planes = (row[..., 0], row[..., 1])
+    vr, vi = degrid(*planes, iu0, iv0, cu, cv)
+    torch.cuda.synchronize()
+    pr, pi = degrid_plain(*planes, iu0, iv0, cu, cv)
+    max_abs = max((vr - pr).abs().max().item(), (vi - pi).abs().max().item())
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    name = str(dtype).replace("torch.", "")
+    rel = max_abs / scale
+    again = degrid(*planes, iu0, iv0, cu, cv)
+    bit_identical = bool(torch.equal(again[0], vr) and torch.equal(again[1], vi))
+    lanes_ok = True
+    for k in sorted({0, max(0, B // 2 - 1), max(0, B - 2)}):
+        sl = slice(k, k + 2)
+        two = degrid(*planes, iu0[sl], iv0[sl], cu[sl], cv[sl])
+        lanes_ok &= bool(torch.equal(two[0], vr[sl])
+                         and torch.equal(two[1], vi[sl]))
+    res = {"shape": list(shape), "dtype": name, "max_abs_err": max_abs,
+           "max_rel_err": rel, "tol_rel": KERNEL_REL_TOL[name],
+           "bit_identical_rerun": bit_identical,
+           "lanes_bit_identical_at_B2": lanes_ok}
+    require(rel <= KERNEL_REL_TOL[name],
+            f"degrid {shape} {name}: relative error {rel:.3e} > "
+            f"{KERNEL_REL_TOL[name]:.0e}")
+    require(bit_identical, f"degrid {shape} {name}: reruns differ")
+    require(lanes_ok, f"degrid {shape} {name}: a lane's bits depend on B")
+    if timed:
+        item = row.element_size()
+        pixels = _touched(iu0_h, iv0_h, W, H).size
+        flops = 5 * W * W * B  # the tap weight, then a multiply-add per plane
+        nbytes = item * (2 * pixels + 2 * W * B + 2 * B) + 8 * 2 * B
+        iters = 50
+        run = lambda: degrid(*planes, iu0, iv0, cu, cv)  # noqa: E731
+        res["ms"] = _device_ms(torch, run, iters)
+        res["call_ms"] = _cuda_ms(torch, run, iters)
+        res["plain_ms"] = _device_ms(
+            torch, lambda: degrid_plain(*planes, iu0, iv0, cu, cv), iters)
+        rowc = torch.view_as_complex(row)
+        cuc, cvc = cu.to(rowc.dtype), cv.to(rowc.dtype)
+        offs = torch.arange(W, device="cuda")
+        iu, iv = iu0[:, None] + offs, iv0[:, None] + offs
+
+        def lib():
+            patches = rowc[iu[:, :, None], iv[:, None, :]]
+            return torch.einsum("bij,bi,bj->b", patches, cuc, cvc)
+
+        res["library_ms"] = _device_ms(torch, lib, iters)
+        res["library_call"] = f"gather plus torch.einsum on {rowc.dtype}"
+        res["bound_ms"], res["bound_by"] = _bound(flops, nbytes)
+        res["distinct_pixels"] = int(pixels)
+    log(f"degrid {tuple(shape)} {name}: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in res.items() if k not in ("shape", "dtype")))
+    return res
+
+
+def check_grid(torch, shape, dtype, seed=0, timed=False, one_pixel=False):
+    """B4's adjoint against its plain version at one (B, W, H), adding into
+    a strided view of a larger accumulator: two runs bit-identical, nothing
+    written outside the patches; with `timed`, also the times and the
+    bound."""
+    from swiftly_tpu_torch.ops.kernels import grid, grid_plain
+
+    B, W, H = shape
+    big, (iu0_h, iv0_h), (iu0, iv0, cu, cv, y) = _vis_inputs(
+        torch, shape, dtype, seed, one_pixel=one_pixel)
+
+    def run(fn, acc):
+        view = acc[1:1 + H, 2:2 + H]
+        fn(view[..., 0], view[..., 1], iu0, iv0, cu, cv, y[0], y[1])
+        return acc
+
+    got = run(grid, big.clone())
+    again = run(grid, big.clone())
+    torch.cuda.synchronize()
+    want = run(grid_plain, big.clone())
+    max_abs = (got - want).abs().max().item()
+    scale = (want - big).abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    rel = max_abs / scale
+    touched = np.zeros((H + 3, H + 2), dtype=bool)
+    flat = _touched(iu0_h, iv0_h, W, H)
+    touched[1 + flat // H, 2 + flat % H] = True
+    outside = torch.as_tensor(~touched, device="cuda")
+    untouched = bool(torch.equal(got[outside], big[outside]))
+    res = {"shape": list(shape), "dtype": name, "one_pixel": one_pixel,
+           "max_abs_err": max_abs, "max_rel_err": rel,
+           "tol_rel": KERNEL_REL_TOL[name],
+           "bit_identical_rerun": bool(torch.equal(got, again)),
+           "nothing_outside_patches": untouched}
+    require(rel <= KERNEL_REL_TOL[name],
+            f"grid {shape} {name}: relative error {rel:.3e} > "
+            f"{KERNEL_REL_TOL[name]:.0e}")
+    require(res["bit_identical_rerun"], f"grid {shape} {name}: reruns differ")
+    require(untouched, f"grid {shape} {name}: wrote outside the patches")
+    if timed:
+        item = big.element_size()
+        pixels = flat.size
+        flops = 5 * W * W * B  # the tap weight, then a multiply and an add per plane
+        nbytes = item * (2 * 2 * pixels + 2 * W * B + 2 * B) + 8 * 2 * B
+        iters = 20
+        acc = big.clone()
+        res["ms"] = _device_ms(torch, lambda: run(grid, acc), iters)
+        res["call_ms"] = _cuda_ms(torch, lambda: run(grid, acc), iters)
+        res["plain_ms"] = _device_ms(torch, lambda: run(grid_plain, acc),
+                                     iters)
+        flat_acc = acc.view(-1)  # interleaved: pixel p's planes at 2p, 2p + 1
+        offs = torch.arange(W, device="cuda")
+        u = (iu0[:, None] + offs)[:, :, None] + 1
+        v = (iv0[:, None] + offs)[:, None, :] + 2
+        pix = (u * (H + 2) + v).reshape(-1)
+        w2 = (cu[:, :, None] * cv[:, None, :]).reshape(B, -1)
+        idx = torch.cat([2 * pix, 2 * pix + 1])
+        vals = torch.cat([(y[0][:, None] * w2).reshape(-1),
+                          (y[1][:, None] * w2).reshape(-1)])
+        res["library_ms"] = _device_ms(
+            torch, lambda: flat_acc.index_add_(0, idx, vals), iters)
+        res["library_call"] = f"index_add_ on {flat_acc.dtype} (atomics)"
+        res["bound_ms"], res["bound_by"] = _bound(flops, nbytes)
+        res["distinct_pixels"] = int(pixels)
+    log(f"grid {tuple(shape)} {name}: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in res.items() if k not in ("shape", "dtype")))
+    return res
+
+
 # -- round trips ------------------------------------------------------------
 
 
@@ -371,7 +618,8 @@ def _stats():
     import swiftly_tpu_torch as st
 
     return {"cmatmul": st.cmatmul_stats, "colpass": st.colpass_stats,
-            "fold": st.fold_stats}
+            "fold": st.fold_stats, "degrid": st.degrid_stats,
+            "grid": st.grid_stats}
 
 
 def reset_counts():
@@ -722,7 +970,8 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
     require(warm_digests is None or digests == warm_digests,
             "the warm and timed runs' facets differ")
     if device == "cuda":
-        missing = [k for k, v in out["launches"].items() if v == 0]
+        missing = [k for k in ("cmatmul", "colpass", "fold")
+                   if out["launches"][k] == 0]
         require(not missing, f"the streamed main path launched {missing} "
                              "no time")
         fwd_b1 = sum(v for key, v in counts["colpass"][1].items() if key[-1])
@@ -763,6 +1012,24 @@ def streamed_stages(torch, cfg, fcs, facets_in):
     log(f"streamed stages: facet upload {upload_s:.3f} s, sampled facet pass "
         f"over {krows.shape[0]} rows {sampled_ms / 1e3:.3f} s")
     return out
+
+
+def _device_events(prof):
+    """[(name, start_ns, end_ns)] of every device activity of a finished
+    profile, read from its kineto results: the profiler's event tree takes
+    minutes to build for a trace of many thousands of launches."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def _kernel_seconds(events, kernel):
+    """(device seconds, launches) of the hand-written `kernel` (its C++
+    name, e.g. ``grid_kernel``) among `_device_events`."""
+    spans = [b - a for name, a, b in events if f"::{kernel}<" in name]
+    return sum(spans) / 1e9, len(spans)
 
 
 def _busy_seconds(intervals):
@@ -809,6 +1076,414 @@ def profile_streamed(torch, round_trip, rows=15):
     return out
 
 
+# -- phase 8: visibility serving and gridding -------------------------------
+
+
+def vis_sources(N, kernel):
+    """The spread sources scaled to 0.9 of the kernel's band edge (the fit
+    error grows toward the edge) — the raw sky model the oracle audits;
+    the facets are built from its grid-corrected twin."""
+    maxc = max(max(abs(a), abs(b)) for a, b in SOURCE_FRACTIONS)
+    scale = 0.9 * kernel.band / 2.0 / maxc
+    return [(w, int(x * scale), int(y * scale)) for (w, x, y) in sources_for(N)]
+
+
+def vis_traffic(sgcs, n, seed, zipf_s, margin, N):
+    """Zipf-over-columns (u, v) samples (shuffled popularity, p ~ 1/rank^s),
+    each uniform inside a random subgrid of its column, ``margin`` pixels
+    in from its edge, then a 10% uniform-over-the-grid tail: the reference
+    benchmark's ``_vis_zipf_uv`` (bench.py:1712), drawn vectorised.
+
+    :return: ([n, 2] uv, the hottest column's off0)
+    """
+    rng = np.random.default_rng(seed)
+    cols = sorted({sg.off0 for sg in sgcs})
+    by_col = {c: [] for c in cols}
+    for sg in sgcs:
+        by_col[sg.off0].append(sg)
+    order = rng.permutation(len(cols))
+    ranks = np.empty(len(cols), dtype=int)
+    ranks[order] = np.arange(len(cols))
+    p = 1.0 / (ranks + 1.0) ** zipf_s
+    p /= p.sum()
+    n_tail = n // 10
+    n_zipf = n - n_tail
+    picks = rng.choice(len(cols), size=n_zipf, p=p)
+    S = max(len(v) for v in by_col.values())
+    n_in = np.array([len(by_col[c]) for c in cols])
+    off1 = np.zeros((len(cols), S))
+    size = np.ones((len(cols), S))
+    for c, col in enumerate(cols):
+        off1[c, :n_in[c]] = [sg.off1 for sg in by_col[col]]
+        size[c, :n_in[c]] = [sg.size for sg in by_col[col]]
+    s = np.minimum((rng.uniform(size=n_zipf) * n_in[picks]).astype(int),
+                   n_in[picks] - 1)
+    half = size[picks, s] / 2.0 - margin
+    uv = np.empty((n, 2))
+    uv[:n_zipf, 0] = np.asarray(cols)[picks] + rng.uniform(-half, half)
+    uv[:n_zipf, 1] = off1[picks, s] + rng.uniform(-half, half)
+    uv[n_zipf:] = rng.uniform(0, N, size=(n_tail, 2))
+    return uv, cols[int(np.argmax(p))]
+
+
+def vis_feed(hot_col, hot_stack, tag):
+    """A `SpillCache` recorded with the hottest column's rows (one
+    [1, S, xA, xA, 2] entry) and the `CachedColumnFeed` over it."""
+    from swiftly_tpu_torch.parallel.streamed import CachedColumnFeed
+    from swiftly_tpu_torch.utils.spill import SpillCache
+
+    spill = SpillCache(budget_bytes=2**30)
+    spill.begin_fill(tag=tag)
+    spill.put([list(enumerate(hot_col))], hot_stack)
+    spill.end_fill()
+    return spill, CachedColumnFeed(spill)
+
+
+def _served(tracked):
+    """(uv, samples) of every served sample of the tracked handles."""
+    uv, data = [], []
+    for uv_b, h in tracked:
+        m = np.isfinite(h.data)
+        uv.append(np.atleast_2d(uv_b)[m])
+        data.append(h.data[m])
+    return np.concatenate(uv), np.concatenate(data)
+
+
+def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
+             n_samples=VIS_SAMPLES, n_batches=VIS_BATCHES, fold_group=4,
+             n_bitcheck=48):
+    """The main path of the visibility slice: serve, grid and ingest, with
+    its gates (module docstring, phase 8)."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import vis as sv
+    from swiftly_tpu_torch.serve import AdmissionQueue, CoalescingScheduler
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mark(step):
+        log(f"  [vis: {step} at {time.perf_counter() - t_phase:.1f} s]")
+
+    kernel = sv.vis_kernel()
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    raw = vis_sources(N, kernel)
+    corrected = kernel.correct_sources(raw, N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    t0 = time.perf_counter()
+    tasks = [(fc, st.make_real_facet(N, fc, corrected)) for fc in fcs]
+    uv_all, hot_off0 = vis_traffic(sgcs, n_samples, VIS_SEED, VIS_ZIPF_S,
+                                   kernel.support + 1, N)
+    hot_col = [sg for sg in sgcs if sg.off0 == hot_off0]
+    setup_s = time.perf_counter() - t0
+    log(f"{config_name} vis: {len(fcs)} real facets, {len(sgcs)} subgrids, "
+        f"{n_samples} samples drawn in {setup_s:.1f} s; hottest column "
+        f"{hot_off0} ({len(hot_col)} subgrids)")
+
+    # the forward, and the cache feed seeded with the hottest column's rows
+    # through the same per-subgrid program the compute fallback runs
+    fwd = st.SwiftlyForward(cfg, tasks, lru_forward=2, queue_size=64)
+    hot_stack = np.stack(
+        [fwd.get_subgrid_task(sg).cpu().numpy() for sg in hot_col])[None]
+    feed_tag = ("vis-seed", config_name, len(hot_col))
+    spill, feed = vis_feed(hot_col, hot_stack, feed_tag)
+    mark("forward and cache feed ready")
+    service = sv.VisibilityService(
+        fwd, subgrid_configs=sgcs, kernel=kernel, cache_feed=feed,
+        queue=AdmissionQueue(max_depth=VIS_MAX_DEPTH),
+        scheduler=CoalescingScheduler(max_batch=VIS_MAX_BATCH,
+                                      urgency_s=0.05),
+    )
+    batches = np.array_split(uv_all, n_batches)
+    rng = np.random.default_rng(VIS_SEED + 1)
+    priorities = rng.integers(0, 4, size=n_batches)
+
+    # -- the counted path: serve, then grid and ingest ----------------------
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    extractions0 = fwd.columns_extracted
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    tracked, pending = [], 0
+    for k, b in enumerate(batches):
+        if k == VIS_EVICT_AFTER:
+            spill.reset()  # forced eviction: the feed's index dangles
+        tracked.append((b, service.submit(b, priority=int(priorities[k]))))
+        pending += 1
+        if pending >= 2 or k == n_batches - 1:
+            while service.pump_once():
+                pass
+            pending = 0
+    sync()
+    serve_s = time.perf_counter() - t0
+    serve_counts = read_counts()
+    stats = service.stats()
+    served_uv, served_vis = _served(tracked)
+
+    gridder = sv.VisGridder(service.cover, kernel,
+                            stream_version=service.stream_version,
+                            version_of=lambda: service.stream_version,
+                            device=device)
+    sync()
+    t0 = time.perf_counter()
+    gridder.add_batch(served_uv, served_vis)
+    cols, stack = gridder.emit(planar=True)
+    sync()
+    grid_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bwd = st.StreamedBackward(cfg, fcs, residency="sampled",
+                              fold_group=fold_group)
+    bwd.add_subgrid_group(cols, stack)
+    facets = bwd.finish_device()
+    sync()
+    ingest_s = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+    n_served = stats["n_served_samples"]
+    out = {
+        "config": config_name, "samples": n_samples, "batches": n_batches,
+        "serve_s": serve_s, "samples_per_s": n_served / serve_s,
+        "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+        "max_ms": stats["max_ms"], "dispatches": stats["n_batches"],
+        "mean_batch": stats["mean_batch"], "served_samples": n_served,
+        "shed_reasons": stats["shed_reasons"],
+        "rows_from_cache": stats["cache_hits"],
+        "rows_computed": stats["n_batches"] - stats["cache_hits"],
+        "cache_fallbacks": stats["cache_fallbacks"],
+        "column_extractions": fwd.columns_extracted - extractions0,
+        "grid_s": grid_s, "ingest_s": ingest_s,
+        "gridded_columns": len(cols), "gridded_subgrids": sum(map(len, cols)),
+        "serve_launches": {k: v[0] for k, v in serve_counts.items()},
+        "launches": {k: v[0] for k, v in counts.items()},
+        "counts": counts, "peak_memory_gib": peak, "setup_s": setup_s,
+    }
+    log(f"{config_name} vis: served {n_served} of {n_samples} samples in "
+        f"{serve_s:.3f} s ({out['samples_per_s']:.0f}/s, {stats['n_batches']} "
+        f"dispatches, mean {stats['mean_batch']}), gridded in {grid_s:.3f} s, "
+        f"ingested in {ingest_s:.3f} s; launches {out['launches']}")
+
+    mark("served, gridded and ingested")
+
+    # -- gates ----------------------------------------------------------------
+    oracle = sv.vis_oracle(raw, served_uv, N)
+    out["oracle_rel_rms"] = float(
+        np.sqrt(np.mean(np.abs(served_vis - oracle) ** 2))
+        / np.sqrt(np.mean(np.abs(oracle) ** 2)))
+    out["max_dispatch"] = max(
+        (r.result.batch_size for _, h in tracked for r in h.children
+         if r.result is not None and r.result.ok), default=0)
+    out["facets_finite"] = bool(torch.isfinite(facets).all().item())
+
+    # gridding twice: the same emitted stack and the same facets, bitwise;
+    # the second gridding runs under torch.profiler (device activity only)
+    # for the grid kernel's device time over all its launches
+    gridder2 = sv.VisGridder(service.cover, kernel, device=device)
+    with _device_profile(torch, cuda) as prof:
+        gridder2.add_batch(served_uv, served_vis)
+        cols2, stack2 = gridder2.emit(planar=True)
+        sync()
+    del gridder2
+    if cuda:
+        out["grid_traced_s"], out["grid_traced_launches"] = _kernel_seconds(
+            _device_events(prof), "grid_kernel")
+        log(f"grid kernel in the traced regridding: {out['grid_traced_s']:.4f}"
+            f" s of device time over {out['grid_traced_launches']} launches")
+    out["regrid_stack_bit_identical"] = bool(
+        [[(g.off0, g.off1) for g in c] for c in cols2]
+        == [[(g.off0, g.off1) for g in c] for c in cols]
+        and torch.equal(stack2, stack))
+    del stack, bwd
+    bwd2 = st.StreamedBackward(cfg, fcs, residency="sampled",
+                               fold_group=fold_group)
+    bwd2.add_subgrid_group(cols2, stack2)
+    del stack2
+    out["regrid_facets_bit_identical"] = bool(
+        torch.equal(bwd2.finish_device(), facets))
+    del bwd2, facets
+    mark("gridded and ingested again")
+
+    # the adjoint identity on 32k rows: < degrid(G), y > == < G, grid(y) >
+    rng_adj = np.random.default_rng(VIS_SEED + 5)
+    sg = hot_col[0]
+    half = sg.size / 2.0 - kernel.support - 1
+    uv_adj = np.stack([sg.off0 + rng_adj.uniform(-half, half, size=64),
+                       sg.off1 + rng_adj.uniform(-half, half, size=64)], 1)
+    owners, _ = service.cover.map_samples(uv_adj)
+    lhs = rhs = 0j
+    for key, entry in owners.items():
+        sg_k = service.cover.config(*key)
+        row = fwd.get_subgrid_task(sg_k)
+        cu = kernel.weights(entry["fu"], dtype=np.float64)
+        cv = kernel.weights(entry["fv"], dtype=np.float64)
+        d = sv.degrid_batch(row, entry["iu0"], entry["iv0"], cu, cv)
+        y = rng_adj.normal(size=d.size) + 1j * rng_adj.normal(size=d.size)
+        gr, gi = sv.grid_batch(sg_k.size, entry["iu0"], entry["iv0"], cu, cv,
+                               y, device=device)
+        host = row.cpu().numpy().astype(np.float64)
+        lhs += np.vdot(d, y)
+        rhs += np.vdot(host[..., 0] + 1j * host[..., 1],
+                       gr.cpu().numpy() + 1j * gi.cpu().numpy())
+    out["adjoint_rel"] = float(abs(lhs - rhs) / abs(lhs))
+
+    # the facet update: the pinned gridder refuses, serving is compute-only
+    hits = service.stats()["cache_hits"]
+    service.post_facet_update()
+    try:
+        gridder.add_batch(served_uv[:4], served_vis[:4])
+        out["stale_gridder_refused"] = False
+    except LookupError:
+        out["stale_gridder_refused"] = True
+    del gridder
+    hot_pt = np.array([[hot_col[0].off0 + 0.3, hot_col[0].off1 + 0.3]])
+    post = service.serve(np.vstack([hot_pt, batches[0][:256]]))
+    out["post_update_compute_only"] = bool(
+        all(r.result is not None and r.result.ok and r.result.path == "compute"
+            for r in post.children)
+        and service.stats()["cache_hits"] == hits)
+
+    mark("adjoint identity and facet update checked")
+
+    # bit-identity: served samples against degrid_batch on rows computed
+    # by a fresh forward, at another bucket (4096 lanes)
+    del service, fwd, feed
+    fwd_ref = st.SwiftlyForward(cfg, tasks, lru_forward=2, queue_size=64)
+    index = sv.VisCoverIndex(sgcs, kernel.support, N)
+    checked = mismatches = 0
+    per_batch = max(1, n_bitcheck // 2)
+    for k in (0, n_batches - 1):  # a cache-era and a compute-era batch
+        uv_b, h = tracked[k]
+        owners, _ = index.map_samples(uv_b)
+        keys = list(owners)
+        for key in keys[:: max(1, len(keys) // per_batch)][:per_batch]:
+            entry = owners[key]
+            n = entry["idx"].size
+            if n > 2048:
+                continue
+            rep = -(-sv.bucket_size(4096) // n)  # lanes to reach 4096
+            take = lambda a: np.tile(a, (rep,) + (1,) * (a.ndim - 1))[:4096]
+            cu = kernel.weights(entry["fu"], dtype=np.float64)
+            cv = kernel.weights(entry["fv"], dtype=np.float64)
+            ref = sv.degrid_batch(
+                fwd_ref.get_subgrid_task(index.config(*key)),
+                take(entry["iu0"]), take(entry["iv0"]), take(cu), take(cv))[:n]
+            got = h.data[entry["idx"]]
+            checked += n
+            mismatches += int(np.sum(got != ref))
+    out["bitcheck_samples"] = checked
+    out["bitcheck_mismatches"] = mismatches
+    mark("bit-identity to a fresh forward checked")
+
+    log(f"{config_name} vis gates: " + json.dumps({k: out[k] for k in (
+        "oracle_rel_rms", "shed_reasons", "rows_from_cache", "cache_fallbacks",
+        "max_dispatch", "adjoint_rel", "bitcheck_samples",
+        "bitcheck_mismatches", "regrid_stack_bit_identical",
+        "regrid_facets_bit_identical", "facets_finite",
+        "stale_gridder_refused", "post_update_compute_only")}))
+    require(out["oracle_rel_rms"] <= sv.DEGRID_TOLERANCE,
+            f"served samples' oracle RMS {out['oracle_rel_rms']:.3e} > "
+            f"{sv.DEGRID_TOLERANCE}")
+    require(set(stats["shed_reasons"]) == {"outside_cover"},
+            f"shed reasons {stats['shed_reasons']}, expected outside_cover "
+            "only")
+    require(stats["cache_hits"] > 0 and stats["cache_fallbacks"] > 0,
+            f"cache hits {stats['cache_hits']}, fallbacks "
+            f"{stats['cache_fallbacks']}: the row ladder was not exercised")
+    require(0 < out["max_dispatch"] <= 4096,
+            f"largest degrid dispatch {out['max_dispatch']} samples")
+    require(out["adjoint_rel"] <= sv.ADJOINT_TOLERANCE,
+            f"adjoint identity {out['adjoint_rel']:.3e} > "
+            f"{sv.ADJOINT_TOLERANCE}")
+    require(checked > 0 and mismatches == 0,
+            f"{mismatches} of {checked} served samples differ from a fresh "
+            "forward's rows")
+    require(out["regrid_stack_bit_identical"]
+            and out["regrid_facets_bit_identical"],
+            "gridding twice gave different stacks or facets")
+    require(out["facets_finite"], "the ingested facets are not finite")
+    require(out["stale_gridder_refused"],
+            "the pinned gridder accepted a batch after the facet update")
+    require(out["post_update_compute_only"],
+            "post-update serving touched the dropped feed")
+    if cuda:
+        missing = [k for k, v in out["launches"].items() if v == 0]
+        require(not missing, f"the visibility path launched {missing} no time")
+        # the traffic's first batch again, from a freshly seeded feed
+        _, feed = vis_feed(hot_col, hot_stack, feed_tag)
+        out.update(profile_vis(
+            torch, sv, fwd_ref, sgcs, kernel, feed,
+            [(batches[k], int(priorities[k]))
+             for k in range(VIS_PROFILE_BATCHES)]))
+        mark("profiled")
+    return out
+
+
+def _device_profile(torch, cuda):
+    """torch.profiler recording device activity only (on the card), else a
+    context that records nothing."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    return (profile(activities=[ProfilerActivity.CUDA]) if cuda
+            else contextlib.nullcontext())
+
+
+def profile_vis(torch, sv, fwd, sgcs, kernel, feed, window, rows=12):
+    """Whole batches of the main traffic, `window` = [(samples, priority)],
+    served again under torch.profiler (device activity only) by a fresh
+    service with the cache feed `feed`, submitted together and pumped dry
+    as the counted run does: the device's busy time against the window's
+    own synchronised host seconds, and the device time per kernel. The
+    profiler adds host work per launch, so the idle share under it is an
+    upper bound of the unprofiled run's."""
+    from swiftly_tpu_torch.serve import AdmissionQueue, CoalescingScheduler
+
+    service = sv.VisibilityService(
+        fwd, subgrid_configs=sgcs, kernel=kernel, cache_feed=feed,
+        queue=AdmissionQueue(max_depth=VIS_MAX_DEPTH),
+        scheduler=CoalescingScheduler(max_batch=VIS_MAX_BATCH, urgency_s=0.05))
+    with _device_profile(torch, True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for uv, priority in window:
+            service.submit(uv, priority=priority)
+        while service.pump_once():
+            pass
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = _device_events(prof)
+    busy_s = _busy_seconds([(a / 1e3, b / 1e3) for _, a, b in events])
+    stats = service.stats()
+    out = {"profiled_batches": len(window),
+           "profiled_samples": int(sum(len(uv) for uv, _ in window)),
+           "profiled_dispatches": stats["n_batches"],
+           "profiled_mean_batch": stats["mean_batch"],
+           "profiled_rows_from_cache": stats["cache_hits"],
+           "profiled_window_s": window_s, "profiled_device_busy_s": busy_s,
+           "profiled_idle_share": (1.0 - busy_s / window_s
+                                   if busy_s > 0 else None)}
+    for name in ("degrid", "cmatmul"):
+        out[f"profiled_{name}_s"], _ = _kernel_seconds(events, f"{name}_kernel")
+    log("profiled visibility serving: " + json.dumps(out))
+    by_name = {}
+    for name, a, b in events:
+        n, total = by_name.get(name, (0, 0))
+        by_name[name] = (n + 1, total + b - a)
+    log(f"device time by kernel ({len(events)} device activities, read in "
+        f"{time.perf_counter() - t0:.1f} s):")
+    for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:rows]:
+        log(f"  {total / 1e6:10.1f} ms {n:8d}  {name[:90]}")
+    return out
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -820,22 +1495,38 @@ def _by_frequency(shapes):
                   reverse=True)
 
 
-def time_path(torch, check, path_shapes, f64_first=2):
-    """Check and time one kernel at every shape one 32k path gave it: f32
+def _grid_shapes(shapes):
+    """The scatter's shapes to time (its B varies per dispatch, over
+    hundreds of values): the `GRID_TIMED_SHAPES` most frequent, then the
+    `GRID_TIMED_SHAPES` largest."""
+    frequent = _by_frequency(shapes)[:GRID_TIMED_SHAPES]
+    largest = sorted(shapes.items(), key=lambda kv: np.prod(kv[0], dtype=float),
+                     reverse=True)[:GRID_TIMED_SHAPES]
+    return frequent + [kv for kv in largest if kv not in frequent]
+
+
+def time_path(torch, check, path_shapes, f64_first=2, done=None):
+    """Check and time one kernel at the shapes one 32k path gave it: f32
     against the plain version (timed), f64 at the first `f64_first`.
-    Returns (timed records, each with its shape's launches, seconds of
-    this kernel per round trip)."""
+    `done` maps shapes already timed on another path to their records,
+    which are reused. Returns (timed records, each with its shape's
+    launches on this path, seconds of this kernel in the path's run at the
+    timed shapes, the launches those cover)."""
+    done = {} if done is None else done
     timed = []
     for i, (shape, n) in enumerate(path_shapes):
-        rec = check(torch, tuple(shape), torch.float32, seed=i + 1, timed=True)
-        rec["launches"] = n
-        timed.append(rec)
-    for i, (shape, _) in enumerate(path_shapes[:f64_first]):
-        check(torch, tuple(shape), torch.float64, seed=i + 1)
-    return timed, sum(r["launches"] * r["ms"] for r in timed) / 1e3
+        shape = tuple(shape)
+        if shape not in done:
+            done[shape] = check(torch, shape, torch.float32, seed=i + 1,
+                                timed=True)
+            if i < f64_first:
+                check(torch, shape, torch.float64, seed=i + 1)
+        timed.append(dict(done[shape], launches=n))
+    return (timed, sum(r["launches"] * r["ms"] for r in timed) / 1e3,
+            sum(r["launches"] for r in timed))
 
 
-def _kernel_record(name, paths, main_path="streamed"):
+def _kernel_record(name, paths, main_path):
     """One entry of the `kernels` line. `paths` maps each 32k path that
     launched the kernel to (launches, timed records at its shapes). The
     contract's keys are the main path's: its launches, and the times at
@@ -844,8 +1535,8 @@ def _kernel_record(name, paths, main_path="streamed"):
     source, replaces = KERNEL_SOURCES[name]
     launches, timed = paths[main_path]
     top = timed[0]
-    keys = ("shape", "launches", "ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err", "tflops")
+    keys = ("shape", "launches", "ms", "call_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err", "tflops")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
@@ -855,13 +1546,15 @@ def _kernel_record(name, paths, main_path="streamed"):
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": top["library_ms"], "shape": top["shape"],
         "check": "pass", "main_path": main_path,
-        "paths": {p: {"launches": n, "shapes": [{k: r[k] for k in keys}
+        "paths": {p: {"launches": n, "shapes": [{k: r.get(k) for k in keys}
                                                 for r in ts]}
                   for p, (n, ts) in paths.items()},
     }
 
 
 def main():
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -893,6 +1586,11 @@ def main():
             check_colpass(torch, shape, dt, seed=i)
         for i, shape in enumerate(B2_RAGGED):
             check_fold(torch, shape, dt, seed=i)
+        for i, shape in enumerate(VIS_RAGGED):
+            check_degrid(torch, shape, dt, seed=i)
+        for i, shape in enumerate(GRID_RAGGED):
+            check_grid(torch, shape, dt, seed=i)
+        check_grid(torch, (700, 8, 61), dt, one_pixel=True)
     done("kernels")
     roundtrip_small(torch)
     roundtrip_streamed_small(torch)
@@ -901,41 +1599,71 @@ def main():
     done("fused")
     streamed = streamed_main(torch)
     done("streamed")
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' device state
+    vis = vis_main(torch)
+    done("vis")
 
-    # Each kernel at every shape each 32k path gave it.
+    # Phase 7: each kernel at the shapes each 32k path gave it.
     checks = {"cmatmul": check_cmatmul, "colpass": check_colpass,
-              "fold": check_fold}
+              "fold": check_fold, "degrid": check_degrid, "grid": check_grid}
+    main_paths = {"cmatmul": "streamed", "colpass": "streamed",
+                  "fold": "streamed", "degrid": "vis", "grid": "vis"}
     paths = {k: {} for k in checks}
-    for path, counts in (("fused", fused["counts"]),
-                         ("streamed", streamed["counts"])):
-        for kname, (launches, shapes) in counts.items():
+    timed_shapes = {k: {} for k in checks}
+    results = {"fused": fused, "streamed": streamed, "vis": vis}
+    for path, result in results.items():
+        for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
                 continue
-            timed, secs = time_path(torch, checks[kname],
-                                    _by_frequency(shapes))
+            timed, secs, covered = time_path(
+                torch, checks[kname],
+                _grid_shapes(shapes) if kname == "grid"
+                else _by_frequency(shapes),
+                done=timed_shapes[kname])
             paths[kname][path] = (launches, timed)
-            result = fused if path == "fused" else streamed
-            result[f"{kname}_seconds_per_roundtrip"] = secs
-            log(f"{kname} device time per {path} round trip: {secs:.3f} s "
-                f"of {result['roundtrip_s']:.3f} s")
+            result[f"{kname}_seconds"] = secs
+            log(f"{kname} device time in the {path} run: {secs:.3f} s over "
+                f"{covered} of its {launches} launches (the timed shapes)")
     done("timing")
-    kernels = {"kernels": [_kernel_record(k, paths[k]) for k in checks]}
+    kernels = {"kernels": [_kernel_record(k, paths[k], main_paths[k])
+                           for k in checks]}
     log(json.dumps({"roundtrip": {k: fused[k] for k in (
         "config", "forward_s", "backward_s", "peak_memory_gib",
         "forward_tflops_per_s", "backward_tflops_per_s", "launches",
-        "cmatmul_seconds_per_roundtrip", "max_subgrid_rms",
-        "max_facet_rms")}}))
+        "cmatmul_seconds", "max_subgrid_rms", "max_facet_rms")}}))
     log(json.dumps({"streamed_roundtrip": {k: streamed[k] for k in (
         "config", "forward_s", "backward_s", "col_group", "n_groups",
         "fold_group", "peak_memory_gib", "forward_tflops_per_s",
-        "backward_tflops_per_s", "launches", "cmatmul_seconds_per_roundtrip",
-        "colpass_seconds_per_roundtrip", "fold_seconds_per_roundtrip",
-        "facet_upload_s", "sampled_pass_s", "profiled_window_s",
-        "profiled_forward_s", "profiled_device_busy_s",
+        "backward_tflops_per_s", "launches", "cmatmul_seconds",
+        "colpass_seconds", "fold_seconds", "facet_upload_s", "sampled_pass_s",
+        "profiled_window_s", "profiled_forward_s", "profiled_device_busy_s",
         "profiled_idle_share", "max_subgrid_rms", "max_facet_rms",
         "bit_identical_to_warm_run")}}))
+    vis_line = {k: vis[k] for k in (
+        "config", "samples", "batches", "serve_s", "samples_per_s", "p50_ms",
+        "p99_ms", "dispatches", "mean_batch", "served_samples",
+        "shed_reasons", "rows_from_cache", "rows_computed",
+        "column_extractions", "grid_s", "ingest_s", "launches",
+        "serve_launches", "peak_memory_gib", "oracle_rel_rms", "adjoint_rel",
+        "max_dispatch", "bitcheck_samples", "grid_traced_s",
+        "grid_traced_launches", "profiled_batches", "profiled_samples",
+        "profiled_dispatches", "profiled_mean_batch",
+        "profiled_rows_from_cache", "profiled_window_s",
+        "profiled_device_busy_s", "profiled_idle_share", "profiled_degrid_s",
+        "profiled_cmatmul_s")}
+    for kname in ("degrid", "grid", "cmatmul", "colpass", "fold"):
+        launches, timed = paths[kname]["vis"]
+        covered = sum(r["launches"] for r in timed)
+        vis_line[kname] = {
+            "launches": launches, "timed_launches": covered,
+            "seconds_at_timed_shapes": vis[f"{kname}_seconds"],
+            "top_shape": timed[0]["shape"], "ms": timed[0]["ms"],
+            "call_ms": timed[0].get("call_ms"),
+            "bound_ms": timed[0]["bound_ms"]}
     log(f"[total {time.perf_counter() - t_start:.1f} s]")
     log(smi)
+    log(json.dumps({"vis": vis_line}))
     log(json.dumps(kernels))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

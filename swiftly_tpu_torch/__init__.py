@@ -38,7 +38,9 @@ from .ops import (
     SwiftlyCore,
     cmatmul_stats,
     colpass_stats,
+    degrid_stats,
     fold_stats,
+    grid_stats,
     make_facet_from_sources,
     make_subgrid_from_sources,
 )
@@ -64,8 +66,10 @@ __all__ = [
     "check_subgrid",
     "cmatmul_stats",
     "colpass_stats",
+    "degrid_stats",
     "feed_backward_passes",
     "fold_stats",
+    "grid_stats",
     "make_facet",
     "make_facet_from_sources",
     "make_full_facet_cover",

@@ -346,6 +346,8 @@ class SwiftlyForward:
         self._BF_Fs = None
         self.lru = LRUCache(lru_forward)
         self.queue = FlightQueue(queue_size)
+        # column intermediates computed (LRU misses of `_get_columns`)
+        self.columns_extracted = 0
 
     def _get_BF_Fs(self):
         if self._BF_Fs is None:
@@ -360,6 +362,7 @@ class SwiftlyForward:
             cols = batched.extract_columns_batch(
                 self.core, self._get_BF_Fs(), off0, self.stack.offs1
             )
+            self.columns_extracted += 1
             self.lru.set(off0, cols)
         return cols
 

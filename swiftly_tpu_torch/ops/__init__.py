@@ -1,5 +1,5 @@
-"""Numerical ops: L0 primitives, PSWF windows, the kernels B1, B2 and B3
-and the SwiftlyCore."""
+"""Numerical ops: L0 primitives, PSWF windows, the kernels B1, B2, B3, B4
+and B4's adjoint, and the SwiftlyCore."""
 
 from .core import SwiftlyCore, resolve_device, validate_core_params
 from .io_slices import (
@@ -14,9 +14,15 @@ from .kernels import (
     colpass,
     colpass_plain,
     colpass_stats,
+    degrid,
+    degrid_plain,
+    degrid_stats,
     fold,
     fold_plain,
     fold_stats,
+    grid,
+    grid_plain,
+    grid_stats,
 )
 from .oracle import (
     generate_masks,
@@ -36,10 +42,16 @@ __all__ = [
     "colpass_plain",
     "colpass_stats",
     "create_slice",
+    "degrid",
+    "degrid_plain",
+    "degrid_stats",
     "fold",
     "fold_plain",
     "fold_stats",
     "generate_masks",
+    "grid",
+    "grid_plain",
+    "grid_stats",
     "make_facet_from_sources",
     "make_real_facet_plane_from_sources",
     "make_subgrid_from_sources",

@@ -12,6 +12,13 @@ versions.
 * Kernel B2, ``fold``: the streamed backward's adjoint sampled fold
   ``acc += w * ((Bc - i Bs)^T @ (Rr + i Ri))``, in place, the port of
   ``bwd_fold_pallas`` (``pallas_kernels.py:171``); ``csrc/fold.cu``.
+* Kernel B4, ``degrid``: the visibility degrid reduction
+  ``vis[b] = sum_ij row[u0_b + i, v0_b + j] cu[b, i] cv[b, j]`` over both
+  planes of one served row, with the gather fused, the port of the
+  ``use_pallas`` branch of ``swiftly_tpu/vis/degrid.py:71`` ``_degrid_fn``;
+  and its exact adjoint ``grid``, a deterministic in-place scatter-add (the
+  port of ``swiftly_tpu/vis/grid.py:42``, not a TPU kernel); both in
+  ``csrc/degrid.cu``.
 
 CUDA C++ for ``sm_90a``, built by ``ops/_build.py`` at first use and bound
 with ``ctypes``. Each source's head comment says what bounds it on the card
@@ -22,7 +29,8 @@ engine of ``csrc/cgemm.cuh``, so they take their operands as strided views
 Each wrapper takes its plain version (``torch.matmul`` products) only when
 every tensor lies on the CPU. For CUDA tensors it launches the kernel or
 raises; nothing falls back. Each kernel has a launch counter
-(``cmatmul_stats``, ``colpass_stats``, ``fold_stats``).
+(``cmatmul_stats``, ``colpass_stats``, ``fold_stats``, ``degrid_stats``,
+``grid_stats``).
 """
 
 from __future__ import annotations
@@ -42,9 +50,15 @@ __all__ = [
     "colpass",
     "colpass_plain",
     "colpass_stats",
+    "degrid",
+    "degrid_plain",
+    "degrid_stats",
     "fold",
     "fold_plain",
     "fold_stats",
+    "grid",
+    "grid_plain",
+    "grid_stats",
     "load_cmatmul",
 ]
 
@@ -74,6 +88,8 @@ class KernelStats:
 cmatmul_stats = KernelStats("cmatmul")
 colpass_stats = KernelStats("colpass")
 fold_stats = KernelStats("fold")
+degrid_stats = KernelStats("degrid")
+grid_stats = KernelStats("grid")
 
 _libs = {}
 
@@ -81,14 +97,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# argument types of each library's entry points swiftly_<name>_f32/_f64;
-# each library also exports swiftly_<name>_error_string
+_DEGRID_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P]
+# argument types of the entry points swiftly_<entry>_f32/_f64 of each
+# library csrc/<name>.cu; each library also exports
+# swiftly_<name>_error_string
 _ARGTYPES = {
-    "cmatmul": [_P] * 6 + [_LL, _I, _I, _P],
-    "colpass": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES,
-                _I, _I, _I, _I, _LL, _I, _P],
-    "fold": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES, _P, _LL,
-             _LL, _I, _I, _I, _P],
+    "cmatmul": {"cmatmul": [_P] * 6 + [_LL, _I, _I, _P]},
+    "colpass": {"colpass": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P,
+                            _STRIDES, _I, _I, _I, _I, _LL, _I, _P]},
+    "fold": {"fold": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES,
+                      _P, _LL, _LL, _I, _I, _I, _P]},
+    "degrid": {"degrid": _DEGRID_ARGS,
+               "grid": _DEGRID_ARGS[:10] + [_P, _P, _LL, _I, _P]},
 }
 
 
@@ -98,10 +118,11 @@ def _load(name):
     if name not in _libs:
         path, _ = _build.build(name)
         lib = ctypes.CDLL(str(path))
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, f"swiftly_{name}{suffix}")
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+        for entry, argtypes in _ARGTYPES[name].items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, f"swiftly_{entry}{suffix}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         err = getattr(lib, f"swiftly_{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
@@ -114,16 +135,17 @@ def load_cmatmul():
     return _load("cmatmul")
 
 
-def _launch(name, dtype, what, *args):
-    """Call the f32 or f64 entry point of one library; raise on a failed
-    launch."""
+def _launch(name, dtype, what, *args, entry=None):
+    """Call the f32 or f64 entry point `entry` (default: `name`) of the
+    library `name`; raise on a failed launch."""
     lib = _load(name)
+    entry = name if entry is None else entry
     suffix = "_f32" if dtype == torch.float32 else "_f64"
-    err = getattr(lib, f"swiftly_{name}{suffix}")(*args)
+    err = getattr(lib, f"swiftly_{entry}{suffix}")(*args)
     if err != 0:
         msg = getattr(lib, f"swiftly_{name}_error_string")(err).decode()
         raise RuntimeError(
-            f"{name} kernel launch failed for {what}: CUDA error {err} ({msg})"
+            f"{entry} kernel launch failed for {what}: CUDA error {err} ({msg})"
         )
 
 
@@ -369,4 +391,173 @@ def fold(acc_r, acc_i, bc, bs, rr, ri, w):
                 rr.data_ptr(), ri.data_ptr(), _strides(*rr.stride()),
                 w.data_ptr(), w.stride(0), F, B, J, R, stream)
     fold_stats.record((F, B, J, R))
+    return acc_r, acc_i
+
+
+# ---------------------------------------------------------------------------
+# B4: the visibility degrid reduction, and its adjoint scatter
+# ---------------------------------------------------------------------------
+
+
+def _tap_indices(iu0, iv0, W, H, Wd):
+    """[B, W] row and column indices of every sample's taps, a negative one
+    counted once from the end (JAX's index rule)."""
+    offs = torch.arange(W, device=iu0.device, dtype=torch.int64)
+    iu, iv = iu0[:, None] + offs, iv0[:, None] + offs
+    return torch.where(iu < 0, iu + H, iu), torch.where(iv < 0, iv + Wd, iv)
+
+
+def degrid_plain(row_r, row_i, iu0, iv0, cu, cv):
+    """The plain PyTorch version of B4: gather the [B, W, W] patches (by
+    JAX's gather rules: a negative index counts once from the end, the rest
+    clamp to the row), then ``einsum("bij,bi,bj->b")`` per plane."""
+    H, Wd = row_r.shape
+    iu, iv = _tap_indices(iu0, iv0, cu.shape[1], H, Wd)
+    iu, iv = iu.clamp(0, H - 1), iv.clamp(0, Wd - 1)
+    pr = row_r[iu[:, :, None], iv[:, None, :]]
+    pi = row_i[iu[:, :, None], iv[:, None, :]]
+    return (torch.einsum("bij,bi,bj->b", pr, cu, cv),
+            torch.einsum("bij,bi,bj->b", pi, cu, cv))
+
+
+def _vis_shapes(name, planes, iu0, iv0, cu, cv, per_sample):
+    tensors = (*planes, iu0, iv0, cu, cv, *per_sample)
+    if (planes[0].ndim != 2 or planes[1].shape != planes[0].shape
+            or iu0.ndim != 1 or cu.ndim != 2):
+        raise ValueError(
+            f"{name}: expected [H, W] planes, [B] indices and [B, W] weights, "
+            f"got {[tuple(t.shape) for t in tensors]}"
+        )
+    B, W = cu.shape
+    if (tuple(iv0.shape) != (B,) or tuple(iu0.shape) != (B,)
+            or tuple(cv.shape) != (B, W)
+            or any(tuple(t.shape) != (B,) for t in per_sample)):
+        raise ValueError(
+            f"{name}: shapes do not match: {[tuple(t.shape) for t in tensors]}"
+        )
+    return tensors, B, W
+
+
+def _check_vis_cuda(name, planes, iu0, iv0, dense):
+    _check_cuda(name, (*planes, *dense))
+    _same_strides(*planes)
+    for t in (iu0, iv0):
+        if t.dtype != torch.int64 or t.device != planes[0].device:
+            raise TypeError(
+                f"{name}: indices must be int64 on the planes' device (got "
+                f"{t.dtype} on {t.device})"
+            )
+    if not all(t.is_contiguous() for t in (iu0, iv0, *dense)):
+        raise ValueError(f"{name}: indices, weights and samples must be "
+                         "contiguous")
+
+
+def degrid(row_r, row_i, iu0, iv0, cu, cv):
+    """Kernel B4: ``vis[b] = sum_ij row[iu0_b + i, iv0_b + j] cu[b, i]
+    cv[b, j]`` for both planes, the gather fused.
+
+    The planes may be strided views (e.g. ``row[..., 0]`` and
+    ``row[..., 1]`` of an interleaved [xA, xA, 2] row) sharing their
+    strides. A sample's bits do not depend on B or on its place in the
+    batch.
+
+    :param row_r, row_i: [H, W'] real and imaginary planes of one row
+    :param iu0, iv0: [B] int64 first-tap indices (JAX's gather rules past
+        the row's edges)
+    :param cu, cv: [B, W] tap weights (contiguous), the planes' dtype
+    :return: two new [B] tensors (vr, vi)
+    """
+    tensors, B, W = _vis_shapes("degrid", (row_r, row_i), iu0, iv0, cu, cv,
+                                ())
+    if _on_cpu(tensors):
+        return degrid_plain(row_r, row_i, iu0, iv0, cu, cv)
+    _check_vis_cuda("degrid", (row_r, row_i), iu0, iv0, (cu, cv))
+    vr = torch.empty((B,), dtype=row_r.dtype, device=row_r.device)
+    vi = torch.empty_like(vr)
+    H, Wd = row_r.shape
+    if B == 0:
+        return vr, vi
+    if W == 0 or H == 0 or Wd == 0:
+        return vr.zero_(), vi.zero_()
+    s0, s1 = row_r.stride()
+    with torch.cuda.device(row_r.device):
+        stream = torch.cuda.current_stream(row_r.device).cuda_stream
+        _launch("degrid", row_r.dtype, f"(B, W, H, W') = ({B}, {W}, {H}, {Wd})",
+                row_r.data_ptr(), row_i.data_ptr(), s0, s1, H, Wd,
+                iu0.data_ptr(), iv0.data_ptr(), cu.data_ptr(), cv.data_ptr(),
+                vr.data_ptr(), vi.data_ptr(), B, W, stream)
+    degrid_stats.record((B, W, H))
+    return vr, vi
+
+
+def grid_plain(acc_r, acc_i, iu0, iv0, cu, cv, yr, yi):
+    """The plain PyTorch version of the adjoint, in place:
+    ``acc[iu0_b + i, iv0_b + j] += y[b] * (cu[b, i] * cv[b, j])``, each
+    pixel's additions in sample order; taps outside the planes (after JAX's
+    negative-index rule) are dropped, as the JAX scatter drops them.
+
+    ``index_put_(accumulate=True)`` adds in an order that varies between
+    runs on several CPU threads (and on CUDA), so the additions go in
+    rounds instead: a stable sort by pixel ranks each pixel's
+    contributions in sample order, and round r adds every pixel's r-th
+    contribution with one ``index_put_`` over distinct pixels.
+    """
+    H, Wd = acc_r.shape
+    W = cu.shape[1]
+    iu, iv = _tap_indices(iu0, iv0, W, H, Wd)
+    iu = iu[:, :, None].expand(-1, W, W).reshape(-1)
+    iv = iv[:, None, :].expand(-1, W, W).reshape(-1)
+    w2 = cu[:, :, None] * cv[:, None, :]
+    keep = (iu >= 0) & (iu < H) & (iv >= 0) & (iv < Wd)
+    iu, iv = iu[keep], iv[keep]
+    vr = (yr[:, None, None] * w2).reshape(-1)[keep]
+    vi = (yi[:, None, None] * w2).reshape(-1)[keep]
+    if iu.numel() == 0:
+        return acc_r, acc_i
+    pix = iu * Wd + iv
+    order = torch.sort(pix, stable=True).indices
+    sp = pix[order]
+    pos = torch.arange(sp.numel(), device=sp.device)
+    first = torch.ones_like(sp, dtype=torch.bool)
+    first[1:] = sp[1:] != sp[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+    for r in range(int(rank.max()) + 1):
+        sel = order[rank == r]
+        idx = (iu[sel], iv[sel])
+        acc_r.index_put_(idx, acc_r[idx] + vr[sel])
+        acc_i.index_put_(idx, acc_i[idx] + vi[sel])
+    return acc_r, acc_i
+
+
+def grid(acc_r, acc_i, iu0, iv0, cu, cv, yr, yi):
+    """The adjoint of B4, a deterministic scatter-add in place:
+    ``acc[iu0_b + i, iv0_b + j] += y[b] * cu[b, i] * cv[b, j]``, the
+    samples added in input order (no atomics), taps outside the planes
+    dropped.
+
+    :param acc_r, acc_i: [H, W'] accumulator planes (updated in place;
+        strided views of an interleaved [xA, xA, 2] tensor are fine)
+    :param iu0, iv0: [B] int64 first-tap indices
+    :param cu, cv: [B, W] tap weights (contiguous), W <= 32
+    :param yr, yi: [B] sample planes (contiguous)
+    :return: (acc_r, acc_i)
+    """
+    tensors, B, W = _vis_shapes("grid", (acc_r, acc_i), iu0, iv0, cu, cv,
+                                (yr, yi))
+    if _on_cpu(tensors):
+        return grid_plain(acc_r, acc_i, iu0, iv0, cu, cv, yr, yi)
+    _check_vis_cuda("grid", (acc_r, acc_i), iu0, iv0, (cu, cv, yr, yi))
+    if W > 32:
+        raise ValueError(f"grid: support W = {W} > 32 is not supported")
+    H, Wd = acc_r.shape
+    if min(B, W, H, Wd) == 0:
+        return acc_r, acc_i
+    s0, s1 = acc_r.stride()
+    with torch.cuda.device(acc_r.device):
+        stream = torch.cuda.current_stream(acc_r.device).cuda_stream
+        _launch("degrid", acc_r.dtype, f"(B, W, H, W') = ({B}, {W}, {H}, {Wd})",
+                acc_r.data_ptr(), acc_i.data_ptr(), s0, s1, H, Wd,
+                iu0.data_ptr(), iv0.data_ptr(), cu.data_ptr(), cv.data_ptr(),
+                yr.data_ptr(), yi.data_ptr(), B, W, stream, entry="grid")
+    grid_stats.record((B, W, H))
     return acc_r, acc_i

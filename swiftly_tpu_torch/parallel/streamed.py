@@ -46,10 +46,14 @@ column-pass operators are built once per executor, a short final column
 group is not padded (there is no program to recompile), and JAX's depth-2
 in-flight pipelines are CUDA events (``api.FlightQueue``).
 
+`CachedColumnFeed` is the serving path's view of a recorded stream
+(`utils.spill.SpillCache`): one host row per lookup, version-gated.
+
 Not ported yet (ROADMAP A5/A6): the host/device residencies with their FFT
-facet passes, facet-slab streaming, sparse facets, ``row_slab``, the spill
-cache, the fft and CT folds, meshes, autosave, and the metrics/trace
-hooks. Each entry point to them raises ``NotImplementedError``.
+facet passes, facet-slab streaming, sparse facets, ``row_slab``, the
+executors' ``spill=`` arguments (recording and replaying the stream), the
+fft and CT folds, meshes, autosave, and the metrics/trace hooks. Each
+entry point to them raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -80,6 +84,7 @@ from .batched import _mask_along
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "CachedColumnFeed",
     "StreamedBackward",
     "StreamedForward",
     "col_group_for_budget",
@@ -960,6 +965,119 @@ def col_group_for_budget(base, budget, n_cols, real=False,
         )
     G = int(headroom // col_b)
     return max(1, min(n_cols, G))
+
+
+# ---------------------------------------------------------------------------
+# Serving feed over a recorded stream
+# ---------------------------------------------------------------------------
+
+
+class CachedColumnFeed:
+    """On-demand lookups into a recorded subgrid stream.
+
+    The port of the JAX package's ``CachedColumnFeed``
+    (``swiftly_tpu/parallel/streamed.py:2359``): the SERVING-path view of
+    a `utils.spill.SpillCache`. It indexes every recorded subgrid by
+    ``(off0, off1, size)`` at construction, and `lookup` returns one host
+    row — a RAM slice or a single-row memmap read for disk-backed entries
+    — so an individual request is answered without a device dispatch and
+    without materialising a whole group stack.
+
+    Exactness contract: a hit is a verbatim copy of the recorded stream's
+    row (the cache stores plain float arrays), so a feed-served request is
+    bit-identical to the forward that recorded it. A config whose offsets
+    match but whose masks differ from the recorded one is a MISS (masks
+    are part of the result), as is any config the stream never covered. A
+    hit whose backing entry has been evicted since indexing raises
+    LookupError — consumers (`vis.VisibilityService`) treat that as the
+    signal to fall back to computing the row.
+
+    Version pinning: the feed captures the cache's ``stream_version`` at
+    construction. Once a facet update moves the cache's version, every
+    lookup raises LookupError — a feed indexed before the update can never
+    serve a row recorded for a different facet stack.
+    """
+
+    def __init__(self, spill):
+        if not spill.complete:
+            raise ValueError(
+                "CachedColumnFeed requires a COMPLETE spill cache "
+                "(begin_fill/put/end_fill with nothing evicted); an "
+                "incomplete stream would silently miss-serve"
+            )
+        self._spill = spill
+        self.stream_version = int(spill.stream_version)
+        self._index = self._build_index(spill)
+        self.hits = 0
+        self.misses = 0
+        self.evicted = 0
+        self.stale = 0
+
+    @staticmethod
+    def _build_index(spill):
+        """``(off0, off1, size) -> (k, c, s, recorded config)`` over a
+        complete recorded stream — the per-subgrid lookup table."""
+        index = {}
+        for k in range(len(spill)):
+            for c, col in enumerate(spill.meta(k)):
+                for s, (_i, sg) in enumerate(col):
+                    index[(sg.off0, sg.off1, sg.size)] = (k, c, s, sg)
+        return index
+
+    def __len__(self):
+        return len(self._index)
+
+    @staticmethod
+    def _masks_match(a, b):
+        for ma, mb in ((a.mask0, b.mask0), (a.mask1, b.mask1)):
+            ma = np.ones(a.size) if ma is None else np.asarray(ma)
+            mb = np.ones(b.size) if mb is None else np.asarray(mb)
+            if not np.array_equal(ma, mb):
+                return False
+        return True
+
+    def _gate(self):
+        """Raise LookupError unless the backing stream is safe to read at
+        this feed's pinned version (still complete, version unmoved)."""
+        if not self._spill.complete:
+            self.evicted += 1
+            raise LookupError(
+                "recorded stream is no longer complete (a reset or "
+                "eviction dropped its entries since this feed was "
+                "indexed); fall back to compute"
+            )
+        current = int(self._spill.stream_version)
+        if current != self.stream_version:
+            self.stale += 1
+            raise LookupError(
+                f"cached stream version moved "
+                f"({self.stream_version} -> {current}); this feed "
+                "indexes a superseded facet stack — rebuild it"
+            )
+
+    def lookup(self, config):
+        """The recorded host row for ``config``, or None on a miss.
+
+        Raises LookupError when the index hit an evicted entry or the
+        whole recorded stream was dropped (a ``reset`` cleared
+        ``complete``), or when the cache's stream version moved since this
+        feed was built."""
+        self._gate()
+        hit = self._index.get((config.off0, config.off1, config.size))
+        if hit is None or not self._masks_match(config, hit[3]):
+            self.misses += 1
+            return None
+        k, c, s, _cfg = hit
+        try:
+            row = self._spill.get_row(k, (c, s))
+        except (IndexError, FileNotFoundError, OSError) as exc:
+            self.evicted += 1
+            raise LookupError(
+                f"recorded stream entry {k} for subgrid "
+                f"({config.off0}, {config.off1}) was evicted"
+            ) from exc
+        self.hits += 1
+        return row
 
 
 # ---------------------------------------------------------------------------

@@ -40,7 +40,8 @@ def test_port_imports_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None; sys.modules['swiftly_tpu'] = None; "
         "import swiftly_tpu_torch, swiftly_tpu_torch.api, "
-        "swiftly_tpu_torch.utils.flops; "
+        "swiftly_tpu_torch.utils.flops, swiftly_tpu_torch.utils.spill, "
+        "swiftly_tpu_torch.serve, swiftly_tpu_torch.vis; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swiftly_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)"
     )
