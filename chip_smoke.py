@@ -11,14 +11,19 @@ this checkout, and holds each kernel against its plain PyTorch version:
 2. build: the CUDA sources of kernels B3, B1, B2 and B4 with its adjoint
    (``swiftly_tpu_torch/csrc``), one nvcc each, started together, with
    ptxas's registers/shared memory/spills;
-3. kernel B3 (planar complex matmul) against its plain version at a
-   ragged shape, in float32 and float64; kernels B1 (column pass, both
+3. kernel B3 (planar complex matmul) against its plain version at
+   ragged shapes that take each of its tile variants, in float32 and
+   float64, every variant bit-identical to the chosen one, and its f32
+   output digests at one path-like shape per variant against the
+   recorded ones; kernels B1 (column pass, both
    forms) and B2 (sampled fold) likewise at ragged shapes; kernel B4
    (visibility degrid) and its adjoint ``grid`` likewise at ragged shapes
    (B no power of two, rows no multiple of anything, taps at the rows'
-   edges, many samples on one pixel for ``grid``), with B4's lanes
-   bit-identical between B = 2 and B = 4096, two ``grid`` runs
-   bit-identical and ``grid`` writing nothing outside the patches;
+   edges, many samples on one pixel for ``grid``, and first taps that
+   wrap across the plane's ends), with B4's lanes bit-identical between
+   B = 2 and B = 4096, ``grid`` bit-equal to its plain version, two
+   ``grid`` runs bit-identical and ``grid`` writing nothing outside the
+   patches;
 4. float64 round trips at ``1k[1]-n512-256`` on the card against the
    analytic oracle: fused and per subgrid, then streamed;
 5. the fused round trip (``SwiftlyForward.all_subgrids`` then
@@ -38,12 +43,13 @@ this checkout, and holds each kernel against its plain PyTorch version:
    shapes, the streamed path's and the visibility path's; ``grid``, whose
    batch size varies per dispatch, at its four most frequent and its four
    largest, beside its device time over all its launches traced in
-   phase 8): with CUDA
-   events around a run of calls, and for B4 and ``grid``, whose launches
-   take microseconds, with the run queued behind a device-side spin so
-   that the events time the device alone (``call_ms`` beside it is the
-   plain CUDA-event time per call, the host's call rate); it runs last,
-   after phase 8, whose shapes it times too;
+   phase 8; B3 also in each of its tile variants): with CUDA
+   events around a run of calls, and for B3, B4 and ``grid``, whose
+   launches at the visibility shapes take less device time than their
+   wrappers take on the host, with the run queued behind a device-side
+   spin so that the events time the device alone (``call_ms`` beside it
+   is the plain CUDA-event time per call, the host's call rate); it runs
+   last, after phase 8, whose shapes it times too;
 8. visibility serving and gridding at ``32k[1]-n16k-512``, planar f32
    (the main path of the visibility slice): a ``SwiftlyForward`` over
    facets of the grid-corrected, band-limited sky model, a cache feed
@@ -126,10 +132,34 @@ B1_RAGGED = [  # (S, F, Fx, M, P, Q, N, reduce_f)
 ]
 B2_RAGGED = [(3, 70, 100, 50), (2, 130, 200, 33)]  # (F, B, J, R)
 
+# B3 at ragged shapes on which ops/kernels.py `_cmatmul_config` picks each
+# tile variant in turn (variant 0, 1), then shapes too small to fill the
+# card; every variant runs at each of them and gives the same bits
+B3_RAGGED = [(40000, 100, 300), (4100, 70, 270), (130, 33, 1000),
+             (2300, 33, 250), (300, 228, 228)]
+# B3's f32 output digests: (B, K, N), the numpy seed of its inputs, and the
+# SHA-256 of the output planes' bytes (real, then imaginary), read from the
+# first, one-tile version of csrc/cmatmul.cu on an H100; one shape per tile
+# variant and the visibility path's most frequent one, K as on the 32k
+# paths. Every variant must give these bits.
+B3_DIGESTS = [
+    ((33152, 512, 512), 105,
+     "159577a7dcaa82cbf93d23802402560ce1783cbdbaff6877636232daf110fa28"),
+    ((4608, 256, 256), 102,
+     "fcd6825273957ab9d8b2fd68aaba00574f2a104b744a6b06cee26d75319ae156"),
+    ((448, 512, 512), 103,
+     "e33ebfab3e3933d732afb5d19a1d8fe3f0416dc29f4e1a1094b915d21537a364"),
+]
+
 # (B, W, H) of B4 and its adjoint: ragged batches and rows, B4 also at
 # the 4096-sample cap for the lane bits
 VIS_RAGGED = [(5, 8, 37), (300, 8, 61), (17, 4, 24), (4096, 8, 448)]
-GRID_RAGGED = [(5, 8, 37), (300, 8, 61), (33, 6, 50), (1000, 8, 448)]
+GRID_RAGGED = [(5, 8, 37), (300, 8, 61), (33, 6, 50), (1000, 8, 448),
+               (3300, 8, 448)]
+# grid with first taps drawn from [-2W, H + 2): patches wholly or partly
+# wrapped from negative indices, across the 32-pixel tiles at both ends of
+# the plane, and partly past its far edge
+GRID_WRAPPED = [(300, 8, 61), (200, 4, 70), (200, 6, 70), (3300, 8, 448)]
 
 # Phase 7's traffic (the reference benchmark's visibility leg,
 # bench.py:1747, at the full 2^20 samples)
@@ -402,6 +432,7 @@ def check_fold(torch, shape, dtype, seed=0, timed=False):
 def check_cmatmul(torch, shape, dtype, seed=0, timed=False):
     """B3 against its plain version at one (B, K, N); with `timed`, also
     the kernel, plain and library times and the bound."""
+    from swiftly_tpu_torch.ops import kernels
     from swiftly_tpu_torch.ops.kernels import cmatmul, cmatmul_plain
 
     B, K, N = shape
@@ -415,20 +446,40 @@ def check_cmatmul(torch, shape, dtype, seed=0, timed=False):
     rel = max_abs / scale
     again = cmatmul(zr, zi, wr, wi)
     bit_identical = bool(torch.equal(again[0], outr) and torch.equal(again[1], outi))
-    res = {"shape": [B, K, N], "dtype": name, "max_abs_err": max_abs,
+    variants_equal = True
+    for v in kernels._CMATMUL_TILES[dtype]:  # the same FMAs per output
+        other = kernels._cmatmul_launch(zr, zi, wr, wi, v)
+        variants_equal &= bool(torch.equal(other[0], outr)
+                               and torch.equal(other[1], outi))
+    res = {"shape": [B, K, N], "dtype": name,
+           "variant": kernels._cmatmul_config(B, K, N, dtype,
+                                              kernels._sm_count(0)),
+           "max_abs_err": max_abs,
            "max_rel_err": rel, "tol_rel": KERNEL_REL_TOL[name],
-           "bit_identical_rerun": bit_identical}
+           "bit_identical_rerun": bit_identical,
+           "variants_bit_identical": variants_equal}
     require(rel <= KERNEL_REL_TOL[name],
             f"cmatmul {shape} {name}: relative error {rel:.3e} > "
             f"{KERNEL_REL_TOL[name]:.0e}")
     require(bit_identical, f"cmatmul {shape} {name}: reruns differ")
+    require(variants_equal, f"cmatmul {shape} {name}: tile variants differ")
     if timed:
+        # device times: at the visibility shapes a launch takes less device
+        # time than the wrapper takes on the host (call_ms)
         iters = max(3, min(50, int(2e11 / (8 * B * K * N))))
-        res["ms"] = _cuda_ms(torch, lambda: cmatmul(zr, zi, wr, wi), iters)
-        res["plain_ms"] = _cuda_ms(
+        run = lambda: cmatmul(zr, zi, wr, wi)  # noqa: E731
+        res["ms"] = _device_ms(torch, run, iters)
+        res["call_ms"] = _cuda_ms(torch, run, iters)
+        # every tile variant at this shape, beside the chooser's
+        res["variant_ms"] = {
+            v: _device_ms(torch, lambda: kernels._cmatmul_launch(
+                zr, zi, wr, wi, v), iters)
+            for v in kernels._CMATMUL_TILES[dtype]}
+        res["plain_ms"] = _device_ms(
             torch, lambda: cmatmul_plain(zr, zi, wr, wi), iters)
         zc, wc = torch.complex(zr, zi), torch.complex(wr, wi)
-        res["library_ms"] = _cuda_ms(torch, lambda: torch.matmul(zc, wc), iters)
+        res["library_ms"] = _device_ms(
+            torch, lambda: torch.matmul(zc, wc), iters)
         res["library_call"] = f"torch.matmul on {zc.dtype}"
         item = zr.element_size()
         nbytes = item * (2 * B * K + 2 * K * N + 2 * B * N)
@@ -441,7 +492,39 @@ def check_cmatmul(torch, shape, dtype, seed=0, timed=False):
     return res
 
 
-def _vis_inputs(torch, shape, dtype, seed, one_pixel=False):
+def check_cmatmul_digest(torch, shape, seed, want):
+    """B3's f32 output at one (B, K, N) from seeded numpy planes: its
+    SHA-256 against the recorded one, for the kernel's chosen variant and
+    for every other."""
+    from swiftly_tpu_torch.ops import kernels
+
+    B, K, N = shape
+    rng = np.random.default_rng(seed)
+    z = rng.standard_normal((2, B, K)).astype(np.float32)
+    w = rng.standard_normal((2, K, N)).astype(np.float32)
+    planes = [torch.as_tensor(a, device="cuda") for a in (*z, *w)]
+
+    def sha(outr, outi):
+        h = hashlib.sha256(outr.cpu().numpy().tobytes())
+        h.update(outi.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    got = sha(*kernels.cmatmul(*planes))
+    others = {v: sha(*kernels._cmatmul_launch(*planes, v))
+              for v in kernels._CMATMUL_TILES[torch.float32]}
+    variant = kernels._cmatmul_config(B, K, N, torch.float32,
+                                      kernels._sm_count(0))
+    log(f"cmatmul digest {tuple(shape)} seed {seed} variant "
+        f"{variant}: sha256 {got} "
+        f"({'as recorded' if got == want else 'recorded ' + want})")
+    require(got == want, f"cmatmul {shape}: output digest {got} is not the "
+            f"recorded {want}")
+    require(all(d == want for d in others.values()),
+            f"cmatmul {shape}: a tile variant's digest differs: {others}")
+    return got
+
+
+def _vis_inputs(torch, shape, dtype, seed, one_pixel=False, wrap=False):
     """Inputs of B4 and its adjoint at (B, W, H): an interleaved tensor
     whose [H, H, 2] view (at an offset, so strided) is the row or the
     accumulator, int64 first-tap indices (the first two samples at opposite
@@ -457,6 +540,9 @@ def _vis_inputs(torch, shape, dtype, seed, one_pixel=False):
     if one_pixel:
         iu0[:], iv0[:] = H // 3, H // 2
     iu0[:2], iv0[:2] = (0, H - W)[:B], (H - W, 0)[:B]
+    if wrap:
+        iu0 = rng.integers(-2 * W, H + 2, size=B)
+        iv0 = rng.integers(-2 * W, H + 2, size=B)
     k = vis_kernel(support=W)
     cu = k.weights(rng.uniform(0, 1, size=B), dtype=np_dt)
     cv = k.weights(rng.uniform(0, 1, size=B), dtype=np_dt)
@@ -469,11 +555,16 @@ def _vis_inputs(torch, shape, dtype, seed, one_pixel=False):
 
 def _touched(iu0, iv0, W, H):
     """Flat indices (into an [H, H] plane) of the distinct pixels the
-    samples' patches cover."""
+    samples' patches cover, by JAX's scatter rules: a negative index counts
+    once from the end, what then lies outside the plane is dropped."""
     offs = np.arange(W)
-    u = (iu0[:, None] + offs)[:, :, None]
-    v = (iv0[:, None] + offs)[:, None, :]
-    return np.unique((u * H + v).reshape(-1))
+    u = iu0[:, None] + offs
+    v = iv0[:, None] + offs
+    u, v = np.where(u < 0, u + H, u), np.where(v < 0, v + H, v)
+    u = np.broadcast_to(u[:, :, None], (len(iu0), W, W))
+    v = np.broadcast_to(v[:, None, :], (len(iv0), W, W))
+    keep = (u >= 0) & (u < H) & (v >= 0) & (v < H)
+    return np.unique((u * H + v)[keep])
 
 
 def check_degrid(torch, shape, dtype, seed=0, timed=False):
@@ -541,16 +632,17 @@ def check_degrid(torch, shape, dtype, seed=0, timed=False):
     return res
 
 
-def check_grid(torch, shape, dtype, seed=0, timed=False, one_pixel=False):
+def check_grid(torch, shape, dtype, seed=0, timed=False, one_pixel=False,
+               wrap=False):
     """B4's adjoint against its plain version at one (B, W, H), adding into
-    a strided view of a larger accumulator: two runs bit-identical, nothing
-    written outside the patches; with `timed`, also the times and the
-    bound."""
+    a strided view of a larger accumulator: bit-equal to the plain version,
+    two runs bit-identical, nothing written outside the patches; with
+    `timed`, also the times and the bound."""
     from swiftly_tpu_torch.ops.kernels import grid, grid_plain
 
     B, W, H = shape
     big, (iu0_h, iv0_h), (iu0, iv0, cu, cv, y) = _vis_inputs(
-        torch, shape, dtype, seed, one_pixel=one_pixel)
+        torch, shape, dtype, seed, one_pixel=one_pixel, wrap=wrap)
 
     def run(fn, acc):
         view = acc[1:1 + H, 2:2 + H]
@@ -571,13 +663,13 @@ def check_grid(torch, shape, dtype, seed=0, timed=False, one_pixel=False):
     outside = torch.as_tensor(~touched, device="cuda")
     untouched = bool(torch.equal(got[outside], big[outside]))
     res = {"shape": list(shape), "dtype": name, "one_pixel": one_pixel,
-           "max_abs_err": max_abs, "max_rel_err": rel,
-           "tol_rel": KERNEL_REL_TOL[name],
+           "wrapped": wrap, "max_abs_err": max_abs, "max_rel_err": rel,
+           "equal_to_plain": bool(torch.equal(got, want)),
            "bit_identical_rerun": bool(torch.equal(got, again)),
            "nothing_outside_patches": untouched}
-    require(rel <= KERNEL_REL_TOL[name],
-            f"grid {shape} {name}: relative error {rel:.3e} > "
-            f"{KERNEL_REL_TOL[name]:.0e}")
+    require(res["equal_to_plain"],
+            f"grid {shape} {name}: differs from its plain version (relative "
+            f"error {rel:.3e})")
     require(res["bit_identical_rerun"], f"grid {shape} {name}: reruns differ")
     require(untouched, f"grid {shape} {name}: wrote outside the patches")
     if timed:
@@ -1536,7 +1628,8 @@ def _kernel_record(name, paths, main_path):
     launches, timed = paths[main_path]
     top = timed[0]
     keys = ("shape", "launches", "ms", "call_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by", "max_abs_err", "tflops")
+            "bound_ms", "bound_by", "max_abs_err", "tflops", "variant",
+            "variant_ms")
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches,
@@ -1581,7 +1674,8 @@ def main():
     build_kernels()
     done("build")
     for dt in (torch.float32, torch.float64):
-        check_cmatmul(torch, (300, 228, 228), dt)
+        for i, shape in enumerate(B3_RAGGED):
+            check_cmatmul(torch, shape, dt, seed=i)
         for i, shape in enumerate(B1_RAGGED):
             check_colpass(torch, shape, dt, seed=i)
         for i, shape in enumerate(B2_RAGGED):
@@ -1590,7 +1684,11 @@ def main():
             check_degrid(torch, shape, dt, seed=i)
         for i, shape in enumerate(GRID_RAGGED):
             check_grid(torch, shape, dt, seed=i)
+        for i, shape in enumerate(GRID_WRAPPED):
+            check_grid(torch, shape, dt, seed=i, wrap=True)
         check_grid(torch, (700, 8, 61), dt, one_pixel=True)
+    for shape, seed, want in B3_DIGESTS:
+        check_cmatmul_digest(torch, shape, seed, want)
     done("kernels")
     roundtrip_small(torch)
     roundtrip_streamed_small(torch)

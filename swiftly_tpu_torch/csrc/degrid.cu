@@ -36,19 +36,33 @@
 // a negative one counts once from the end, and the gather clamps the rest
 // to the row.
 //
-// grid is deterministic, with no atomics: one block per dispatch, thread t
-// owning tap (t / W, t % W) of every sample, the samples taken in input
-// order with a barrier between them, so each pixel receives its
-// contributions in sample order. Taps outside the plane (after the same
-// negative-index rule) are dropped, as JAX's scatter drops them; inside it
-// the W^2 taps of one sample are distinct pixels, so no two threads touch
-// one pixel between barriers. The products and the sum are rounded one by
-// one (no contraction to FMA): y * (cu * cv) added to the pixel, the
-// operations of the plain version (ops/kernels.py `grid_plain`, which adds
-// in sample order too), so the two give the same bits. One block is slow
-// for large dispatches (a barrier and a read-modify-write per sample): a
-// faster deterministic design (blocks owning disjoint pixel tiles, or one
-// launch over all subgrids of a batch) is left for a later version.
+// grid is deterministic, with no atomics, and its blocks own pixels: the
+// plane is cut into kTile x kTile pixel tiles, one block of kTile^2 threads
+// per tile and one pixel per thread. Each block walks the samples in input
+// order, kTile^2 at a time: every thread tests one sample's patch against
+// the tile (exactly: a patch is the product of its row set and its column
+// set, each one or two bands after the negative-index rule), and a warp
+// ballot and a prefix sum over the warps compact the samples that meet the
+// tile, in order, into shared memory. Each thread then adds, for each kept
+// sample in turn, that sample's taps on its own pixel. No two threads ever
+// write one pixel, so there is no barrier per sample, and each pixel still
+// receives its contributions in sample order (within a sample, in tap
+// order (i, j): a pixel meets two taps of one sample only when the plane is
+// narrower than the support). Taps outside the plane (after the same
+// negative-index rule) are dropped, as JAX's scatter drops them. The
+// products and the sum are rounded one by one (no contraction to FMA):
+// y * (cu * cv) added to the pixel, the operations of the plain version
+// (ops/kernels.py `grid_plain`, which adds in sample order too), so the two
+// give the same bits. A tile that no sample meets exits after its scan.
+//
+// What bounded the earlier design on the H100: one block of W^2 threads per
+// dispatch, one SM of 132 at work, and a barrier after every sample
+// (~0.44 us a sample): 1.42-1.44 ms for a hot subgrid's 3268 samples at
+// W = 8, 448^2 (chip_smoke.py phase 7 on an H100 80GB HBM3 at 700 W),
+// against a bound of 0.0007 ms. Here 196 blocks share a 448^2 plane, each scans the
+// dispatch's indices once (16 bytes a sample, from L2) and adds only the
+// samples that meet its tile. One launch per dispatch stays: its caller,
+// vis/grid.py, is unchanged.
 
 #include <cuda_runtime.h>
 
@@ -58,7 +72,8 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;  // degrid: samples per block
-constexpr int kMaxSupport = 32;    // grid: W^2 <= 1024 threads
+constexpr int kTile = 32;          // grid: pixel tiles of kTile^2
+constexpr int kGridThreads = kTile * kTile;  // one pixel each
 
 // JAX's index rules: a negative index counts once from the end; past
 // that, a gather clamps to the row and a scatter drops the update.
@@ -123,30 +138,129 @@ degrid_kernel(const T* __restrict__ rr, const T* __restrict__ ri,
   }
 }
 
+// Whether a patch whose first tap is at index i0 (W taps) reaches any of
+// the indices [lo, hi) of an axis of length n, by JAX's rule: taps with
+// i0 + t >= 0 stay at i0 + t, the rest count once from the end, n + i0 + t;
+// indices outside [0, n) after that are dropped.
+__device__ __forceinline__ bool band_meets(int64_t i0, int W, int n, int lo,
+                                           int hi) {
+  const int64_t a = i0 > 0 ? i0 : 0;
+  const int64_t b = i0 + W < n ? i0 + W : n;
+  if (a < b && a < hi && b > lo) return true;
+  if (i0 >= 0) return false;
+  const int64_t wa = n + i0 > 0 ? n + i0 : 0;
+  const int64_t wb = i0 + W < 0 ? n + i0 + W : n;
+  return wa < wb && wa < hi && wb > lo;
+}
+
 template <typename T>
-__global__ void grid_kernel(T* ar, T* ai, int64_t s0, int64_t s1, int H,
-                            int Wd, const int64_t* __restrict__ iu0,
-                            const int64_t* __restrict__ iv0,
-                            const T* __restrict__ cu,
-                            const T* __restrict__ cv,
-                            const T* __restrict__ yr,
-                            const T* __restrict__ yi, int64_t B, int W) {
-  const int t = threadIdx.x;
-  const int i = t / W;
-  const int j = t - i * W;
-  const bool mine = t < W * W;
-  for (int64_t b = 0; b < B; ++b) {
-    if (mine) {
-      const int64_t u = wrap_index(iu0[b] + i, H);
-      const int64_t v = wrap_index(iv0[b] + j, Wd);
-      if (u >= 0 && u < H && v >= 0 && v < Wd) {
-        const T w = mul_rn(cu[b * W + i], cv[b * W + j]);
-        const int64_t off = u * s0 + v * s1;
-        ar[off] = add_rn(ar[off], mul_rn(yr[b], w));
-        ai[off] = add_rn(ai[off], mul_rn(yi[b], w));
+__global__ void __launch_bounds__(kGridThreads)
+grid_kernel(T* ar, T* ai, int64_t s0, int64_t s1, int H, int Wd,
+            const int64_t* __restrict__ iu0, const int64_t* __restrict__ iv0,
+            const T* __restrict__ cu, const T* __restrict__ cv,
+            const T* __restrict__ yr, const T* __restrict__ yi, int64_t B,
+            int W) {
+  // the samples of one chunk that meet this tile, in input order; their
+  // first taps fit in int: a patch that meets the plane starts in (-n-W, n)
+  __shared__ int k_u0[kGridThreads];
+  __shared__ int k_v0[kGridThreads];
+  __shared__ int k_b[kGridThreads];
+  __shared__ T k_yr[kGridThreads];
+  __shared__ T k_yi[kGridThreads];
+  __shared__ int warp_first[kGridThreads / kWarp];
+  __shared__ int kept;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1);
+  const int warp = tid >> 5;
+  const int r0 = blockIdx.y * kTile;
+  const int c0 = blockIdx.x * kTile;
+  const int u = r0 + tid / kTile;
+  const int v = c0 + tid % kTile;
+  const bool inside = u < H && v < Wd;
+  const int r1 = min(r0 + kTile, H);
+  const int c1 = min(c0 + kTile, Wd);
+  const int64_t off = static_cast<int64_t>(u) * s0 + static_cast<int64_t>(v) * s1;
+  T accr = T(0);
+  T acci = T(0);
+  bool touched = false;
+
+  for (int64_t base = 0; base < B; base += kGridThreads) {
+    const int64_t b = base + tid;
+    int64_t su = 0, sv = 0;
+    bool meets = false;
+    if (b < B) {
+      su = iu0[b];
+      sv = iv0[b];
+      meets = band_meets(su, W, H, r0, r1) && band_meets(sv, W, Wd, c0, c1);
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, meets);
+    if (lane == 0) warp_first[warp] = __popc(ballot);
+    __syncthreads();
+    if (warp == 0) {  // exclusive prefix sum of the warps' counts
+      const int count = warp_first[lane];
+      int incl = count;
+#pragma unroll
+      for (int o = 1; o < kWarp; o <<= 1) {
+        const int up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      warp_first[lane] = incl - count;
+      if (lane == kWarp - 1) kept = incl;
+    }
+    __syncthreads();
+    if (meets) {
+      const int at = warp_first[warp] + __popc(ballot & ((1u << lane) - 1u));
+      k_u0[at] = static_cast<int>(su);
+      k_v0[at] = static_cast<int>(sv);
+      k_b[at] = tid;
+      k_yr[at] = yr[b];
+      k_yi[at] = yi[b];
+    }
+    __syncthreads();
+    const int n = kept;
+    if (inside) {
+      for (int k = 0; k < n; ++k) {
+        // the taps (i, j) of sample k on this pixel: i = u - u0 (direct)
+        // or u - H - u0 (wrapped from a negative index); the wrapped one
+        // is the smaller, so taking it first keeps tap order
+        const int64_t du = static_cast<int64_t>(u) - k_u0[k];
+        const int64_t dv = static_cast<int64_t>(v) - k_v0[k];
+        const bool iw = static_cast<uint64_t>(du - H) < static_cast<uint64_t>(W);
+        const bool id = static_cast<uint64_t>(du) < static_cast<uint64_t>(W);
+        const bool jw = static_cast<uint64_t>(dv - Wd) < static_cast<uint64_t>(W);
+        const bool jd = static_cast<uint64_t>(dv) < static_cast<uint64_t>(W);
+        if (!((iw || id) && (jw || jd))) continue;
+        if (!touched) {
+          accr = ar[off];
+          acci = ai[off];
+          touched = true;
+        }
+        const int64_t bk = base + k_b[k];
+        const T* cub = cu + bk * W;
+        const T* cvb = cv + bk * W;
+        const T y_r = k_yr[k];
+        const T y_i = k_yi[k];
+#pragma unroll
+        for (int ci = 0; ci < 2; ++ci) {
+          if (!(ci == 0 ? iw : id)) continue;
+          const int i = static_cast<int>(ci == 0 ? du - H : du);
+#pragma unroll
+          for (int cj = 0; cj < 2; ++cj) {
+            if (!(cj == 0 ? jw : jd)) continue;
+            const int j = static_cast<int>(cj == 0 ? dv - Wd : dv);
+            const T w = mul_rn(cub[i], cvb[j]);
+            accr = add_rn(accr, mul_rn(y_r, w));
+            acci = add_rn(acci, mul_rn(y_i, w));
+          }
+        }
       }
     }
-    __syncthreads();  // the next sample may add to the same pixels
+    __syncthreads();  // the next chunk overwrites the kept samples
+  }
+  if (touched) {
+    ar[off] = accr;
+    ai[off] = acci;
   }
 }
 
@@ -172,10 +286,12 @@ template <typename T>
 int grid(void* ar, void* ai, long long s0, long long s1, int H, int Wd,
          const void* iu0, const void* iv0, const void* cu, const void* cv,
          const void* yr, const void* yi, long long B, int W, void* stream) {
-  if (B <= 0 || W <= 0 || W > kMaxSupport || H <= 0 || Wd <= 0)
+  if (B <= 0 || W <= 0 || H <= 0 || Wd <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = ((W * W + kWarp - 1) / kWarp) * kWarp;
-  grid_kernel<T><<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 tiles((Wd + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  if (tiles.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  grid_kernel<T><<<tiles, kGridThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(ar), static_cast<T*>(ai), s0, s1, H, Wd,
       static_cast<const int64_t*>(iu0), static_cast<const int64_t*>(iv0),
       static_cast<const T*>(cu), static_cast<const T*>(cv),

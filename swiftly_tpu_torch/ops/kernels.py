@@ -36,6 +36,7 @@ raises; nothing falls back. Each kernel has a launch counter
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -102,7 +103,7 @@ _DEGRID_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P]
 # library csrc/<name>.cu; each library also exports
 # swiftly_<name>_error_string
 _ARGTYPES = {
-    "cmatmul": {"cmatmul": [_P] * 6 + [_LL, _I, _I, _P]},
+    "cmatmul": {"cmatmul": [_P] * 6 + [_LL, _I, _I, _I, _P]},
     "colpass": {"colpass": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P,
                             _STRIDES, _I, _I, _I, _I, _LL, _I, _P]},
     "fold": {"fold": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES,
@@ -196,6 +197,55 @@ def _check(zr, zi, wr, wi):
         raise ValueError("cmatmul: planes must be contiguous (row-major)")
 
 
+# B3's tile variants, by the id that csrc/cmatmul.cu's `launch` takes: per
+# type, the (rows of z, columns of w) of one block's output tile, largest
+# first. f64's large tile is half as tall: 8 x 8 doubles of both planes a
+# thread would need more than 255 registers.
+_CMATMUL_TILES = {
+    torch.float32: {0: (128, 128), 1: (32, 64)},
+    torch.float64: {0: (64, 128), 1: (32, 64)},
+}
+H100_SMS = 132  # streaming multiprocessors of an H100 SXM
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _cmatmul_blocks(B, N, variant, dtype=torch.float32):
+    bm, bn = _CMATMUL_TILES[dtype][variant]
+    return -(-B // bm) * -(-N // bn)
+
+
+def _cmatmul_config(B, K, N, dtype=torch.float32, sms=H100_SMS):
+    """The tile variant of B3 for one product ``[B, K] @ [K, N]`` on a card
+    of `sms` SMs: the large tile (one block an SM) where its grid holds at
+    least four waves of blocks, so that the last wave's idle SMs cost
+    little, else the 32 x 64 tile. Every variant gives the same bits (the
+    same chain of FMAs per output), so the choice moves only the time. K
+    does not enter: no variant splits the contraction."""
+    return 0 if _cmatmul_blocks(B, N, 0, dtype) >= 4 * sms else 1
+
+
+def _cmatmul_launch(zr, zi, wr, wi, variant):
+    """Launch B3's tile `variant` on checked CUDA planes; count it."""
+    B, K = zr.shape
+    N = wr.shape[1]
+    outr = torch.empty((B, N), dtype=zr.dtype, device=zr.device)
+    outi = torch.empty((B, N), dtype=zr.dtype, device=zr.device)
+    if B == 0 or N == 0:
+        return outr, outi
+    with torch.cuda.device(zr.device):
+        stream = torch.cuda.current_stream(zr.device).cuda_stream
+        _launch("cmatmul", zr.dtype,
+                f"(B, K, N) = ({B}, {K}, {N}), variant {variant}",
+                zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+                outr.data_ptr(), outi.data_ptr(), B, K, N, variant, stream)
+    cmatmul_stats.record((B, K, N))
+    return outr, outi
+
+
 def cmatmul(zr, zi, wr, wi):
     """``(zr + i zi) @ (wr + i wi)`` -> ``(out_r, out_i)``: kernel B3.
 
@@ -207,18 +257,9 @@ def cmatmul(zr, zi, wr, wi):
         return cmatmul_plain(zr, zi, wr, wi)
     _check(zr, zi, wr, wi)
     B, K = zr.shape
-    N = wr.shape[1]
-    outr = torch.empty((B, N), dtype=zr.dtype, device=zr.device)
-    outi = torch.empty((B, N), dtype=zr.dtype, device=zr.device)
-    if B == 0 or N == 0:
-        return outr, outi
-    with torch.cuda.device(zr.device):
-        stream = torch.cuda.current_stream(zr.device).cuda_stream
-        _launch("cmatmul", zr.dtype, f"(B, K, N) = ({B}, {K}, {N})",
-                zr.data_ptr(), zi.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-                outr.data_ptr(), outi.data_ptr(), B, K, N, stream)
-    cmatmul_stats.record((B, K, N))
-    return outr, outi
+    variant = _cmatmul_config(B, K, wr.shape[1], zr.dtype,
+                              _sm_count(zr.device.index))
+    return _cmatmul_launch(zr, zi, wr, wi, variant)
 
 
 # ---------------------------------------------------------------------------
@@ -538,7 +579,7 @@ def grid(acc_r, acc_i, iu0, iv0, cu, cv, yr, yi):
     :param acc_r, acc_i: [H, W'] accumulator planes (updated in place;
         strided views of an interleaved [xA, xA, 2] tensor are fine)
     :param iu0, iv0: [B] int64 first-tap indices
-    :param cu, cv: [B, W] tap weights (contiguous), W <= 32
+    :param cu, cv: [B, W] tap weights (contiguous)
     :param yr, yi: [B] sample planes (contiguous)
     :return: (acc_r, acc_i)
     """
@@ -547,8 +588,6 @@ def grid(acc_r, acc_i, iu0, iv0, cu, cv, yr, yi):
     if _on_cpu(tensors):
         return grid_plain(acc_r, acc_i, iu0, iv0, cu, cv, yr, yi)
     _check_vis_cuda("grid", (acc_r, acc_i), iu0, iv0, (cu, cv, yr, yi))
-    if W > 32:
-        raise ValueError(f"grid: support W = {W} > 32 is not supported")
     H, Wd = acc_r.shape
     if min(B, W, H, Wd) == 0:
         return acc_r, acc_i

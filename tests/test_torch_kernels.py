@@ -11,6 +11,9 @@ no JAX, can run this file's cuda tests:
 ``python -m pytest --noconftest tests/test_torch_kernels.py -m cuda``.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,18 @@ SHAPES = [
     (300, 228, 228),  # ragged: exercises padding on every axis
     (512, 256, 512),  # multi-block contraction
 ]
+
+# (B, K, N) that B3 gets on the 32k paths: fused, streamed, visibility
+PATH_SHAPES = [
+    (340992, 256, 256), (170496, 256, 256), (37888, 512, 512),
+    (33152, 512, 512), (2304, 512, 512), (4608, 256, 256), (2304, 256, 256),
+    (512, 512, 512), (448, 512, 512),
+]
+# ragged shapes on which the chooser picks each tile variant in turn
+# (variant 0, 1), then ones too small to fill the card
+VARIANT_SHAPES = [(40000, 100, 300), (4100, 70, 270), (130, 33, 1000),
+                  (2300, 33, 250), (300, 228, 228), (1, 1, 1), (70, 5, 1000)]
+SMS = kernels.H100_SMS
 
 
 def _inputs(B, K, N, seed=0):
@@ -84,6 +99,50 @@ def test_kernel_stats_count_and_reset():
     assert stats.launches == 0 and not stats.shapes
 
 
+def _c_tiles():
+    """{dtype: {variant: (BM, BN)}} as csrc/cmatmul.cu's `launch` dispatches
+    them: a case's first tile is f32's and its last f64's (one tile: both)."""
+    src = (Path(kernels.__file__).parent.parent / "csrc" / "cmatmul.cu"
+           ).read_text()
+    body = src.split("switch (variant) {")[1].split("default:")[0]
+    parts = re.split(r"case (\d+):", body)
+    tiles = {torch.float32: {}, torch.float64: {}}
+    for v, case in zip(parts[1::2], parts[2::2]):
+        found = re.findall(r"launch_tile<T, (\d+), (\d+),", case)
+        tiles[torch.float32][int(v)] = tuple(map(int, found[0]))
+        tiles[torch.float64][int(v)] = tuple(map(int, found[-1]))
+    return tiles
+
+
+def test_cmatmul_tiles_match_the_c_dispatch():
+    assert _c_tiles() == kernels._CMATMUL_TILES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,K,N", PATH_SHAPES + VARIANT_SHAPES, ids=str)
+def test_cmatmul_config_fills_the_card(B, K, N, dtype):
+    """The chosen tile variant is one the C entry knows, and its grid has
+    at least one block per SM, or every block any variant could give."""
+    variant = kernels._cmatmul_config(B, K, N, dtype)
+    assert variant in _c_tiles()[dtype]
+    blocks = kernels._cmatmul_blocks(B, N, variant, dtype)
+    most = max(kernels._cmatmul_blocks(B, N, v, dtype)
+               for v in kernels._CMATMUL_TILES[dtype])
+    assert blocks >= SMS or blocks == most, (variant, blocks, most)
+
+
+def test_cmatmul_config_covers_every_variant():
+    for dtype, tiles in kernels._CMATMUL_TILES.items():
+        chosen = [kernels._cmatmul_config(*s, dtype) for s in VARIANT_SHAPES[:2]]
+        assert chosen == sorted(tiles)
+        # the fused path's long batches take the largest tile
+        assert {kernels._cmatmul_config(*s, dtype) for s in PATH_SHAPES[:4]} == {0}
+    # the rule follows the card's SM count: a card of twice the SMs takes
+    # the small tile where an H100 takes the large one
+    assert kernels._cmatmul_config(*PATH_SHAPES[0], sms=2 * SMS) == 0
+    assert kernels._cmatmul_config(40000, 100, 300, sms=2 * SMS) == 1
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -94,8 +153,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
-    shapes = SHAPES + [(1, 1, 1), (70001, 256, 256), (4100, 512, 512),
-                       (257, 1024, 1024)]
+    shapes = SHAPES + VARIANT_SHAPES + [(70001, 256, 256), (4100, 512, 512),
+                                        (257, 1024, 1024)]
     for k, (B, K, N) in enumerate(shapes):
         g = torch.Generator(device=cuda_device).manual_seed(k)
         zr, zi = (torch.randn(B, K, generator=g, device=cuda_device, dtype=dtype)
@@ -112,5 +171,10 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, tol):
         assert err / scale <= tol, (B, K, N, err / scale)
         again = cmatmul(zr, zi, wr, wi)
         assert torch.equal(again[0], outr) and torch.equal(again[1], outi)
+        # every tile variant runs the same FMAs per output: the same bits
+        for v in kernels._CMATMUL_TILES[dtype]:
+            other = kernels._cmatmul_launch(zr, zi, wr, wi, v)
+            assert torch.equal(other[0], outr), (B, K, N, v)
+            assert torch.equal(other[1], outi), (B, K, N, v)
     with pytest.raises(ValueError, match="contiguous"):
         cmatmul(zr.T.contiguous().T, zi, wr, wi)

@@ -205,6 +205,32 @@ def test_out_of_range_taps_clamp_in_degrid_and_drop_in_grid():
                 np.asarray(rr) + 1j * np.asarray(ri)) <= 1e-12
 
 
+def _wrapped_indices(size, B, W, seed):
+    """First taps from [-2W, size + 2): some patches wholly wrapped from a
+    negative index, some split between the plane's two ends, some partly
+    past its far edge, the rest inside."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(-2 * W, size + 2, size=B),
+            rng.integers(-2 * W, size + 2, size=B))
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("W", [4, 6, 8])
+def test_grid_plain_matches_jax_with_wrapped_indices(W, dtype):
+    """JAX's scatter rules at both ends of a plane that spans several
+    32-pixel tiles: a negative index counts once from the end, taps past
+    the plane are dropped."""
+    from swiftly_tpu.vis import grid_batch as jax_grid_batch
+
+    size, B = 70, 200
+    _, _, _, cu, cv, y = _inputs((size, B, W), dtype, seed=W)
+    iu0, iv0 = _wrapped_indices(size, B, W, seed=W)
+    rr, ri = jax_grid_batch(size, iu0, iv0, cu, cv, y, dtype=dtype)
+    ref = np.asarray(rr) + 1j * np.asarray(ri)
+    gr, gi = grid_batch(size, iu0, iv0, cu, cv, y, dtype=dtype, device="cpu")
+    assert _rel(gr.numpy() + 1j * gi.numpy(), ref) <= REL[dtype]
+
+
 def test_bucket_size_and_dispatch_cap():
     assert [bucket_size(n) for n in (0, 1, 2, 3, 17, 4096, 10**6)] == [
         2, 2, 2, 4, 32, 4096, 4096]
@@ -288,15 +314,31 @@ def test_cuda_degrid_matches_plain(cuda_device, dtype, tol):
         assert torch.equal(v2r, vr[:2]) and torch.equal(v2i, vi[:2])
 
 
+# (row size, B, support W, indices): ragged shapes, a hot subgrid's
+# B ~ 3300 at 448^2, and first taps that wrap across the plane's ends
+GRID_CUDA_CASES = [(*shape, "inside") for shape in SHAPES + [(448, 1000, 8)]] + [
+    (448, 3300, 8, "inside"), (448, 3300, 8, "wrapped"),
+    (70, 200, 4, "wrapped"), (70, 200, 6, "wrapped"), (61, 300, 8, "wrapped"),
+    (448, 500, 6, "wrapped"), (5, 40, 8, "wrapped"),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.float64, 1e-12)])
-def test_cuda_grid_matches_plain(cuda_device, dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_grid_matches_plain(cuda_device, dtype):
+    """The kernel gives the plain version's bits, which add each pixel's
+    contributions in sample order with the same rounded operations."""
     for one_pixel in (False, True):
-        for shape in SHAPES + [(448, 1000, 8)]:
-            size = shape[0]
+        for size, B, W, where in GRID_CUDA_CASES:
+            if one_pixel and where == "wrapped":
+                continue
+            # (a plane narrower than the support takes its weights from a
+            # wider one's inputs; only its indices matter here)
             _, iu0, iv0, cu, cv, yr, yi = _cuda_inputs(
-                shape, dtype, cuda_device, one_pixel=one_pixel)
+                (max(size, W), B, W), dtype, cuda_device, one_pixel=one_pixel)
+            if where == "wrapped":
+                iu0, iv0 = (torch.as_tensor(a, device=cuda_device)
+                            for a in _wrapped_indices(size, B, W, seed=B))
             acc0 = torch.randn((size + 3, size + 2, 2), dtype=dtype,
                                device=cuda_device)
             outs = []
@@ -308,8 +350,5 @@ def test_cuda_grid_matches_plain(cuda_device, dtype, tol):
             torch.cuda.synchronize()
             got, again, want = outs
             assert torch.equal(got, again)  # deterministic
-            scale = (want - acc0).abs().max().item()
-            assert (got - want).abs().max().item() / scale <= tol
-            # nothing written outside the view
-            assert torch.equal(got[:1], acc0[:1])
-            assert torch.equal(got[:, :2], acc0[:, :2])
+            assert torch.equal(got, want), (size, B, W, where, one_pixel)
+            assert not torch.equal(got, acc0)
