@@ -10,13 +10,17 @@ this checkout, and holds each kernel against its plain PyTorch version:
 1. device: the card's name and power limit;
 2. build: the CUDA sources of kernels B3, B1, B2 and B4 with its adjoint
    (``swiftly_tpu_torch/csrc``), one nvcc each, started together, with
-   ptxas's registers/shared memory/spills;
+   ptxas's registers/shared memory/spills, and the tile and dynamic shared
+   memory of B1's and B2's engine;
 3. kernel B3 (planar complex matmul) against its plain version at
    ragged shapes that take each of its tile variants, in float32 and
    float64, every variant bit-identical to the chosen one, and its f32
    output digests at one path-like shape per variant against the
-   recorded ones; kernels B1 (column pass, both
-   forms) and B2 (sampled fold) likewise at ragged shapes; kernel B4
+   recorded ones; kernels B1 (column pass, both forms) and B2 (sampled
+   fold) likewise at ragged shapes, in layouts that take every copy path
+   of their tile engine (``B1_RAGGED``, ``B2_RAGGED``), and their f32
+   output digests at path-like shapes and layouts (``B1_DIGESTS``,
+   ``B2_DIGESTS``); kernel B4
    (visibility degrid) and its adjoint ``grid`` likewise at ragged shapes
    (B no power of two, rows no multiple of anything, taps at the rows'
    edges, many samples on one pixel for ``grid``, and first taps that
@@ -74,6 +78,11 @@ visibility path's for B4 and ``grid``; ``paths`` holds each 32k path's
 launches with the times at that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
+
+``python3 chip_smoke.py --quick`` runs phase 2, phase 3 for B1 and B2 (with
+every digest), phase 6, and phase 7 for B1 and B2 at the streamed path's
+shapes, and prints them as one ``quick`` JSON line instead of the result:
+for a kernel change's first calls.
 """
 
 from __future__ import annotations
@@ -123,14 +132,34 @@ MIN_SUBGRID_SAMPLES = 100
 # float64 bound far above f64 rounding over K <= 1024 terms.
 KERNEL_REL_TOL = {"float32": 1e-5, "float64": 1e-12}
 
-# Ragged check shapes: no dimension a multiple of the kernels' 64-wide
-# tiles or 16-deep slices.
-B1_RAGGED = [  # (S, F, Fx, M, P, Q, N, reduce_f)
-    (5, 3, 3, 40, 24, 24, 40, True),
-    (5, 3, 1, 70, 33, 50, 90, False),
-    (3, 2, 2, 130, 17, 70, 65, True),
+# Ragged check shapes: no dimension a multiple of the kernels' tiles or
+# 16-deep slices, each in a layout that takes the tile engine
+# (csrc/cgemm.cuh) through one set of its copy paths. B1 layouts: "path",
+# the planes as the 32k path gives them (interleaved; X a permuted gather,
+# or broadcast over f with Fx = 1), copied one element a copy, the staged
+# T in 16-byte runs where M allows; "planar", contiguous planes (16-byte
+# runs of X and B where Q and N allow); "offset", planes one element off
+# 16-byte alignment (every copy one element). B2 layouts: "path", a row
+# block of an interleaved accumulator (written as 16-byte (re, im) pairs;
+# phases and rows in 16-byte runs where B and J allow); "odd", odd J and
+# an odd first row, phases and rows off alignment (every copy and store
+# one element); "planar", contiguous accumulator planes (16-byte runs
+# along j); "shifted", the block one (re, im) pair off 16-byte alignment.
+B1_RAGGED = [  # ((S, F, Fx, M, P, Q, N, reduce_f), layout)
+    ((5, 3, 3, 40, 24, 24, 40, True), "path"),
+    ((5, 3, 1, 70, 33, 50, 90, False), "path"),
+    ((3, 2, 2, 130, 17, 70, 65, True), "path"),
+    ((4, 3, 1, 132, 40, 33, 72, False), "path"),  # odd Q, interleaved
+    ((3, 2, 2, 136, 20, 48, 200, True), "planar"),
+    ((3, 2, 1, 70, 33, 41, 90, True), "offset"),
 ]
-B2_RAGGED = [(3, 70, 100, 50), (2, 130, 200, 33)]  # (F, B, J, R)
+B2_RAGGED = [  # ((F, B, J, R), layout)
+    ((3, 70, 100, 50), "path"),
+    ((2, 132, 200, 33), "path"),
+    ((3, 70, 101, 50), "odd"),
+    ((2, 64, 96, 40), "planar"),
+    ((2, 36, 64, 24), "shifted"),
+]
 
 # B3 at ragged shapes on which ops/kernels.py `_cmatmul_config` picks each
 # tile variant in turn (variant 0, 1), then shapes too small to fill the
@@ -149,6 +178,24 @@ B3_DIGESTS = [
      "fcd6825273957ab9d8b2fd68aaba00574f2a104b744a6b06cee26d75319ae156"),
     ((448, 512, 512), 103,
      "e33ebfab3e3933d732afb5d19a1d8fe3f0416dc29f4e1a1094b915d21537a364"),
+]
+
+# B1's and B2's f32 output digests, read from their first kernels (the
+# 64 x 64 tile engine of csrc/cgemm.cuh) on an H100, at one path-like shape per
+# form with S or J cut so that hashing stays quick: inputs from a numpy
+# seed, laid out as on the 32k path (interleaved planes; B1's forward X
+# a permuted gather, the adjoint's X broadcast over f; B2's accumulator a
+# row block of an interleaved tensor). SHA-256 of B1's output planes
+# (real, then imaginary) and of B2's whole accumulator after the update.
+B1_DIGESTS = [  # ((S, F, Fx, M, P, Q, N, reduce_f), seed, sha256)
+    ((8, 9, 9, 512, 256, 256, 512, True), 201,
+     "96d52b99c6ab155dc4c7d40adba854aa6b8b4750e63543ade8e56d40318b482d"),
+    ((8, 9, 1, 256, 512, 512, 256, False), 202,
+     "b22a9167fa70133117bc86bb8c17fe4ab39b8bdfb98f5bee6e7780f76faea437"),
+]
+B2_DIGESTS = [  # ((F, B, J, R), seed, sha256)
+    ((9, 384, 1408, 1024), 203,
+     "5cb9b2fabf7a2a3e7623babb6401f322330d0fa68a930926b4b35d80dd7de329"),
 ]
 
 # (B, W, H) of B4 and its adjoint: ragged batches and rows, B4 also at
@@ -229,6 +276,13 @@ def build_kernels():
         for line in report.splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"  {line.strip()}")
+    import torch
+
+    from swiftly_tpu_torch.ops import kernels
+
+    for name in ("colpass", "fold"):  # dynamic shared memory: not in ptxas's
+        for dt in (torch.float32, torch.float64):
+            log(f"{name} engine tile, {dt}: {kernels.engine_tile(name, dt)}")
 
 
 # -- kernel checks -----------------------------------------------------------
@@ -302,23 +356,40 @@ def _interleaved(torch, shape, dtype, g):
                        dtype=dtype)
 
 
-def check_colpass(torch, shape, dtype, seed=0, timed=False):
+def _colpass_inputs(torch, shape, dtype, g, layout):
+    """B1's planes at one shape in one layout (B1_RAGGED), and the
+    interleaved A, X, B of the "path" layout (else None)."""
+    S, F, Fx, M, P, Q, N, _ = shape
+    if layout == "path":
+        A = _interleaved(torch, (F, M, P), dtype, g)
+        if Fx == F:  # a gathered, permuted view, as the forward body passes it
+            X = _interleaved(torch, (F, P, S, Q), dtype, g).permute(
+                2, 0, 1, 3, 4)
+        else:
+            X = _interleaved(torch, (S, P, Q), dtype, g)[:, None]
+        Bm = _interleaved(torch, (F, Q, N), dtype, g)
+        return (A[..., 0], A[..., 1], X[..., 0], X[..., 1], Bm[..., 0],
+                Bm[..., 1]), (A, X, Bm)
+    skip = {"planar": 0, "offset": 1}[layout]
+    planes = []
+    for dims in ((F, M, P), (S, Fx, P, Q), (F, Q, N)):
+        n = int(np.prod(dims))
+        flat = torch.randn((2 * n + skip,), generator=g, device="cuda",
+                           dtype=dtype)[skip:]
+        planes += [flat[:n].view(dims), flat[n:].view(dims)]
+    return tuple(planes), None
+
+
+def check_colpass(torch, shape, dtype, seed=0, timed=False, layout="path"):
     """B1 against its plain version at one (S, F, Fx, M, P, Q, N,
-    reduce_f), its planes strided views of interleaved tensors as on the
-    main path; with `timed`, also the kernel, plain and library times and
-    the bound."""
+    reduce_f), its planes in `layout` (B1_RAGGED; "path": strided views of
+    interleaved tensors as on the main path); with `timed`, also the
+    kernel, plain and library times and the bound."""
     from swiftly_tpu_torch.ops.kernels import colpass, colpass_plain
 
     S, F, Fx, M, P, Q, N, reduce_f = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    A = _interleaved(torch, (F, M, P), dtype, g)
-    if Fx == F:  # a gathered, permuted view, as the forward body passes it
-        X = _interleaved(torch, (F, P, S, Q), dtype, g).permute(2, 0, 1, 3, 4)
-    else:
-        X = _interleaved(torch, (S, P, Q), dtype, g)[:, None]
-    Bm = _interleaved(torch, (F, Q, N), dtype, g)
-    planes = (A[..., 0], A[..., 1], X[..., 0], X[..., 1], Bm[..., 0],
-              Bm[..., 1])
+    planes, interleaved = _colpass_inputs(torch, shape, dtype, g, layout)
     outr, outi = colpass(*planes, reduce_f=reduce_f)
     torch.cuda.synchronize()
     pr, pi = colpass_plain(*planes, reduce_f=reduce_f)
@@ -329,14 +400,16 @@ def check_colpass(torch, shape, dtype, seed=0, timed=False):
     again = colpass(*planes, reduce_f=reduce_f)
     bit_identical = bool(torch.equal(again[0], outr)
                          and torch.equal(again[1], outi))
-    res = {"shape": list(shape), "dtype": name, "max_abs_err": max_abs,
+    res = {"shape": list(shape), "dtype": name, "layout": layout,
+           "max_abs_err": max_abs,
            "max_rel_err": rel, "tol_rel": KERNEL_REL_TOL[name],
            "bit_identical_rerun": bit_identical}
     require(rel <= KERNEL_REL_TOL[name],
-            f"colpass {shape} {name}: relative error {rel:.3e} > "
+            f"colpass {shape} {layout} {name}: relative error {rel:.3e} > "
             f"{KERNEL_REL_TOL[name]:.0e}")
-    require(bit_identical, f"colpass {shape} {name}: reruns differ")
+    require(bit_identical, f"colpass {shape} {layout} {name}: reruns differ")
     if timed:
+        A, X, Bm = interleaved
         flops = 8 * S * F * (M * P * Q + M * Q * N)
         n_out = S * M * N * (1 if reduce_f else F)
         nbytes = 2 * A.element_size() * (F * M * P + S * Fx * P * Q
@@ -362,24 +435,51 @@ def check_colpass(torch, shape, dtype, seed=0, timed=False):
     return res
 
 
-def check_fold(torch, shape, dtype, seed=0, timed=False):
-    """B2 against its plain version at one (F, B, J, R), updating a row
-    block of an interleaved [F, B + 3, J, 2] accumulator in place as the
-    main path does; with `timed`, also the times and the bound."""
+def _fold_inputs(torch, shape, dtype, g, layout):
+    """B2's inputs at one (F, B, J, R) in one layout (B2_RAGGED): the
+    accumulator tensor, a function giving the block's (acc_r, acc_i) views
+    of it (or of a tensor like it), and (bc, bs, rr, ri, w)."""
+    F, B, J, R = shape
+
+    def randn(*dims):
+        return torch.randn(dims, generator=g, device="cuda", dtype=dtype)
+
+    if layout == "planar":
+        acc0 = randn(2, F, B, J)
+        block = lambda acc: (acc[0], acc[1])  # noqa: E731
+    elif layout == "shifted":
+        acc0 = randn(F, B + 3, J + 1, 2)
+        block = lambda acc: (acc[:, 2:2 + B, 1:, 0],  # noqa: E731
+                             acc[:, 2:2 + B, 1:, 1])
+    else:
+        start = 1 if layout == "odd" else 2
+        acc0 = _interleaved(torch, (F, B + 3, J), dtype, g)
+        block = lambda acc: (acc[:, start:start + B, :, 0],  # noqa: E731
+                             acc[:, start:start + B, :, 1])
+    if layout == "odd":
+        bc, bs = randn(R, B + 1)[:, 1:], randn(R, B + 1)[:, 1:]
+        rr, ri = (randn(F * R * J + 1)[1:].view(F, R, J) for _ in range(2))
+    else:
+        bc, bs = randn(R, B), randn(R, B)
+        rr, ri = randn(F, R, J), randn(F, R, J)
+    w = torch.rand((B,), generator=g, device="cuda", dtype=dtype)
+    return acc0, block, (bc, bs, rr, ri, w)
+
+
+def check_fold(torch, shape, dtype, seed=0, timed=False, layout="path"):
+    """B2 against its plain version at one (F, B, J, R), updating the
+    accumulator block of `layout` (B2_RAGGED; "path": a row block of an
+    interleaved [F, B + 3, J, 2] accumulator, as the main path does) in
+    place; with `timed`, also the times and the bound."""
     from swiftly_tpu_torch.ops.kernels import fold, fold_plain
 
     F, B, J, R = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    acc0 = _interleaved(torch, (F, B + 3, J), dtype, g)
-    bc = torch.randn((R, B), generator=g, device="cuda", dtype=dtype)
-    bs = torch.randn((R, B), generator=g, device="cuda", dtype=dtype)
-    rr = torch.randn((F, R, J), generator=g, device="cuda", dtype=dtype)
-    ri = torch.randn((F, R, J), generator=g, device="cuda", dtype=dtype)
-    w = torch.rand((B,), generator=g, device="cuda", dtype=dtype)
+    acc0, block, args = _fold_inputs(torch, shape, dtype, g, layout)
+    bc, bs, rr, ri, w = args
 
     def run(fn, acc):
-        cur = acc[:, 2:2 + B]
-        fn(cur[..., 0], cur[..., 1], bc, bs, rr, ri, w)
+        fn(*block(acc), *args)
         return acc
 
     got = run(fold, acc0.clone())
@@ -391,17 +491,21 @@ def check_fold(torch, shape, dtype, seed=0, timed=False):
     rel = max_abs / scale
     again = run(fold, acc0.clone())
     bit_identical = bool(torch.equal(again, got))
-    untouched = bool(torch.equal(got[:, :2], acc0[:, :2])
-                     and torch.equal(got[:, 2 + B:], acc0[:, 2 + B:]))
-    res = {"shape": list(shape), "dtype": name, "max_abs_err": max_abs,
+    outside = torch.ones_like(acc0, dtype=torch.bool)
+    for view in block(outside):
+        view.fill_(False)
+    untouched = bool(torch.equal(got[outside], acc0[outside]))
+    res = {"shape": list(shape), "dtype": name, "layout": layout,
+           "max_abs_err": max_abs,
            "max_rel_err": rel, "tol_rel": KERNEL_REL_TOL[name],
            "bit_identical_rerun": bit_identical,
-           "rows_outside_block_untouched": untouched}
+           "outside_block_untouched": untouched}
     require(rel <= KERNEL_REL_TOL[name],
-            f"fold {shape} {name}: relative error {rel:.3e} > "
+            f"fold {shape} {layout} {name}: relative error {rel:.3e} > "
             f"{KERNEL_REL_TOL[name]:.0e}")
-    require(bit_identical, f"fold {shape} {name}: reruns differ")
-    require(untouched, f"fold {shape} {name}: wrote outside its row block")
+    require(bit_identical, f"fold {shape} {layout} {name}: reruns differ")
+    require(untouched,
+            f"fold {shape} {layout} {name}: wrote outside its block")
     if timed:
         flops = 8 * F * B * J * R + 4 * F * B * J
         nbytes = acc0.element_size() * (2 * 2 * F * B * J + 2 * R * B
@@ -522,6 +626,82 @@ def check_cmatmul_digest(torch, shape, seed, want):
     require(all(d == want for d in others.values()),
             f"cmatmul {shape}: a tile variant's digest differs: {others}")
     return got
+
+
+def _sha(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _report_digest(kernel, shape, seed, got, want):
+    """Log a digest beside the recorded one; gate on it once recorded."""
+    state = ("not recorded" if want is None
+             else "as recorded" if got == want else "recorded " + want)
+    log(f"{kernel} digest {tuple(shape)} seed {seed}: sha256 {got} ({state})")
+    require(want is None or got == want,
+            f"{kernel} {shape}: output digest {got} is not the recorded {want}")
+    return got
+
+
+def colpass_digest_inputs(torch, shape, seed):
+    """B1's f32 planes at one (S, F, Fx, M, P, Q, N, reduce_f) from a numpy
+    seed, as the 32k path lays them out: interleaved A [F, M, P, 2] and
+    B [F, Q, N, 2]; X the forward's permuted gather of an [F, P, S, Q, 2]
+    tensor, or the adjoint's [S, P, Q, 2] broadcast over f."""
+    S, F, Fx, M, P, Q, N, _ = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*dims):
+        return torch.as_tensor(
+            rng.standard_normal(dims + (2,)).astype(np.float32), device="cuda")
+
+    A = draw(F, M, P)
+    if Fx == F:
+        X = draw(F, P, S, Q).permute(2, 0, 1, 3, 4)
+    else:
+        X = draw(S, P, Q)[:, None]
+    Bm = draw(F, Q, N)
+    return (A[..., 0], A[..., 1], X[..., 0], X[..., 1], Bm[..., 0],
+            Bm[..., 1])
+
+
+def check_colpass_digest(torch, shape, seed, want):
+    """B1's f32 output digest at one path-like shape."""
+    from swiftly_tpu_torch.ops.kernels import colpass
+
+    planes = colpass_digest_inputs(torch, shape, seed)
+    got = _sha(*colpass(*planes, reduce_f=shape[-1]))
+    return _report_digest("colpass", shape, seed, got, want)
+
+
+def fold_digest_inputs(torch, shape, seed):
+    """B2's f32 inputs at one (F, B, J, R) from a numpy seed: an interleaved
+    [F, B + 5, J, 2] accumulator whose rows 3 .. 3 + B are the block, the
+    phase planes [R, B], the row planes [F, R, J] and the weights [B]."""
+    F, B, J, R = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*dims):
+        return torch.as_tensor(rng.standard_normal(dims).astype(np.float32),
+                               device="cuda")
+
+    acc = draw(F, B + 5, J, 2)
+    return acc, (draw(R, B), draw(R, B), draw(F, R, J), draw(F, R, J),
+                 draw(B))
+
+
+def check_fold_digest(torch, shape, seed, want):
+    """B2's f32 digest (the whole accumulator after one update of its row
+    block) at one path-like shape."""
+    from swiftly_tpu_torch.ops.kernels import fold
+
+    B = shape[1]
+    acc, args = fold_digest_inputs(torch, shape, seed)
+    cur = acc[:, 3:3 + B]
+    fold(cur[..., 0], cur[..., 1], *args)
+    return _report_digest("fold", shape, seed, _sha(acc), want)
 
 
 def _vis_inputs(torch, shape, dtype, seed, one_pixel=False, wrap=False):
@@ -1048,12 +1228,14 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
                subgrid_rms_bound=SUBGRID_REL_RMS * scale,
                max_facet_rms=max(f_rms), facet_rms_bound=FACET_RMS,
                bit_identical_to_warm_run=(None if warm_digests is None
-                                          else digests == warm_digests))
+                                          else digests == warm_digests),
+        facet_digests=digests)
     log(f"{config_name} streamed accuracy: max subgrid RMS {max(sg_rms):.3e} "
         f"over {len(idxs)} samples (bound {SUBGRID_REL_RMS * scale:.3e}), "
         f"max facet RMS {max(f_rms):.3e} over {F} facets (bound "
         f"{FACET_RMS:.0e}), facets bit-identical to the warm run: "
-        f"{out['bit_identical_to_warm_run']}")
+        f"{out['bit_identical_to_warm_run']}; facet sha256 "
+        f"{' '.join(d[:16] for d in digests)}")
     require(all(np.isfinite(sg_rms)) and all(np.isfinite(f_rms)),
             "non-finite RMS")
     require(max(sg_rms) <= SUBGRID_REL_RMS * scale,
@@ -1645,6 +1827,38 @@ def _kernel_record(name, paths, main_path):
     }
 
 
+def quick_main(torch):
+    """``--quick``: phases 2 and 3 for B1 and B2 (ragged checks, every
+    digest), phase 6, and phase 7 for B1 and B2 at the streamed path's
+    shapes. For a kernel change's first calls; not the smoke run."""
+    for dt in (torch.float32, torch.float64):
+        for i, (shape, layout) in enumerate(B1_RAGGED):
+            check_colpass(torch, shape, dt, seed=i, layout=layout)
+        for i, (shape, layout) in enumerate(B2_RAGGED):
+            check_fold(torch, shape, dt, seed=i, layout=layout)
+    for shape, seed, want in B1_DIGESTS:
+        check_colpass_digest(torch, shape, seed, want)
+    for shape, seed, want in B2_DIGESTS:
+        check_fold_digest(torch, shape, seed, want)
+    for shape, seed, want in B3_DIGESTS:
+        check_cmatmul_digest(torch, shape, seed, want)
+    streamed = streamed_main(torch)
+    checks = {"colpass": check_colpass, "fold": check_fold}
+    out = {}
+    for kname, check in checks.items():
+        launches, shapes = streamed["counts"][kname]
+        timed, secs, _ = time_path(torch, check, _by_frequency(shapes))
+        out[kname] = {"launches": launches, "seconds": secs, "shapes": [
+            {k: r.get(k) for k in ("shape", "launches", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "tflops")}
+            for r in timed]}
+    out["streamed"] = {k: streamed[k] for k in (
+        "forward_s", "backward_s", "max_subgrid_rms", "max_facet_rms",
+        "bit_identical_to_warm_run", "facet_digests", "profiled_idle_share")}
+    log(json.dumps({"quick": out}))
+    return 0
+
+
 def main():
     import gc
 
@@ -1673,13 +1887,15 @@ def main():
 
     build_kernels()
     done("build")
+    if "--quick" in sys.argv[1:]:
+        return quick_main(torch)
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
-        for i, shape in enumerate(B1_RAGGED):
-            check_colpass(torch, shape, dt, seed=i)
-        for i, shape in enumerate(B2_RAGGED):
-            check_fold(torch, shape, dt, seed=i)
+        for i, (shape, layout) in enumerate(B1_RAGGED):
+            check_colpass(torch, shape, dt, seed=i, layout=layout)
+        for i, (shape, layout) in enumerate(B2_RAGGED):
+            check_fold(torch, shape, dt, seed=i, layout=layout)
         for i, shape in enumerate(VIS_RAGGED):
             check_degrid(torch, shape, dt, seed=i)
         for i, shape in enumerate(GRID_RAGGED):
@@ -1689,6 +1905,10 @@ def main():
         check_grid(torch, (700, 8, 61), dt, one_pixel=True)
     for shape, seed, want in B3_DIGESTS:
         check_cmatmul_digest(torch, shape, seed, want)
+    for shape, seed, want in B1_DIGESTS:
+        check_colpass_digest(torch, shape, seed, want)
+    for shape, seed, want in B2_DIGESTS:
+        check_fold_digest(torch, shape, seed, want)
     done("kernels")
     roundtrip_small(torch)
     roundtrip_streamed_small(torch)

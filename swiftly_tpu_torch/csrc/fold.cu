@@ -20,13 +20,23 @@
 // (J = F*yB) and copies the accumulator block in and out of that layout;
 // here the facet axis is the batch axis of the strided tile engine
 // (cgemm.cuh), which reads and writes the accumulator's [F, B, yB] slab
-// where it lies, in its interleaved (..., 2) layout, so no copy of the
-// 9 GB accumulator or of its blocks is made. The conjugate of the phase
-// matrix is the engine's negated imaginary load; its transpose is a
+// where it lies, in its interleaved (..., 2) layout, as 16-byte (re, im)
+// pairs, so no copy of the 9 GB accumulator or of its blocks is made. The
+// phase planes [R, B] are the engine's transposed L slices as they lie
+// (16-byte runs along b); the row planes are its R slices (16-byte runs
+// along j). The conjugate of the phase matrix is the engine's negated
+// imaginary plane (exact, folded into the FMAs); its transpose is a
 // stride. Each output element is owned by one thread: its w-scaled sum is
 // added to the accumulator once, after the whole R contraction ran in
 // registers (read once, written once, no atomics, bit-identical reruns).
-// Tensor cores (3xTF32) and TMA are left for a faster version.
+// The row tiles of one column band are neighbouring blocks, so each row
+// plane is read from memory once.
+//
+// The first version ran on a 64x64-tile engine: 8.731 ms at R = 1024 and
+// 4.489 ms at R = 512, 1.83x and 1.88x the bound. On the pipelined engine:
+// 6.668 and 3.492 ms, 1.40x and 1.47x, against torch.matmul (complex64)
+// plus the weighted add's 6.366 and 3.461 ms. All on an H100 80GB HBM3 at
+// 700 W, chip_smoke.py phase 7.
 
 #include "cgemm.cuh"
 
@@ -36,7 +46,7 @@ template <typename T>
 int fold(void* accr, void* acci, const long long* as, const void* bc,
          const void* bs, const long long* bst, const void* rr, const void* ri,
          const long long* rst, const void* w, long long w_stride, long long F,
-         int B, int J, int R, void* stream) {
+         int B, int J, int R, int paths, void* stream) {
   // L[b, r] = Bc[r, b] - i*Bs[r, b]: strides (row=b, col=r) of [R, B]
   const swiftly::Operand<T> L{static_cast<const T*>(bc),
                               static_cast<const T*>(bs),
@@ -49,27 +59,26 @@ int fold(void* accr, void* acci, const long long* as, const void* bc,
   const swiftly::Output<T> O{static_cast<T*>(accr), static_cast<T*>(acci),
                              as[0], 0, as[1], as[2],
                              static_cast<const T*>(w), w_stride};
-  // the allocator's free choice: asking for three blocks per SM (80
-  // registers) made B2 slower at the 32k shape
-  return swiftly::launch_cgemm<T, 1>(L, Rm, O, B, J, R, 1, F, 1, T(-1),
-                                     stream);
+  return swiftly::launch_cgemm<T, true>(L, Rm, O, B, J, R, 1, F, 1, paths,
+                                        stream);
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Element strides: as = (f, b, j)
 // of the accumulator, bst = (r, b) of the phase planes, rst = (f, r, j)
-// of the row planes. Returns cudaGetLastError() after the launch (0 on
-// success); runs on `stream`, does not synchronise, allocates nothing.
+// of the row planes; `paths` the copy paths (cgemm.cuh). Returns
+// cudaGetLastError() after the launch (0 on success); runs on `stream`,
+// does not synchronise, allocates nothing.
 extern "C" int swiftly_fold_f32(void* accr, void* acci, const long long* as,
                                 const void* bc, const void* bs,
                                 const long long* bst, const void* rr,
                                 const void* ri, const long long* rst,
                                 const void* w, long long w_stride,
-                                long long F, int B, int J, int R,
+                                long long F, int B, int J, int R, int paths,
                                 void* stream) {
   return fold<float>(accr, acci, as, bc, bs, bst, rr, ri, rst, w, w_stride,
-                     F, B, J, R, stream);
+                     F, B, J, R, paths, stream);
 }
 
 extern "C" int swiftly_fold_f64(void* accr, void* acci, const long long* as,
@@ -77,10 +86,20 @@ extern "C" int swiftly_fold_f64(void* accr, void* acci, const long long* as,
                                 const long long* bst, const void* rr,
                                 const void* ri, const long long* rst,
                                 const void* w, long long w_stride,
-                                long long F, int B, int J, int R,
+                                long long F, int B, int J, int R, int paths,
                                 void* stream) {
   return fold<double>(accr, acci, as, bc, bs, bst, rr, ri, rst, w, w_stride,
-                      F, B, J, R, stream);
+                      F, B, J, R, paths, stream);
+}
+
+// The engine's tile (cgemm.cuh `engine_tile`) for f32 (f64 = 0) or f64:
+// out[0..5] = BM, BN, RM, RN, stages, dynamic shared memory in bytes.
+extern "C" void swiftly_fold_tile(int f64, long long* out) {
+  if (f64) {
+    swiftly::engine_tile<double>(out);
+  } else {
+    swiftly::engine_tile<float>(out);
+  }
 }
 
 extern "C" const char* swiftly_fold_error_string(int code) {

@@ -24,7 +24,12 @@ CUDA C++ for ``sm_90a``, built by ``ops/_build.py`` at first use and bound
 with ``ctypes``. Each source's head comment says what bounds it on the card
 and what its design does about that; B1 and B2 share the strided tile
 engine of ``csrc/cgemm.cuh``, so they take their operands as strided views
-(e.g. one plane of an interleaved (..., 2) tensor) without copies.
+(e.g. one plane of an interleaved (..., 2) tensor). Their wrappers build
+the engine's launches in Python (``colpass_launches``, ``fold_launch``:
+strides, sizes, and per operand the copy path that its strides, sizes and
+alignment allow, ``_cgemm_paths``), which the CPU tests check through
+``cgemm_emulate``; the one copy they add is of B1's operators A and B,
+each with its run axis contiguous (``_operator``).
 
 Each wrapper takes its plain version (``torch.matmul`` products) only when
 every tensor lies on the CPU. For CUDA tensors it launches the kernel or
@@ -38,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from collections import Counter
+from typing import NamedTuple
 
 import torch
 
@@ -45,16 +51,23 @@ from . import _build
 
 __all__ = [
     "KernelStats",
+    "Launch",
+    "Plane",
+    "cgemm_emulate",
     "cmatmul",
     "cmatmul_plain",
     "cmatmul_stats",
     "colpass",
+    "colpass_launches",
     "colpass_plain",
+    "colpass_staging",
     "colpass_stats",
     "degrid",
     "degrid_plain",
     "degrid_stats",
+    "engine_tile",
     "fold",
+    "fold_launch",
     "fold_plain",
     "fold_stats",
     "grid",
@@ -105,9 +118,9 @@ _DEGRID_ARGS = [_P, _P, _LL, _LL, _I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P]
 _ARGTYPES = {
     "cmatmul": {"cmatmul": [_P] * 6 + [_LL, _I, _I, _I, _P]},
     "colpass": {"colpass": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P,
-                            _STRIDES, _I, _I, _I, _I, _LL, _I, _P]},
+                            _STRIDES, _I, _I, _I, _I, _LL, _I, _I, _P]},
     "fold": {"fold": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES,
-                      _P, _LL, _LL, _I, _I, _I, _P]},
+                      _P, _LL, _LL, _I, _I, _I, _I, _P]},
     "degrid": {"degrid": _DEGRID_ARGS,
                "grid": _DEGRID_ARGS[:10] + [_P, _P, _LL, _I, _P]},
 }
@@ -263,6 +276,133 @@ def cmatmul(zr, zi, wr, wi):
 
 
 # ---------------------------------------------------------------------------
+# The strided tile engine of B1 and B2 (csrc/cgemm.cuh)
+# ---------------------------------------------------------------------------
+
+# One launch of the engine computes, per batch entry (b0, b1),
+#   out (=|+= w *) sum_{r < nR} L[b0, b1, r] @ R[b0, b1, r]
+# from planes given by a base tensor and element strides: (b0, b1, r, row,
+# col) for L [M, K] and R [K, N], (b0, b1, row, col) for the output.
+# `paths` tells it how to copy each operand (csrc/cgemm.cuh `kPathLRuns`,
+# `kPathRRuns`, `OutPath`): 16-byte runs where the fast axis allows them,
+# else one element a copy.
+PATH_L_RUNS = 1  # L in 16-byte runs along m
+PATH_R_RUNS = 2  # R in 16-byte runs along n
+OUT_ELEMENTS, OUT_RUNS_N, OUT_RUNS_M, OUT_PAIRS = range(4)
+_OUT_SHIFT = 2
+
+
+class Plane(NamedTuple):
+    """A strided complex operand: its real and imaginary planes (tensors
+    whose data pointers are the operand's element 0) and its element
+    strides, which both planes share."""
+
+    re: torch.Tensor
+    im: torch.Tensor
+    strides: tuple
+
+
+class Launch(NamedTuple):
+    """One launch of the tile engine: L, R and the output as `Plane`s,
+    the sizes, and the copy paths (`_cgemm_paths`)."""
+
+    L: Plane
+    R: Plane
+    O: Plane
+    M: int
+    N: int
+    K: int
+    nR: int
+    nb0: int
+    nb1: int
+    paths: int
+
+
+def engine_tile(name, dtype):
+    """The tile of B1's (`name` "colpass") or B2's ("fold") engine as its
+    library reports it: {"tile": (BM, BN), "thread": (RM, RN), "stages",
+    "shared_bytes"} (dynamic shared memory a block asks for)."""
+    fn = getattr(_load(name), f"swiftly_{name}_tile")
+    fn.argtypes = [ctypes.c_int, _STRIDES]
+    fn.restype = None
+    out = (ctypes.c_longlong * 6)()
+    fn(int(dtype == torch.float64), out)
+    return {"tile": (out[0], out[1]), "thread": (out[2], out[3]),
+            "stages": out[4], "shared_bytes": out[5]}
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _runs_fit(op, fast, length):
+    """Whether `op` can be copied in 16-byte runs along the axis whose
+    stride is ``op.strides[fast]``: that axis contiguous and `length` a
+    whole number of runs, every other stride a whole number of runs (so
+    every run starts 16-byte aligned), and both planes aligned."""
+    v = 16 // op.re.element_size()
+    return (op.strides[fast] == 1 and length % v == 0
+            and all(s % v == 0 for i, s in enumerate(op.strides) if i != fast)
+            and _aligned(op.re, op.im))
+
+
+def _out_path(O, M, N):
+    """How the engine writes the output (strides (b0, b1, row, col))."""
+    item = O.re.element_size()
+    v = 16 // item
+    if _runs_fit(O, 3, N):
+        return OUT_RUNS_N
+    if _runs_fit(O, 2, M):
+        return OUT_RUNS_M
+    if (O.im.data_ptr() == O.re.data_ptr() + item and O.strides[3] == 2
+            and N % (v // 2) == 0 and all(s % v == 0 for s in O.strides[:3])
+            and _aligned(O.re)):
+        return OUT_PAIRS  # interleaved (re, im): both planes in one vector
+    return OUT_ELEMENTS
+
+
+def _cgemm_paths(L, R, O, M, N):
+    """The copy paths of one launch: L in runs along m (its row axis) and R
+    in runs along n (its column axis) where `_runs_fit`, and the output's
+    path (`_out_path`)."""
+    paths = PATH_L_RUNS if _runs_fit(L, 3, M) else 0
+    if _runs_fit(R, 4, N):
+        paths |= PATH_R_RUNS
+    return paths | _out_path(O, M, N) << _OUT_SHIFT
+
+
+def _launch_of(L, R, O, M, N, K, nR, nb0, nb1):
+    return Launch(L, R, O, M, N, K, nR, nb0, nb1, _cgemm_paths(L, R, O, M, N))
+
+
+def cgemm_emulate(launch, w=None, conj_l=False):
+    """What one launch of the engine computes, on CPU tensors, through the
+    same strides (``torch.as_strided`` over the planes' storage), in the
+    planes' dtype; for testing the launches the wrappers build. The sum
+    over (r, k) is torch's, not the kernel's FMA chain."""
+    L, R, O, M, N, K, nR, nb0, nb1, _ = launch
+
+    def view(t, strides, shape):
+        return torch.as_strided(t, shape, strides, t.storage_offset())
+
+    lr = view(L.re, L.strides, (nb0, nb1, nR, M, K))
+    li = view(L.im, L.strides, (nb0, nb1, nR, M, K))
+    li = -li if conj_l else li
+    rr = view(R.re, R.strides, (nb0, nb1, nR, K, N))
+    ri = view(R.im, R.strides, (nb0, nb1, nR, K, N))
+    pr = (torch.matmul(lr, rr) - torch.matmul(li, ri)).sum(2)
+    pi = (torch.matmul(lr, ri) + torch.matmul(li, rr)).sum(2)
+    outr = view(O.re, O.strides, (nb0, nb1, M, N))
+    outi = view(O.im, O.strides, (nb0, nb1, M, N))
+    if w is None:
+        outr.copy_(pr)
+        outi.copy_(pi)
+    else:
+        outr += w[:, None] * pr
+        outi += w[:, None] * pi
+
+
+# ---------------------------------------------------------------------------
 # B1: the fused column-pass product
 # ---------------------------------------------------------------------------
 
@@ -306,6 +446,72 @@ def _same_strides(a, b):
         )
 
 
+def colpass_staging(S, F, M, Q, dtype, device):
+    """B1's staged product T = A @ X, TRANSPOSED: one [2, S, F, Q, M]
+    buffer, whose two planes the first launch writes as runs along m and
+    the second reads as runs along m into its transposed L slices."""
+    return torch.empty((2, S, F, Q, M), dtype=dtype, device=device)
+
+
+def _operator(re, im, strides, fast):
+    """One of B1's operators as a `Plane` with the engine strides
+    `strides`: A [F, M, P], launch 1's L (`fast` = 3, its row axis m), or
+    B [F, Q, N], launch 2's R (`fast` = 4, its column axis n). As given
+    where it can be copied in 16-byte runs along that axis; else, where the
+    axis is a whole number of runs, a copy of both planes with that axis
+    contiguous ([2, F, K, length]; on the path both are interleaved
+    operators of a few MB, copied inside the wrapper, whose time includes
+    the copies); else as given, one element a copy."""
+    F, K, length = (re.shape[0], re.shape[2], re.shape[1]) if fast == 3 \
+        else re.shape
+    op = Plane(re, im, strides)
+    if _runs_fit(op, fast, length) or length % (16 // re.element_size()):
+        return op
+    copy = torch.empty((2, F, K, length), dtype=re.dtype, device=re.device)
+    for plane, src in zip(copy, (re, im)):
+        plane.copy_(src.transpose(1, 2) if fast == 3 else src)
+    st = [0] * 5
+    st[next((i for i in range(3) if strides[i]), 1)] = K * length  # f's
+    st[fast] = 1
+    st[7 - fast] = length  # the contraction axis: L's col, R's row
+    return Plane(copy[0], copy[1], tuple(st))
+
+
+def colpass_launches(ar, ai, xr, xi, br, bi, t, outr, outi, reduce_f=True):
+    """B1 as two launches of the tile engine (`Launch`), for planes of the
+    shapes `colpass` takes, the staging buffer `t` (`colpass_staging`) and
+    the output planes; the operators A and B as `_operator` gives them:
+
+    1. ``T[s, f]^T = (A[f] @ X[s, f])^T`` for all (s, f), X's facet axis
+       broadcast (stride 0) when Fx = 1;
+    2. ``out[s] = sum_f T[s, f] @ B[f]`` (f the summed axis r, so the sum
+       stays in registers) with `reduce_f`, else
+       ``out[s, f] = T[s, f] @ B[f]``.
+    """
+    F, M, P, S, Fx, Q, N = _colpass_shapes(ar, ai, xr, xi, br, bi)
+    sa, sx, sb, so = ar.stride(), xr.stride(), br.stride(), outr.stride()
+    st = t[0].stride()  # (s, f, q, m), m contiguous
+    tr, ti = t[0], t[1]
+    first = _launch_of(
+        _operator(ar, ai, (0, sa[0], 0, sa[1], sa[2]), 3),
+        Plane(xr, xi, (sx[0], sx[1] if Fx == F else 0, 0, sx[2], sx[3])),
+        Plane(tr, ti, (st[0], st[1], st[3], st[2])),
+        M, Q, P, 1, S, F)
+    if reduce_f:  # the facets are the contraction's r
+        second = _launch_of(
+            Plane(tr, ti, (st[0], 0, st[1], st[3], st[2])),
+            _operator(br, bi, (0, 0, sb[0], sb[1], sb[2]), 4),
+            Plane(outr, outi, (so[0], 0, so[1], so[2])),
+            M, N, Q, F, S, 1)
+    else:  # the facets are the batch's b1
+        second = _launch_of(
+            Plane(tr, ti, (st[0], st[1], 0, st[3], st[2])),
+            _operator(br, bi, (0, sb[0], 0, sb[1], sb[2]), 4),
+            Plane(outr, outi, so),
+            M, N, Q, 1, S, F)
+    return first, second
+
+
 def colpass(ar, ai, xr, xi, br, bi, reduce_f=True):
     """Kernel B1: the column pass's complex triple product.
 
@@ -336,38 +542,18 @@ def colpass(ar, ai, xr, xi, br, bi, reduce_f=True):
         return outr, outi
     if P == 0 or Q == 0:
         return outr.zero_(), outi.zero_()
-    # Each call of the library is one product over the batch (b0, b1) with
-    # a contraction (r, k); strides are (b0, b1, r, row, col) per operand
-    # and (b0, b1, row, col) for the output.
-    # Launch 1: T[s, f] = A[f] @ X[s, f] for all (s, f), staged in global
-    # memory.
-    tr = torch.empty((S, F, M, Q), dtype=dt, device=dev)
-    ti = torch.empty_like(tr)
-    sa, sx, sb, st, so = (ar.stride(), xr.stride(), br.stride(), tr.stride(),
-                          outr.stride())
+    t = colpass_staging(S, F, M, Q, dt, dev)
     what = f"(S, F, Fx, M, P, Q, N) = ({S}, {F}, {Fx}, {M}, {P}, {Q}, {N})"
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("colpass", dt, what,
-                ar.data_ptr(), ai.data_ptr(), _strides(0, sa[0], 0, sa[1], sa[2]),
-                xr.data_ptr(), xi.data_ptr(),
-                _strides(sx[0], sx[1] if Fx == F else 0, 0, sx[2], sx[3]),
-                tr.data_ptr(), ti.data_ptr(), _strides(*st), M, Q, P, 1, S, F,
-                stream)
-        # Launch 2: out[s] = sum_f T[s, f] @ B[f] (f the summed axis r, so
-        # the sum stays in registers), or out[s, f] = T[s, f] @ B[f].
-        if reduce_f:
-            t_st = _strides(st[0], 0, st[1], st[2], st[3])
-            b_st = _strides(0, 0, sb[0], sb[1], sb[2])
-            o_st, nR, nb1 = _strides(so[0], 0, so[1], so[2]), F, 1
-        else:
-            t_st = _strides(st[0], st[1], 0, st[2], st[3])
-            b_st = _strides(0, sb[0], 0, sb[1], sb[2])
-            o_st, nR, nb1 = _strides(*so), 1, F
-        _launch("colpass", dt, what,
-                tr.data_ptr(), ti.data_ptr(), t_st, br.data_ptr(),
-                bi.data_ptr(), b_st, outr.data_ptr(), outi.data_ptr(), o_st,
-                M, N, Q, nR, S, nb1, stream)
+        for ln in colpass_launches(*planes, t, outr, outi, reduce_f):
+            _launch("colpass", dt, what,
+                    ln.L.re.data_ptr(), ln.L.im.data_ptr(),
+                    _strides(*ln.L.strides), ln.R.re.data_ptr(),
+                    ln.R.im.data_ptr(), _strides(*ln.R.strides),
+                    ln.O.re.data_ptr(), ln.O.im.data_ptr(),
+                    _strides(*ln.O.strides), ln.M, ln.N, ln.K, ln.nR, ln.nb0,
+                    ln.nb1, ln.paths, stream)
     colpass_stats.record((S, F, Fx, M, P, Q, N, bool(reduce_f)))
     return outr, outi
 
@@ -387,6 +573,20 @@ def fold_plain(acc_r, acc_i, bc, bs, rr, ri, w):
     acc_r += wc * out_r
     acc_i += wc * out_i
     return acc_r, acc_i
+
+
+def fold_launch(acc_r, acc_i, bc, bs, rr, ri):
+    """B2 as one launch of the tile engine (`Launch`), the facet axis its
+    batch: ``acc[f] += w * (L @ rows[f])`` with ``L[b, r] = Bc[r, b] -
+    i Bs[r, b]`` (the transpose a stride, the conjugate the engine's
+    negated imaginary plane)."""
+    F, B, J = acc_r.shape
+    R = bc.shape[0]
+    sb, sr, sa = bc.stride(), rr.stride(), acc_r.stride()
+    return _launch_of(Plane(bc, bs, (0, 0, 0, sb[1], sb[0])),
+                      Plane(rr, ri, (sr[0], 0, 0, sr[1], sr[2])),
+                      Plane(acc_r, acc_i, (sa[0], 0, sa[1], sa[2])),
+                      B, J, R, 1, F, 1)
 
 
 def fold(acc_r, acc_i, bc, bs, rr, ri, w):
@@ -424,13 +624,14 @@ def fold(acc_r, acc_i, bc, bs, rr, ri, w):
         _same_strides(a, b)
     if min(F, B, J, R) == 0:
         return acc_r, acc_i
+    ln = fold_launch(acc_r, acc_i, bc, bs, rr, ri)
     with torch.cuda.device(acc_r.device):
         stream = torch.cuda.current_stream(acc_r.device).cuda_stream
         _launch("fold", acc_r.dtype, f"(F, B, J, R) = ({F}, {B}, {J}, {R})",
                 acc_r.data_ptr(), acc_i.data_ptr(), _strides(*acc_r.stride()),
                 bc.data_ptr(), bs.data_ptr(), _strides(*bc.stride()),
                 rr.data_ptr(), ri.data_ptr(), _strides(*rr.stride()),
-                w.data_ptr(), w.stride(0), F, B, J, R, stream)
+                w.data_ptr(), w.stride(0), F, B, J, R, ln.paths, stream)
     fold_stats.record((F, B, J, R))
     return acc_r, acc_i
 

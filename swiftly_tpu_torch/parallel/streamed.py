@@ -870,13 +870,14 @@ class StreamedForward:
         its zero-mask padding). For consumers that take a whole group at
         once (``StreamedBackward.add_subgrid_group``).
 
-        :param spill: a spill cache; not ported yet (ROADMAP A6), must be
-            None
+        :param spill: a spill cache to record the stream into and replay
+            it from; recording and replaying through `spill=` is not
+            ported yet (ROADMAP A6), so it must be None
         """
         if spill is not None:
             raise NotImplementedError(
-                "the spill cache (SpillCache / CachedColumnFeed) is not "
-                "ported yet (ROADMAP A6); pass spill=None"
+                "recording and replaying the column stream through spill= "
+                "is not ported yet (ROADMAP A6); pass spill=None"
             )
         subgrid_configs = list(subgrid_configs)
         groups = _group_full_columns(subgrid_configs)
@@ -1096,10 +1097,11 @@ def feed_backward_passes(forward, subgrid_configs, backwards, spill=None,
     :param forward: a `StreamedForward`
     :param subgrid_configs: the cover every pass consumes
     :param backwards: the `StreamedBackward` passes sharing this feed
-    :param spill: a spill cache; not ported yet (ROADMAP A6), must be None
+    :param spill: a spill cache to record and replay the stream through;
+        not ported yet (ROADMAP A6), must be None
     :param progress: optional callable(n_subgrids_folded)
     :param feed_index: this feed's position in a schedule (kept for the
-        reference's signature; the metrics it labels are ROADMAP A7)
+        reference's signature; the metrics it labels are ROADMAP A9)
     :returns: number of column groups fed
     """
     backwards = list(backwards)
