@@ -27,7 +27,14 @@ this checkout, and holds each kernel against its plain PyTorch version:
    wrap across the plane's ends), with B4's lanes bit-identical between
    B = 2 and B = 4096, ``grid`` bit-equal to its plain version, two
    ``grid`` runs bit-identical and ``grid`` writing nothing outside the
-   patches;
+   patches; B4 over a serving pump (``degrid_rows``) at ragged (B, W, G,
+   H) (``VIS_PUMP_RAGGED``: one row to 64, device, complex and
+   host-staged rows, wrapping first taps) against its plain version,
+   with the weights it computes on the card equal to the host's, its
+   samples equal to ``degrid`` fed the host's weights, and bits that do
+   not change with the rows' order, the samples' order and slots, B or G;
+   and B4's f32 output digests (``B4_DIGESTS``), met by ``degrid`` and by
+   ``degrid_rows``;
 4. float64 round trips at ``1k[1]-n512-256`` on the card against the
    analytic oracle: fused and per subgrid, then streamed;
 5. the fused round trip (``SwiftlyForward.all_subgrids`` then
@@ -47,7 +54,8 @@ this checkout, and holds each kernel against its plain PyTorch version:
    shapes, the streamed path's and the visibility path's; ``grid``, whose
    batch size varies per dispatch, at its four most frequent and its four
    largest, beside its device time over all its launches traced in
-   phase 8; B3 also in each of its tile variants): with CUDA
+   phase 8; B4 likewise at the pumps' four most frequent and four largest
+   (B, W, G, H); B3 also in each of its tile variants): with CUDA
    events around a run of calls, and for B3, B4 and ``grid``, whose
    launches at the visibility shapes take less device time than their
    wrappers take on the host, with the run queued behind a device-side
@@ -64,10 +72,12 @@ this checkout, and holds each kernel against its plain PyTorch version:
    sample gridded by a version-pinned ``VisGridder`` and ingested by a
    sampled ``StreamedBackward``; gated on the oracle, the shed reasons,
    the cache ladder, the adjoint identity, bit-identity to a fresh
-   forward's rows at another bucket and of a second gridding, and the
-   facet-update version gates; then the traffic's first batch (65,536
-   samples, from a freshly seeded feed) served again under torch.profiler
-   for the device's idle share.
+   forward's rows at another bucket (``degrid_batch`` fed the host's
+   weights) and of a second gridding, the facet-update version gates, and
+   B4 launched once per pump that served a sample; then the traffic's
+   first batch (65,536 samples, from a freshly seeded feed) served again
+   under torch.profiler for the device's idle share and B4's device
+   time.
 
 The launch counters are set to 0 just before each 32k path runs and read
 just after it. Every phase that fails ends the run with a non-zero exit
@@ -82,11 +92,20 @@ and prints no result, without one.
 ``python3 chip_smoke.py --quick`` runs phase 2, phase 3 for B1 and B2 (with
 every digest), phase 6, and phase 7 for B1 and B2 at the streamed path's
 shapes, and prints them as one ``quick`` JSON line instead of the result:
-for a kernel change's first calls.
+for a kernel change's first calls. ``--b4`` runs phase 2 and phase 3's B4
+checks and digests; ``--b4-digests`` only B4's digests, through
+``degrid``, which every checkout since the visibility slice has (with
+``--root DIR``, the checkout in DIR). ``--serve-short`` serves phase 8's
+first two batches once (131,072 samples, one pump-dry cycle) and prints
+one ``serve_short`` JSON line; ``--serve-ab DIR --pairs N`` builds the
+kernels of the checkout DIR and of this one, then runs ``--serve-short``
+on each in turn, N times each in their own processes (parent, tree, tree,
+parent, ...), and prints the medians and spreads.
 """
 
 from __future__ import annotations
 
+import argparse
 import hashlib
 import json
 import resource
@@ -94,6 +113,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -198,9 +218,31 @@ B2_DIGESTS = [  # ((F, B, J, R), seed, sha256)
      "5cb9b2fabf7a2a3e7623babb6401f322330d0fa68a930926b4b35d80dd7de329"),
 ]
 
+# B4's f32 output digests with the weights given (``degrid``, which runs
+# the same reduction as a pump's launch): (B, W, H), the numpy seed of the
+# inputs (a strided interleaved row, first taps inside it, the host's
+# weights), and the SHA-256 of the output planes (real, then imaginary),
+# read from the first B4 kernel (one launch a served subgrid, the host's
+# weights) on an H100: a mean dispatch, a ragged row, and the 4096-sample
+# cap. `degrid_rows` must give the same bits from the fractions.
+B4_DIGESTS = [
+    ((13, 8, 448), 301,
+     "ce8c5abbba6728a597cf501bc846dde13562bce17167c7c1be9da8967ba9371a"),
+    ((300, 8, 61), 302,
+     "049375553f02e5c00bff1b98138fcf75833b28a6e3e2979d2e44042aa9a237e1"),
+    ((4096, 8, 448), 303,
+     "cff9db4104ef1d43e6778093d0680235757078e6a7cfd158f0bd4593b5ed81d3"),
+]
+
 # (B, W, H) of B4 and its adjoint: ragged batches and rows, B4 also at
 # the 4096-sample cap for the lane bits
 VIS_RAGGED = [(5, 8, 37), (300, 8, 61), (17, 4, 24), (4096, 8, 448)]
+# (B, W, G, H) of B4 over a pump: G rows of mixed sizes up to H in every
+# layout (device interleaved views, complex views, host rows staged
+# through pinned memory), samples spread over them, first taps that wrap
+# across the rows' ends; G = 1, the cap, and a pump's most rows (64)
+VIS_PUMP_RAGGED = [(5, 8, 1, 37), (300, 8, 3, 61), (17, 4, 7, 24),
+                   (4096, 8, 1, 448), (900, 8, 20, 448), (2000, 6, 64, 61)]
 GRID_RAGGED = [(5, 8, 37), (300, 8, 61), (33, 6, 50), (1000, 8, 448),
                (3300, 8, 448)]
 # grid with first taps drawn from [-2W, H + 2): patches wholly or partly
@@ -219,8 +261,9 @@ VIS_MAX_BATCH = 64
 VIS_EVICT_AFTER = 4  # batches served from the feed before it is evicted
 # whole batches in the profiled serving window, from the traffic's first
 VIS_PROFILE_BATCHES = 1
-# the grid kernel is timed at its most frequent and at its largest shapes
-GRID_TIMED_SHAPES = 4
+# kernels whose batch varies per launch (grid, B4's pumps) are timed at
+# their most frequent and at their largest shapes
+VARIED_TIMED_SHAPES = 4
 
 # the library (csrc/<name>.cu) each kernel is built from
 KERNEL_LIBS = {"cmatmul": "cmatmul", "colpass": "colpass", "fold": "fold",
@@ -747,15 +790,14 @@ def _touched(iu0, iv0, W, H):
     return np.unique((u * H + v)[keep])
 
 
-def check_degrid(torch, shape, dtype, seed=0, timed=False):
-    """B4 against its plain version at one (B, W, H), the row a strided
-    view; its lanes against runs of two (B = 2) at the start, middle and
-    end; with `timed`, also the times and the bound."""
+def check_degrid(torch, shape, dtype, seed=0):
+    """B4 with the weights given (``degrid``) against its plain version at
+    one (B, W, H), the row a strided view; its lanes against runs of two
+    (B = 2) at the start, middle and end."""
     from swiftly_tpu_torch.ops.kernels import degrid, degrid_plain
 
     B, W, H = shape
-    big, (iu0_h, iv0_h), (iu0, iv0, cu, cv, _) = _vis_inputs(
-        torch, shape, dtype, seed)
+    big, _, (iu0, iv0, cu, cv, _) = _vis_inputs(torch, shape, dtype, seed)
     row = big[1:1 + H, 2:2 + H]
     planes = (row[..., 0], row[..., 1])
     vr, vi = degrid(*planes, iu0, iv0, cu, cv)
@@ -782,31 +824,233 @@ def check_degrid(torch, shape, dtype, seed=0, timed=False):
             f"{KERNEL_REL_TOL[name]:.0e}")
     require(bit_identical, f"degrid {shape} {name}: reruns differ")
     require(lanes_ok, f"degrid {shape} {name}: a lane's bits depend on B")
+    log(f"degrid {tuple(shape)} {name}: " + ", ".join(
+        f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in res.items() if k not in ("shape", "dtype")))
+    return res
+
+
+def degrid_digest_inputs(torch, shape, seed):
+    """B4's f32 inputs at one (B, W, H) from a numpy seed: the planes of a
+    strided interleaved row, device first taps inside it, the host
+    fractions and the host's weights for them on the card."""
+    from swiftly_tpu_torch.vis import vis_kernel
+
+    B, W, H = shape
+    rng = np.random.default_rng(seed)
+    big = torch.as_tensor(
+        rng.standard_normal((H + 3, H + 2, 2)).astype(np.float32),
+        device="cuda")
+    row = big[1:1 + H, 2:2 + H]
+    iu0, iv0 = rng.integers(0, H - W + 1, size=(2, B))
+    fu, fv = rng.uniform(0, 1, size=(2, B))
+    k = vis_kernel(support=W)
+    cu, cv = (torch.as_tensor(k.weights(f, dtype=np.float64).astype(
+        np.float32), device="cuda") for f in (fu, fv))
+    idx = [torch.as_tensor(a, device="cuda") for a in (iu0, iv0)]
+    return (row[..., 0], row[..., 1]), (iu0, iv0, fu, fv), idx, (cu, cv)
+
+
+def degrid_digest(torch, shape, seed):
+    """SHA-256 of ``degrid``'s f32 output at one (B, W, H), the weights
+    given: the kernel of any checkout that has ``ops.kernels.degrid``."""
+    from swiftly_tpu_torch.ops.kernels import degrid
+
+    planes, _, idx, (cu, cv) = degrid_digest_inputs(torch, shape, seed)
+    return _sha(*degrid(*planes, *idx, cu, cv))
+
+
+def check_degrid_digest(torch, shape, seed, want):
+    """B4's digest at one (B, W, H), with the weights given and over a
+    one-row pump that computes them from the fractions."""
+    from swiftly_tpu_torch.ops.kernels import degrid_rows
+    from swiftly_tpu_torch.vis import vis_kernel
+
+    got = degrid_digest(torch, shape, seed)
+    planes, host, _, _ = degrid_digest_inputs(torch, shape, seed)
+    table = torch.as_tensor(vis_kernel(support=shape[1]).table, device="cuda")
+    pump = _sha(*degrid_rows([planes], *_host_samples(
+        torch, np.zeros(shape[0], dtype=np.int64), *host), table))
+    require(pump == got, f"degrid_rows {shape}: digest {pump} is not "
+            f"degrid's {got}")
+    return _report_digest("degrid", shape, seed, got, want)
+
+
+def _host_samples(torch, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _pump_inputs(torch, shape, dtype, seed, ragged=False):
+    """B4's inputs over a pump at (B, W, G, H): G rows, each the planes of
+    a strided view of a larger interleaved tensor on the card (sides H, or
+    with `ragged` from W + 3 to H, and rows 1, 4, 7, ... as complex views,
+    rows 2, 5, 8, ... host arrays staged through pinned memory as the
+    service stages the cache feed's rows), and B samples sorted by row
+    slot, as the service packs them: slots, first taps (with `ragged`,
+    from [-2W, side + 2): wrapped, clamped and inside) and fractions (the
+    first three at 0, nextafter(1, 0) and 5/128)."""
+    from swiftly_tpu_torch.vis import split_row_planes
+    from swiftly_tpu_torch.vis.degrid import _staged
+
+    B, W, G, H = shape
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(seed)
+    sizes = np.full(G, H)
+    if ragged:
+        sizes[1:] = rng.integers(W + 3, H + 1, size=G - 1)
+    rows = []
+    for g, n in enumerate(sizes):
+        big = rng.standard_normal((n + 3, n + 2, 2)).astype(np_dt)
+        if ragged and g % 3 == 2:
+            row = _staged(np.ascontiguousarray(big[1:1 + n, 2:2 + n]),
+                          torch.device("cuda"))
+        else:
+            row = torch.as_tensor(big, device="cuda")[1:1 + n, 2:2 + n]
+            if ragged and g % 3 == 1:
+                row = torch.view_as_complex(row)
+        rows.append(split_row_planes(row))
+    slot = np.sort(rng.integers(0, G, size=B))
+    n_of = sizes[slot]
+    if ragged:
+        iu0 = rng.integers(-2 * W, n_of + 2)
+        iv0 = rng.integers(-2 * W, n_of + 2)
+    else:
+        iu0 = rng.integers(0, n_of - W + 1)
+        iv0 = rng.integers(0, n_of - W + 1)
+    fu, fv = rng.uniform(0, 1, size=(2, B))
+    fu[:3] = [0.0, np.nextafter(1.0, 0.0), 5 / 128][:B]
+    fv[:3] = [np.nextafter(1.0, 0.0), 5 / 128, 0.0][:B]
+    return rows, (slot, iu0, iv0, fu, fv)
+
+
+def _weights_probe(torch, kernel, fu, fv, dtype):
+    """Whether the weights B4 computes on the card equal the host's: for
+    each fraction pair, the W^2 samples of a row whose one pixel is 1, each
+    sample's first taps set so that its tap (i, j) meets that pixel, give
+    the device's cu[i] * cv[j] exactly; against the host's weights'
+    products, bitwise."""
+    from swiftly_tpu_torch.ops.kernels import degrid_rows
+
+    W = kernel.support
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    row = torch.zeros((2 * W + 1, 2 * W + 1), dtype=dtype, device="cuda")
+    row[W, W] = 1
+    i, j = (a.reshape(-1) for a in np.meshgrid(np.arange(W), np.arange(W),
+                                               indexing="ij"))
+    P = len(fu)
+    samples = _host_samples(
+        torch, np.zeros(P * W * W, dtype=np.int64), np.tile(W - i, P),
+        np.tile(W - j, P), np.repeat(fu, W * W), np.repeat(fv, W * W))
+    table = torch.as_tensor(kernel.table, device="cuda")
+    got, _ = degrid_rows([(row, torch.zeros_like(row))], *samples, table)
+    cu, cv = (torch.from_numpy(kernel.weights(f, dtype=np.float64).astype(
+        np_dt)) for f in (fu, fv))
+    return bool(torch.equal(got.cpu(), (cu[:, :, None] * cv[:, None, :])
+                            .reshape(-1)))
+
+
+def check_degrid_rows(torch, shape, dtype, seed=0, timed=False,
+                      ragged=False):
+    """B4 over a pump against its plain version at one (B, W, G, H): the
+    device weights equal to the host's (a probe, and each row's samples
+    bitwise equal to ``degrid`` fed the host's weights), a sample's bits
+    the same with the rows reversed and the samples shuffled (slots and
+    order), over half the samples (B) and over one row (G), and reruns
+    bit-identical; with `timed`, also the times and the bound."""
+    from swiftly_tpu_torch.ops.kernels import (degrid, degrid_rows,
+                                               degrid_rows_plain)
+    from swiftly_tpu_torch.vis import vis_kernel
+
+    B, W, G, H = shape
+    rows, host = _pump_inputs(torch, shape, dtype, seed, ragged)
+    slot, iu0, iv0, fu, fv = host
+    k = vis_kernel(support=W)
+    table = torch.as_tensor(k.table, device="cuda")
+    samples = _host_samples(torch, *host)
+    vr, vi = degrid_rows(rows, *samples, table)
+    torch.cuda.synchronize()
+    pr, pi = degrid_rows_plain(rows, *samples, table)
+    max_abs = max((vr - pr).abs().max().item(), (vi - pi).abs().max().item())
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    name = str(dtype).replace("torch.", "")
+    rel = max_abs / scale
+
+    def same(got, sel):
+        return bool(torch.equal(got[0], vr[sel])
+                    and torch.equal(got[1], vi[sel]))
+
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    cu, cv = (torch.as_tensor(k.weights(f, dtype=np.float64).astype(np_dt),
+                              device="cuda") for f in (fu, fv))
+    idx = [torch.as_tensor(a, device="cuda") for a in (iu0, iv0)]
+    host_bits = alone = True
+    for g in range(G):
+        sel_h = np.flatnonzero(slot == g)
+        if sel_h.size == 0:
+            continue
+        sel = torch.as_tensor(sel_h, device="cuda")
+        host_bits &= same(degrid(*rows[g], idx[0][sel], idx[1][sel], cu[sel],
+                                 cv[sel]), sel)
+        if g < 4:  # a pump of this row alone (G = 1)
+            alone &= same(degrid_rows([rows[g]], *_host_samples(
+                torch, slot[sel_h] * 0, *(a[sel_h] for a in host[1:])),
+                table), sel)
+    perm = np.random.default_rng(seed + 7).permutation(B)
+    shuffled = same(degrid_rows(rows[::-1], *_host_samples(
+        torch, G - 1 - slot[perm], *(a[perm] for a in host[1:])), table),
+        torch.as_tensor(perm, device="cuda"))
+    h = max(1, B // 2)
+    halved = same(degrid_rows(rows, *(t[:h] for t in samples), table),
+                  slice(0, h))
+    rerun = same(degrid_rows(rows, *samples, table), slice(None))
+    res = {"shape": list(shape), "dtype": name, "max_abs_err": max_abs,
+           "max_rel_err": rel, "tol_rel": KERNEL_REL_TOL[name],
+           "weights_equal_host": _weights_probe(torch, k, fu[:32], fv[:32],
+                                                dtype),
+           "equal_to_degrid_with_host_weights": host_bits,
+           "bits_independent_of_order": shuffled,
+           "bits_independent_of_B": halved, "bits_independent_of_G": alone,
+           "bit_identical_rerun": rerun}
+    require(rel <= KERNEL_REL_TOL[name],
+            f"degrid_rows {shape} {name}: relative error {rel:.3e} > "
+            f"{KERNEL_REL_TOL[name]:.0e}")
+    for key in ("weights_equal_host", "equal_to_degrid_with_host_weights",
+                "bits_independent_of_order", "bits_independent_of_B",
+                "bits_independent_of_G", "bit_identical_rerun"):
+        require(res[key], f"degrid_rows {shape} {name}: {key} fails")
     if timed:
-        item = row.element_size()
-        pixels = _touched(iu0_h, iv0_h, W, H).size
-        flops = 5 * W * W * B  # the tap weight, then a multiply-add per plane
-        nbytes = item * (2 * pixels + 2 * W * B + 2 * B) + 8 * 2 * B
+        item = vr.element_size()
+        pixels = sum(_touched(iu0[slot == g], iv0[slot == g], W, H).size
+                     for g in range(G))
+        # per sample 2 W weights (two products and a sum each, f64), the
+        # tap weight and an FMA per plane per tap
+        flops = B * (5 * W * W + 6 * W)
+        nbytes = (item * (2 * pixels + 2 * B) + 8 * (5 * B + 6 * G)
+                  + 8 * k.table.size)
         iters = 50
-        run = lambda: degrid(*planes, iu0, iv0, cu, cv)  # noqa: E731
+        run = lambda: degrid_rows(rows, *samples, table)  # noqa: E731
         res["ms"] = _device_ms(torch, run, iters)
         res["call_ms"] = _cuda_ms(torch, run, iters)
         res["plain_ms"] = _device_ms(
-            torch, lambda: degrid_plain(*planes, iu0, iv0, cu, cv), iters)
-        rowc = torch.view_as_complex(row)
-        cuc, cvc = cu.to(rowc.dtype), cv.to(rowc.dtype)
+            torch, lambda: degrid_rows_plain(rows, *samples, table), 5)
+        rowsc = torch.stack([torch.view_as_complex(torch.stack(p, -1))
+                             for p in rows])
+        cuc, cvc = cu.to(rowsc.dtype), cv.to(rowsc.dtype)
         offs = torch.arange(W, device="cuda")
-        iu, iv = iu0[:, None] + offs, iv0[:, None] + offs
+        s = torch.as_tensor(slot, device="cuda")[:, None, None]
+        iu, iv = idx[0][:, None] + offs, idx[1][:, None] + offs
 
         def lib():
-            patches = rowc[iu[:, :, None], iv[:, None, :]]
+            patches = rowsc[s, iu[:, :, None], iv[:, None, :]]
             return torch.einsum("bij,bi,bj->b", patches, cuc, cvc)
 
         res["library_ms"] = _device_ms(torch, lib, iters)
-        res["library_call"] = f"gather plus torch.einsum on {rowc.dtype}"
+        res["library_call"] = (f"gather plus torch.einsum on {rowsc.dtype} "
+                               "over the pump's stacked rows, the weights "
+                               "given")
         res["bound_ms"], res["bound_by"] = _bound(flops, nbytes)
         res["distinct_pixels"] = int(pixels)
-    log(f"degrid {tuple(shape)} {name}: " + ", ".join(
+    log(f"degrid_rows {tuple(shape)} {name}: " + ", ".join(
         f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
         for k, v in res.items() if k not in ("shape", "dtype")))
     return res
@@ -1423,24 +1667,16 @@ def _served(tracked):
     return np.concatenate(uv), np.concatenate(data)
 
 
-def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
-             n_samples=VIS_SAMPLES, n_batches=VIS_BATCHES, fold_group=4,
-             n_bitcheck=48):
-    """The main path of the visibility slice: serve, grid and ingest, with
-    its gates (module docstring, phase 8)."""
+def vis_setup(torch, config_name=MAIN_CONFIG, device="cuda",
+              n_samples=VIS_SAMPLES, n_batches=VIS_BATCHES):
+    """Phase 8's set-up: the forward over the grid-corrected sky model's
+    facets, the cache feed seeded with the hottest column's rows, the
+    service, and the traffic cut into batches with their priorities. Uses
+    only entry points that every checkout of the port since its visibility
+    slice has, so that it drives an earlier checkout too."""
     import swiftly_tpu_torch as st
     from swiftly_tpu_torch import vis as sv
     from swiftly_tpu_torch.serve import AdmissionQueue, CoalescingScheduler
-
-    cuda = device == "cuda"
-    t_phase = time.perf_counter()
-
-    def sync():
-        if cuda:
-            torch.cuda.synchronize()
-
-    def mark(step):
-        log(f"  [vis: {step} at {time.perf_counter() - t_phase:.1f} s]")
 
     kernel = sv.vis_kernel()
     cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
@@ -1467,16 +1703,46 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
         [fwd.get_subgrid_task(sg).cpu().numpy() for sg in hot_col])[None]
     feed_tag = ("vis-seed", config_name, len(hot_col))
     spill, feed = vis_feed(hot_col, hot_stack, feed_tag)
-    mark("forward and cache feed ready")
     service = sv.VisibilityService(
         fwd, subgrid_configs=sgcs, kernel=kernel, cache_feed=feed,
         queue=AdmissionQueue(max_depth=VIS_MAX_DEPTH),
         scheduler=CoalescingScheduler(max_batch=VIS_MAX_BATCH,
                                       urgency_s=0.05),
     )
-    batches = np.array_split(uv_all, n_batches)
     rng = np.random.default_rng(VIS_SEED + 1)
-    priorities = rng.integers(0, 4, size=n_batches)
+    return SimpleNamespace(
+        cfg=cfg, kernel=kernel, N=N, raw=raw, fcs=fcs, sgcs=sgcs,
+        tasks=tasks, hot_col=hot_col, fwd=fwd, hot_stack=hot_stack,
+        feed_tag=feed_tag, spill=spill, feed=feed, service=service,
+        batches=np.array_split(uv_all, n_batches),
+        priorities=rng.integers(0, 4, size=n_batches), setup_s=setup_s)
+
+
+def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
+             n_samples=VIS_SAMPLES, n_batches=VIS_BATCHES, fold_group=4,
+             n_bitcheck=48):
+    """The main path of the visibility slice: serve, grid and ingest, with
+    its gates (module docstring, phase 8)."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import vis as sv
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mark(step):
+        log(f"  [vis: {step} at {time.perf_counter() - t_phase:.1f} s]")
+
+    ctx = vis_setup(torch, config_name, device, n_samples, n_batches)
+    kernel, cfg, N, fcs, sgcs, tasks = (ctx.kernel, ctx.cfg, ctx.N, ctx.fcs,
+                                        ctx.sgcs, ctx.tasks)
+    hot_col, hot_stack, feed_tag = ctx.hot_col, ctx.hot_stack, ctx.feed_tag
+    fwd, spill, feed, service = ctx.fwd, ctx.spill, ctx.feed, ctx.service
+    batches, priorities, raw = ctx.batches, ctx.priorities, ctx.raw
+    mark("forward and cache feed ready")
 
     # -- the counted path: serve, then grid and ingest ----------------------
     if cuda:
@@ -1536,12 +1802,15 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
         "gridded_columns": len(cols), "gridded_subgrids": sum(map(len, cols)),
         "serve_launches": {k: v[0] for k, v in serve_counts.items()},
         "launches": {k: v[0] for k, v in counts.items()},
-        "counts": counts, "peak_memory_gib": peak, "setup_s": setup_s,
+        "counts": counts, "peak_memory_gib": peak, "setup_s": ctx.setup_s,
+        "pumps": stats["n_pumps"],
+        "serve_b4_launches": serve_counts["degrid"][0],
     }
     log(f"{config_name} vis: served {n_served} of {n_samples} samples in "
         f"{serve_s:.3f} s ({out['samples_per_s']:.0f}/s, {stats['n_batches']} "
-        f"dispatches, mean {stats['mean_batch']}), gridded in {grid_s:.3f} s, "
-        f"ingested in {ingest_s:.3f} s; launches {out['launches']}")
+        f"dispatches, mean {stats['mean_batch']}, in {stats['n_pumps']} "
+        f"pumps), gridded in {grid_s:.3f} s, ingested in {ingest_s:.3f} s; "
+        f"launches {out['launches']}")
 
     mark("served, gridded and ingested")
 
@@ -1688,6 +1957,9 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
     if cuda:
         missing = [k for k, v in out["launches"].items() if v == 0]
         require(not missing, f"the visibility path launched {missing} no time")
+        require(out["serve_b4_launches"] == out["pumps"] > 0,
+                f"serving launched B4 {out['serve_b4_launches']} times in "
+                f"{out['pumps']} pumps that served a sample")
         # the traffic's first batch again, from a freshly seeded feed
         _, feed = vis_feed(hot_col, hot_stack, feed_tag)
         out.update(profile_vis(
@@ -1744,8 +2016,11 @@ def profile_vis(torch, sv, fwd, sgcs, kernel, feed, window, rows=12):
            "profiled_window_s": window_s, "profiled_device_busy_s": busy_s,
            "profiled_idle_share": (1.0 - busy_s / window_s
                                    if busy_s > 0 else None)}
-    for name in ("degrid", "cmatmul"):
-        out[f"profiled_{name}_s"], _ = _kernel_seconds(events, f"{name}_kernel")
+    out["profiled_pumps"] = stats["n_pumps"]
+    for name, kernel in (("degrid", "degrid_rows_kernel"),
+                         ("cmatmul", "cmatmul_kernel")):
+        out[f"profiled_{name}_s"], out[f"profiled_{name}_launches"] = (
+            _kernel_seconds(events, kernel))
     log("profiled visibility serving: " + json.dumps(out))
     by_name = {}
     for name, a, b in events:
@@ -1769,13 +2044,14 @@ def _by_frequency(shapes):
                   reverse=True)
 
 
-def _grid_shapes(shapes):
-    """The scatter's shapes to time (its B varies per dispatch, over
-    hundreds of values): the `GRID_TIMED_SHAPES` most frequent, then the
-    `GRID_TIMED_SHAPES` largest."""
-    frequent = _by_frequency(shapes)[:GRID_TIMED_SHAPES]
+def _varied_shapes(shapes):
+    """The shapes to time of a kernel whose batch varies per launch (the
+    scatter's B per dispatch, B4's (B, G) per pump, over hundreds of
+    values): the `VARIED_TIMED_SHAPES` most frequent, then the
+    `VARIED_TIMED_SHAPES` largest."""
+    frequent = _by_frequency(shapes)[:VARIED_TIMED_SHAPES]
     largest = sorted(shapes.items(), key=lambda kv: np.prod(kv[0], dtype=float),
-                     reverse=True)[:GRID_TIMED_SHAPES]
+                     reverse=True)[:VARIED_TIMED_SHAPES]
     return frequent + [kv for kv in largest if kv not in frequent]
 
 
@@ -1859,15 +2135,159 @@ def quick_main(torch):
     return 0
 
 
+def b4_main(torch, tree=True):
+    """``--b4-digests``: B4's digests with the weights given, on whichever
+    checkout is imported (``--root``). ``--b4``: also phase 3's B4 checks
+    of this checkout, the one-row reduction and the pump."""
+    if tree:
+        for dt in (torch.float32, torch.float64):
+            for i, shape in enumerate(VIS_RAGGED):
+                check_degrid(torch, shape, dt, seed=i)
+            for i, shape in enumerate(VIS_PUMP_RAGGED):
+                check_degrid_rows(torch, shape, dt, seed=i, ragged=True)
+    for shape, seed, want in B4_DIGESTS:
+        if tree:
+            check_degrid_digest(torch, shape, seed, want)
+        else:
+            _report_digest("degrid", shape, seed,
+                           degrid_digest(torch, shape, seed), want)
+    return 0
+
+
+def serve_short_main(torch, smi, tasks_equal=False):
+    """``--serve-short``: phase 8's set-up, then its traffic's first two
+    batches (131,072 samples, one pump-dry cycle) served once, timed on
+    the host clock between synchronisations; one ``serve_short`` JSON line.
+    Drives any checkout of the port since its visibility slice
+    (``--root``). With `tasks_equal`, also whether
+    ``SwiftlyForward.get_subgrid_tasks`` gives the rows of
+    ``get_subgrid_task`` bit for bit, for the hottest column."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.ops import _build
+
+    _build.build_all(sorted(set(KERNEL_LIBS.values())))
+    ctx = vis_setup(torch)
+    service = ctx.service
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(2):
+        service.submit(ctx.batches[k], priority=int(ctx.priorities[k]))
+    while service.pump_once():
+        pass
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    stats = service.stats()
+    n = stats["n_served_samples"]
+    out = {"package": str(Path(st.__file__).resolve().parent.parent),
+           "card": smi, "samples": int(sum(map(len, ctx.batches[:2]))),
+           "served_samples": n, "serve_s": serve_s,
+           "samples_per_s": n / serve_s, "p50_ms": stats["p50_ms"],
+           "p99_ms": stats["p99_ms"], "dispatches": stats["n_batches"],
+           "mean_batch": stats["mean_batch"],
+           "pumps": stats.get("n_pumps"),  # None before the pump launch
+           "b4_launches": st.degrid_stats.launches,
+           "rows_from_cache": stats["cache_hits"], "setup_s": ctx.setup_s}
+    if tasks_equal:
+        single = [ctx.fwd.get_subgrid_task(sg) for sg in ctx.hot_col]
+        stacked = ctx.fwd.get_subgrid_tasks(ctx.hot_col)
+        out["subgrid_tasks_rows"] = len(single)
+        out["subgrid_tasks_bitwise_equal"] = sum(
+            bool(torch.equal(a, b)) for a, b in zip(single, stacked))
+        out["subgrid_tasks_max_abs_diff"] = max(
+            (a - b).abs().max().item() for a, b in zip(single, stacked))
+    log(json.dumps({"serve_short": out}))
+    return 0
+
+
+def serve_ab_main(parent, pairs, smi):
+    """``--serve-ab DIR``: the short serving run of the checkout DIR (e.g.
+    the parent commit, unpacked with ``git archive``) and of this one in
+    turn, `pairs` runs each (parent, tree, tree, parent, ...), each in its
+    own process driven by this script, after both checkouts' kernels are
+    built; one ``ab_run`` line a run, then the medians and spreads."""
+    roots = {"parent": Path(parent).resolve(), "tree": ROOT}
+    libs = sorted(set(KERNEL_LIBS.values()))
+    build = ("import sys; sys.path.insert(0, sys.argv[1]); "
+             "from swiftly_tpu_torch.ops import _build; "
+             "_build.build_all(sys.argv[2:])")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", build, str(r), *libs])
+             for r in roots.values()]
+    codes = [proc.wait() for proc in procs]
+    require(codes == [0, 0], f"the kernel builds exited {codes}")
+    log(f"built both checkouts' kernels in {time.perf_counter() - t0:.1f} s")
+    runs = {side: [] for side in roots}
+    for i in range(pairs):
+        for side in ("parent", "tree") if i % 2 == 0 else ("tree", "parent"):
+            cmd = [sys.executable, str(ROOT / "chip_smoke.py"),
+                   "--serve-short", "--root", str(roots[side])]
+            if side == "tree" and i == pairs - 1:
+                cmd.append("--tasks-equal")
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=900)
+            require(proc.returncode == 0,
+                    f"{side} run {i} exited {proc.returncode}:\n"
+                    f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+            rec = json.loads(proc.stdout.strip().splitlines()[-1])
+            runs[side].append(rec["serve_short"])
+            log(json.dumps({"ab_run": i, "side": side, **rec["serve_short"]}))
+    summary = {"card": smi, "pairs": pairs}
+    for side, recs in runs.items():
+        summary[side] = {"package": recs[0]["package"]}
+        for key in ("serve_s", "samples_per_s", "p50_ms", "p99_ms"):
+            vals = [r[key] for r in recs]
+            summary[side][key] = {"median": float(np.median(vals)),
+                                  "min": min(vals), "max": max(vals)}
+        for key in ("served_samples", "dispatches", "pumps", "b4_launches"):
+            summary[side][key] = sorted({r[key] for r in recs},
+                                        key=lambda v: (v is None, v))
+    summary["subgrid_tasks"] = {k: runs["tree"][-1][k] for k in (
+        "subgrid_tasks_rows", "subgrid_tasks_bitwise_equal",
+        "subgrid_tasks_max_abs_diff")}
+    log(json.dumps({"serve_ab": summary}))
+    return 0
+
+
+def _args():
+    p = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on one NVIDIA GPU "
+        "(the module docstring says what each phase does); with no "
+        "argument, every phase.")
+    p.add_argument("--quick", action="store_true",
+                   help="phases 2 and 3 for B1 and B2, phase 6, phase 7 for "
+                   "B1 and B2")
+    p.add_argument("--b4", action="store_true",
+                   help="phase 2, then phase 3's B4 checks and digests")
+    p.add_argument("--b4-digests", action="store_true",
+                   help="phase 2, then B4's digests (works on an earlier "
+                   "checkout, through --root)")
+    p.add_argument("--serve-short", action="store_true",
+                   help="phase 8's first two batches served once")
+    p.add_argument("--tasks-equal", action="store_true",
+                   help="with --serve-short: get_subgrid_tasks against "
+                   "get_subgrid_task on the hottest column")
+    p.add_argument("--serve-ab", metavar="DIR",
+                   help="the short serving run of checkout DIR and of this "
+                   "one in turn, --pairs runs each")
+    p.add_argument("--pairs", type=int, default=10)
+    p.add_argument("--root", metavar="DIR",
+                   help="import swiftly_tpu_torch from checkout DIR")
+    return p.parse_args()
+
+
 def main():
     import gc
 
     import torch
 
+    args = _args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 2
+    if args.root:
+        sys.path.insert(0, str(Path(args.root).resolve()))
     import swiftly_tpu_torch  # noqa: F401  (fails outside the repo)
 
     t_start = time.perf_counter()
@@ -1885,10 +2305,16 @@ def main():
         log(f"[{phase} done at {time.perf_counter() - t_start:.1f} s, host "
             f"peak memory {peak:.1f} GiB]")
 
+    if args.serve_ab:
+        return serve_ab_main(args.serve_ab, args.pairs, smi)
+    if args.serve_short:
+        return serve_short_main(torch, smi, args.tasks_equal)
     build_kernels()
     done("build")
-    if "--quick" in sys.argv[1:]:
+    if args.quick:
         return quick_main(torch)
+    if args.b4 or args.b4_digests:
+        return b4_main(torch, tree=args.b4)
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
@@ -1898,6 +2324,8 @@ def main():
             check_fold(torch, shape, dt, seed=i, layout=layout)
         for i, shape in enumerate(VIS_RAGGED):
             check_degrid(torch, shape, dt, seed=i)
+        for i, shape in enumerate(VIS_PUMP_RAGGED):
+            check_degrid_rows(torch, shape, dt, seed=i, ragged=True)
         for i, shape in enumerate(GRID_RAGGED):
             check_grid(torch, shape, dt, seed=i)
         for i, shape in enumerate(GRID_WRAPPED):
@@ -1909,6 +2337,8 @@ def main():
         check_colpass_digest(torch, shape, seed, want)
     for shape, seed, want in B2_DIGESTS:
         check_fold_digest(torch, shape, seed, want)
+    for shape, seed, want in B4_DIGESTS:
+        check_degrid_digest(torch, shape, seed, want)
     done("kernels")
     roundtrip_small(torch)
     roundtrip_streamed_small(torch)
@@ -1924,7 +2354,8 @@ def main():
 
     # Phase 7: each kernel at the shapes each 32k path gave it.
     checks = {"cmatmul": check_cmatmul, "colpass": check_colpass,
-              "fold": check_fold, "degrid": check_degrid, "grid": check_grid}
+              "fold": check_fold, "degrid": check_degrid_rows,
+              "grid": check_grid}
     main_paths = {"cmatmul": "streamed", "colpass": "streamed",
                   "fold": "streamed", "degrid": "vis", "grid": "vis"}
     paths = {k: {} for k in checks}
@@ -1936,7 +2367,7 @@ def main():
                 continue
             timed, secs, covered = time_path(
                 torch, checks[kname],
-                _grid_shapes(shapes) if kname == "grid"
+                _varied_shapes(shapes) if kname in ("grid", "degrid")
                 else _by_frequency(shapes),
                 done=timed_shapes[kname])
             paths[kname][path] = (launches, timed)
@@ -1968,8 +2399,9 @@ def main():
         "grid_traced_launches", "profiled_batches", "profiled_samples",
         "profiled_dispatches", "profiled_mean_batch",
         "profiled_rows_from_cache", "profiled_window_s",
-        "profiled_device_busy_s", "profiled_idle_share", "profiled_degrid_s",
-        "profiled_cmatmul_s")}
+        "profiled_device_busy_s", "profiled_idle_share", "profiled_pumps",
+        "profiled_degrid_s", "profiled_degrid_launches", "profiled_cmatmul_s",
+        "pumps", "serve_b4_launches")}
     for kname in ("degrid", "grid", "cmatmul", "colpass", "fold"):
         launches, timed = paths[kname]["vis"]
         covered = sum(r["launches"] for r in timed)

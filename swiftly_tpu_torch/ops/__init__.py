@@ -16,6 +16,8 @@ from .kernels import (
     colpass_stats,
     degrid,
     degrid_plain,
+    degrid_rows,
+    degrid_rows_plain,
     degrid_stats,
     fold,
     fold_plain,
@@ -44,6 +46,8 @@ __all__ = [
     "create_slice",
     "degrid",
     "degrid_plain",
+    "degrid_rows",
+    "degrid_rows_plain",
     "degrid_stats",
     "fold",
     "fold_plain",

@@ -12,12 +12,15 @@ versions.
 * Kernel B2, ``fold``: the streamed backward's adjoint sampled fold
   ``acc += w * ((Bc - i Bs)^T @ (Rr + i Ri))``, in place, the port of
   ``bwd_fold_pallas`` (``pallas_kernels.py:171``); ``csrc/fold.cu``.
-* Kernel B4, ``degrid``: the visibility degrid reduction
+* Kernel B4, ``degrid_rows``: the visibility degrid reduction
   ``vis[b] = sum_ij row[u0_b + i, v0_b + j] cu[b, i] cv[b, j]`` over both
-  planes of one served row, with the gather fused, the port of the
-  ``use_pallas`` branch of ``swiftly_tpu/vis/degrid.py:71`` ``_degrid_fn``;
-  and its exact adjoint ``grid``, a deterministic in-place scatter-add (the
-  port of ``swiftly_tpu/vis/grid.py:42``, not a TPU kernel); both in
+  planes of the row of each sample, for every sample of a serving pump over
+  G rows in one launch, with the gather fused and the tap weights computed
+  on the card from the kernel's table, the port of the ``use_pallas``
+  branch of ``swiftly_tpu/vis/degrid.py:71`` ``_degrid_fn``; ``degrid``
+  runs the same reduction on one row with the weights given; and its exact
+  adjoint ``grid``, a deterministic in-place scatter-add (the port of
+  ``swiftly_tpu/vis/grid.py:42``, not a TPU kernel); all in
   ``csrc/degrid.cu``.
 
 CUDA C++ for ``sm_90a``, built by ``ops/_build.py`` at first use and bound
@@ -42,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from collections import Counter
 from typing import NamedTuple
 
@@ -62,8 +66,11 @@ __all__ = [
     "colpass_plain",
     "colpass_staging",
     "colpass_stats",
+    "check_tap_table",
     "degrid",
     "degrid_plain",
+    "degrid_rows",
+    "degrid_rows_plain",
     "degrid_stats",
     "engine_tile",
     "fold",
@@ -74,6 +81,7 @@ __all__ = [
     "grid_plain",
     "grid_stats",
     "load_cmatmul",
+    "tap_weights",
 ]
 
 
@@ -122,6 +130,7 @@ _ARGTYPES = {
     "fold": {"fold": [_P, _P, _STRIDES, _P, _P, _STRIDES, _P, _P, _STRIDES,
                       _P, _LL, _LL, _I, _I, _I, _I, _P]},
     "degrid": {"degrid": _DEGRID_ARGS,
+               "degrid_rows": [_P, _LL, _LL, _I, _P, _I, _P, _P, _P],
                "grid": _DEGRID_ARGS[:10] + [_P, _P, _LL, _I, _P]},
 }
 
@@ -729,6 +738,168 @@ def degrid(row_r, row_i, iu0, iv0, cu, cv):
                 iu0.data_ptr(), iv0.data_ptr(), cu.data_ptr(), cv.data_ptr(),
                 vr.data_ptr(), vi.data_ptr(), B, W, stream)
     degrid_stats.record((B, W, H))
+    return vr, vi
+
+
+# the words of one row's descriptor in a pump's buffer (csrc/degrid.cu
+# kRowWords): the two planes' addresses, their strides (s0, s1), (H, W')
+_ROW_WORDS = 6
+_ONE_BELOW = math.nextafter(1.0, 0.0)  # the largest fraction a table takes
+_DEGRID_WARPS = 8  # samples a block (csrc/degrid.cu kWarpsPerBlock)
+_MAX_SMEM = 232448  # shared memory a block may have on Hopper
+
+
+def check_tap_table(table):
+    """(oversample, W) of a [oversample + 1, W] float64 tap table
+    (``vis.kernel.VisKernel.table``).
+
+    :raises ValueError: when the table is no such table, or when its
+        largest lookup, rows i0 and i0 + 1 at ``i0 = int(nextafter(1, 0) *
+        oversample)``, would read past its last row, as the host's lookup
+        does (and then raises) for a table of one row. For every integer
+        oversample from 1 to 2^53 the product rounds below oversample, so
+        those tables pass.
+    """
+    if table.ndim != 2 or table.dtype != torch.float64:
+        raise ValueError(
+            "tap table: expected a [oversample + 1, W] float64 table, got "
+            f"{tuple(table.shape)} {table.dtype}")
+    oversample, W = table.shape[0] - 1, table.shape[1]
+    if int(_ONE_BELOW * oversample) + 1 > oversample:
+        raise ValueError(
+            f"tap table: {oversample + 1} rows; the lookup of fractions "
+            f"just below 1 would read row {int(_ONE_BELOW * oversample) + 1},"
+            " past the table")
+    return oversample, W
+
+
+def tap_weights(frac, table, dtype):
+    """[B, W] tap weights of fractions ``frac`` [B] from the table, the
+    plain PyTorch version of what B4 computes on the card: the operations
+    of ``vis.kernel.VisKernel.weights(frac, float64)`` in float64 in the
+    same order (numpy's clip, then ``table[i0] * (1 - t) + table[i0 + 1] *
+    t``), then rounded to ``dtype``, so the bits are the host's."""
+    oversample, _ = check_tap_table(table)
+    frac = frac.to(torch.float64)
+    if not bool(torch.isfinite(frac).all()):
+        raise ValueError("tap weights: fractions must be finite")
+    c = torch.where(frac > 0.0, frac, 0.0)
+    c = torch.where(c < _ONE_BELOW, c, _ONE_BELOW)
+    a = c * oversample
+    i0 = a.to(torch.int64)
+    t = (a - i0.to(torch.float64))[:, None]
+    return (table[i0] * (1.0 - t) + table[i0 + 1] * t).to(dtype)
+
+
+def degrid_rows_plain(rows, slot, iu0, iv0, fu, fv, table):
+    """The plain PyTorch version of B4 over a pump, on the rows' device:
+    the weights by `tap_weights`, then per row the gather and ``einsum`` of
+    `degrid_plain` over the samples of that row's slot."""
+    dev, dtype = rows[0][0].device, rows[0][0].dtype
+    slot, iu0, iv0, fu, fv, table = (t.to(dev) for t in (slot, iu0, iv0, fu,
+                                                         fv, table))
+    cu, cv = tap_weights(fu, table, dtype), tap_weights(fv, table, dtype)
+    vr = torch.zeros(slot.shape, dtype=dtype, device=dev)
+    vi = torch.zeros_like(vr)
+    for g, (row_r, row_i) in enumerate(rows):
+        sel = torch.nonzero(slot == g)[:, 0]
+        if sel.numel():
+            vr[sel], vi[sel] = degrid_plain(row_r, row_i, iu0[sel], iv0[sel],
+                                            cu[sel], cv[sel])
+    return vr, vi
+
+
+def _pump_shapes(rows, slot, iu0, iv0, fu, fv, table):
+    samples = (slot, iu0, iv0, fu, fv)
+    B = slot.shape[0] if slot.ndim == 1 else -1
+    if (not rows or any(len(pair) != 2 or pair[0].ndim != 2
+                        or pair[1].shape != pair[0].shape for pair in rows)
+            or any(tuple(t.shape) != (B,) for t in samples)):
+        raise ValueError(
+            "degrid_rows: expected (real, imag) [H, W'] plane pairs and [B] "
+            f"samples, got {[tuple(p.shape) for pair in rows for p in pair]} "
+            f"and {[tuple(t.shape) for t in samples]}")
+    if (any(t.device.type != "cpu" for t in samples)
+            or any(t.dtype != torch.int64 for t in (slot, iu0, iv0))
+            or any(t.dtype != torch.float64 for t in (fu, fv))):
+        raise TypeError(
+            "degrid_rows: slots and first taps must be int64 and fractions "
+            "float64, on the host (got "
+            f"{[(t.dtype, str(t.device)) for t in samples]})")
+    if B and (int(slot.min()) < 0 or int(slot.max()) >= len(rows)):
+        raise ValueError(f"degrid_rows: row slots outside [0, {len(rows)})")
+    return B
+
+
+def degrid_rows(rows, slot, iu0, iv0, fu, fv, table):
+    """Kernel B4 over a serving pump, one launch: for every sample b,
+    ``vis[b] = sum_ij row[iu0_b + i, iv0_b + j] cu[b, i] cv[b, j]`` on the
+    row of its slot, the weights ``cu``, ``cv`` computed on the card from
+    the table and the fractions, bit for bit `tap_weights`.
+
+    A sample's bits do not depend on B, on the rows, on its slot or on its
+    place in the pump; they equal `degrid` fed `tap_weights`. The rows are
+    read where they lie (strided views, e.g. ``row[..., 0]`` and
+    ``row[..., 1]`` of an interleaved row, or a complex row's ``.real`` and
+    ``.imag``); the descriptors and the samples go up in one pinned buffer,
+    one non-blocking copy.
+
+    :param rows: G pairs (row_r, row_i) of [H, W'] planes, each pair
+        sharing its strides, all on one device and of one dtype
+    :param slot: [B] int64 row slot of each sample (host)
+    :param iu0, iv0: [B] int64 first-tap indices (host; JAX's gather rules
+        past the row's edges)
+    :param fu, fv: [B] float64 finite sub-pixel fractions (host)
+    :param table: [oversample + 1, W] float64 tap table on the rows' device
+        (`check_tap_table`)
+    :return: two new [B] tensors (vr, vi) on the rows' device
+    """
+    B = _pump_shapes(rows, slot, iu0, iv0, fu, fv, table)
+    planes = [p for pair in rows for p in pair]
+    if _on_cpu(planes + [table]):
+        return degrid_rows_plain(rows, slot, iu0, iv0, fu, fv, table)
+    _check_cuda("degrid_rows", planes)
+    for pair in rows:
+        _same_strides(*pair)
+    dev, dtype = planes[0].device, planes[0].dtype
+    oversample, W = check_tap_table(table)
+    if table.device != dev or not table.is_contiguous():
+        raise ValueError("degrid_rows: the tap table must be contiguous on "
+                         f"the rows' device {dev} (got {table.device})")
+    if not (bool(torch.isfinite(fu).all()) and bool(torch.isfinite(fv).all())):
+        raise ValueError("degrid_rows: fractions must be finite")
+    smem = (8 * (oversample + 1) * W
+            + _DEGRID_WARPS * 2 * W * planes[0].element_size())
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"degrid_rows: a [{oversample + 1}, {W}] tap table takes {smem} "
+            f"bytes of shared memory a block, more than the {_MAX_SMEM} a "
+            "block may have")
+    vr = torch.empty((B,), dtype=dtype, device=dev)
+    vi = torch.empty_like(vr)
+    if B == 0:
+        return vr, vi
+    if W == 0 or any(p.numel() == 0 for p in planes):
+        return vr.zero_(), vi.zero_()
+    G = len(rows)
+    desc = []
+    for row_r, row_i in rows:
+        desc += [row_r.data_ptr(), row_i.data_ptr(), *row_r.stride(),
+                 *row_r.shape]
+    pump = torch.empty((_ROW_WORDS * G + 5 * B,), dtype=torch.int64,
+                       pin_memory=True)
+    pump[:_ROW_WORDS * G] = torch.tensor(desc, dtype=torch.int64)
+    at = _ROW_WORDS * G
+    for t in (slot, iu0, iv0, fu, fv):
+        pump[at:at + B].view(t.dtype).copy_(t)
+        at += B
+    with torch.cuda.device(dev):
+        pump = pump.to(dev, non_blocking=True)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch("degrid", dtype, f"(B, W, G) = ({B}, {W}, {G})",
+                pump.data_ptr(), G, B, W, table.data_ptr(), oversample,
+                vr.data_ptr(), vi.data_ptr(), stream, entry="degrid_rows")
+    degrid_stats.record((B, W, G, rows[0][0].shape[0]))
     return vr, vi
 
 

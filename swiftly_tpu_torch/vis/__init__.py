@@ -10,8 +10,10 @@ fractional (u, v) — and back:
   ``DEGRID_TOLERANCE``);
 * `vis.mapping` — sample -> owning-subgrid index over the served cover
   (outside-cover samples are shed, never answered wrong);
-* `vis.degrid` — one dispatch of kernel B4 per served row (the gather
-  fused; its plain version on the CPU);
+* `vis.degrid` — one launch of kernel B4 per serving pump, over the
+  pump's rows, the tap weights computed on the card (the gather fused;
+  its plain version on the CPU), and the reference's one-row
+  `degrid_batch`;
 * `vis.grid` — the exact adjoint, a deterministic scatter kernel, and
   the version-pinned `VisGridder` accumulator feeding
   `parallel.streamed.StreamedBackward.add_subgrid_group`;
@@ -23,7 +25,7 @@ fractional (u, v) — and back:
 Not ported yet: ``FleetRowSource`` (with ``serve.fleet``, ROADMAP A12).
 """
 
-from .degrid import bucket_size, degrid_batch, split_row_planes
+from .degrid import bucket_size, degrid_batch, degrid_rows, split_row_planes
 from .grid import ADJOINT_TOLERANCE, VisGridder, grid_batch
 from .kernel import DEGRID_TOLERANCE, MAX_BAND, VisKernel, vis_kernel
 from .mapping import VisCoverIndex
@@ -43,6 +45,7 @@ __all__ = [
     "bucket_size",
     "corrected_sources",
     "degrid_batch",
+    "degrid_rows",
     "grid_batch",
     "split_row_planes",
     "vis_kernel",

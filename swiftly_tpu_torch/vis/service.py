@@ -2,11 +2,16 @@
 
 The port of the JAX package's ``swiftly_tpu/vis/service.py``. Rows stay on
 the device: a computed row is degridded where it lies (the reference copies
-it to the host and back), and a cache-fed host row is uploaded once per
-dispatch. Not ported yet: ``FleetRowSource`` (it needs ``serve.fleet``,
-ROADMAP A12; any ``row_source`` callable works), the projected-HBM
-admission ``hbm_budget_bytes`` (A10), and the ``obs.metrics`` / ``trace``
-hooks (A9).
+it to the host and back), and a cache-fed host row goes up once, through
+pinned memory. Each pump fetches the rows of all its subgrids first and
+then answers all their samples in one launch of B4, with one copy back
+(the reference dispatches once per subgrid); every per-subgrid observable
+(``batch_size``, ``path``, ``coalesced``, ``n_batches``, ``mean_batch``,
+the 4096-sample cap) stays the reference's, and ``n_pumps`` counts the
+pumps that launched. Not ported yet: ``FleetRowSource`` (it needs
+``serve.fleet``, ROADMAP A12; any ``row_source`` callable works), the
+projected-HBM admission ``hbm_budget_bytes`` (A10), and the
+``obs.metrics`` / ``trace`` hooks (A9).
 
 The reference's serving stack answers *subgrid* requests (`serve.service`);
 radio-astronomy clients want *visibilities* — the sky transform sampled
@@ -15,9 +20,9 @@ a submitted sample batch is split by owning subgrid
 (`vis.mapping.VisCoverIndex`), admitted into the SAME
 `serve.queue.AdmissionQueue` / `serve.scheduler.CoalescingScheduler`
 machinery (coalesced by owning column, power-of-two sample buckets),
-and answered by ONE degrid dispatch per touched subgrid
-(`vis.degrid.degrid_batch`) off a row obtained through the serving
-ladder:
+and answered per touched subgrid (one dispatch each in the reference's
+count; one B4 launch a pump here, `vis.degrid.degrid_rows`) off a row
+obtained through the serving ladder:
 
 1. **cache feed** — `parallel.streamed.CachedColumnFeed.lookup` (one
    host-RAM row read, version-gated: a feed recorded at a superseded
@@ -47,6 +52,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 
 from ..ops.core import resolve_device
 from ..serve.queue import (
@@ -58,7 +64,7 @@ from ..serve.queue import (
     SubgridRequest,
 )
 from ..serve.scheduler import CoalescingScheduler
-from .degrid import degrid_batch
+from .degrid import degrid_rows
 from .kernel import vis_kernel
 from .mapping import VisCoverIndex
 
@@ -219,6 +225,9 @@ class VisibilityService:
         self.device = resolve_device(device)
         self.fwd = fwd
         self.kernel = kernel or vis_kernel()
+        # the tap table B4 computes the weights from, kept on the device
+        self._table = torch.as_tensor(self.kernel.table,
+                                      dtype=torch.float64, device=self.device)
         self.cover = VisCoverIndex(
             subgrid_configs, self.kernel.support, int(N)
         )
@@ -239,7 +248,7 @@ class VisibilityService:
             "expired": 0, "batches": 0, "coalesced": 0,
             "cache_hits": 0, "cache_fallbacks": 0,
             "version_fallbacks": 0, "slo_violations": 0,
-            "facet_updates": 0,
+            "facet_updates": 0, "pumps": 0,
         }
         self._shed_reasons = {}
         self._latencies = []
@@ -344,10 +353,14 @@ class VisibilityService:
         for req in reqs:
             key = (req.config.off0, req.config.off1)
             groups.setdefault(key, []).append(req)
+        fetched = []
         for rs in groups.values():
-            self._serve_subgrid(rs)
-            n_done += len(rs)
-        return n_done
+            got = self._fetch_group(rs)
+            if got is not None:
+                fetched.append((rs, *got))
+        if fetched:
+            self._serve_pump(fetched)
+        return n_done + len(reqs)
 
     def _fetch_row(self, sg, reqs):
         """The row ladder: version-gated cache feed, then compute."""
@@ -377,11 +390,11 @@ class VisibilityService:
             row = self.fwd.get_subgrid_task(sg)
         return row, "compute"
 
-    def _serve_subgrid(self, reqs):
-        """Answer every sample of one subgrid in one degrid dispatch."""
-        sg = reqs[0].config
+    def _fetch_group(self, reqs):
+        """One subgrid's row through the ladder, as (row, path); None when
+        the ladder is exhausted and the subgrid's requests were shed."""
         try:
-            row, path = self._fetch_row(sg, reqs)
+            return self._fetch_row(reqs[0].config, reqs)
         except Exception as exc:  # row ladder exhausted
             for req in reqs:
                 self._shed_counts(req.n_samples, "row_fetch_failed")
@@ -389,28 +402,37 @@ class VisibilityService:
                     STATUS_SHED, shed_reason="row_fetch_failed",
                     error=repr(exc),
                 ))
-            return
-        iu0 = np.concatenate([r.iu0 for r in reqs])
-        iv0 = np.concatenate([r.iv0 for r in reqs])
-        fu = np.concatenate([r.fu for r in reqs])
-        fv = np.concatenate([r.fv for r in reqs])
-        cu = self.kernel.weights(fu, dtype=np.float64)
-        cv = self.kernel.weights(fv, dtype=np.float64)
-        B = cu.shape[0]
-        vis = degrid_batch(row, iu0, iv0, cu, cv, device=self.device)
+            return None
+
+    def _serve_pump(self, fetched):
+        """Answer every sample of the pump's fetched subgrids in one degrid
+        launch, then finish the requests subgrid by subgrid, each with its
+        subgrid's dispatch size."""
+        reqs = [r for rs, _, _ in fetched for r in rs]
+        slot = np.repeat(np.arange(len(fetched)),
+                         [sum(r.n_samples for r in rs)
+                          for rs, _, _ in fetched])
+        vis = degrid_rows(
+            [row for _, row, _ in fetched], slot,
+            *(np.concatenate([getattr(r, f) for r in reqs])
+              for f in ("iu0", "iv0", "fu", "fv")),
+            self._table, device=self.device)
+        self._counts["pumps"] += 1
         now = time.perf_counter()
         lo = 0
-        for req in reqs:
-            req.compute_t = now
-            n = req.n_samples
-            self._counts["coalesced"] += 1 if len(reqs) > 1 else 0
-            self._counts["served_samples"] += n
-            self._finish(req, RequestResult(
-                STATUS_OK, data=vis[lo:lo + n], path=path,
-                batch_size=B, coalesced=len(reqs),
-            ))
-            lo += n
-        self._counts["batches"] += 1
+        for rs, _, path in fetched:
+            B = sum(r.n_samples for r in rs)
+            for req in rs:
+                req.compute_t = now
+                n = req.n_samples
+                self._counts["coalesced"] += 1 if len(rs) > 1 else 0
+                self._counts["served_samples"] += n
+                self._finish(req, RequestResult(
+                    STATUS_OK, data=vis[lo:lo + n], path=path,
+                    batch_size=B, coalesced=len(rs),
+                ))
+                lo += n
+            self._counts["batches"] += 1
 
     def _finish(self, req, result):
         now = time.perf_counter()
@@ -492,6 +514,7 @@ class VisibilityService:
             "n_shed_samples": c["shed_samples"],
             "n_expired": c["expired"],
             "n_batches": c["batches"],
+            "n_pumps": c["pumps"],
             "cache_hits": c["cache_hits"],
             "cache_fallbacks": c["cache_fallbacks"],
             "stream_version": self.stream_version,

@@ -382,6 +382,65 @@ def test_sample_bits_do_not_depend_on_coalescing():
                                   hc.data)
 
 
+def _half_cached_pump(seed):
+    """A service whose feed holds half of one column's rows, and a batch
+    spread over that whole column: one pump mixes cache-fed host rows and
+    computed rows. Returns (service, handle, forward, the column)."""
+    _, _, _, sgs = _port_cover()
+    col = [sg for sg in sgs if sg.off0 == sgs[0].off0]
+    fwd = _forward("port")
+    _, feed = _seed_feed("port", fwd, col[::2])
+    svc = tvis.VisibilityService(fwd, subgrid_configs=sgs, cache_feed=feed)
+    handle = svc.submit(_interior_uv(col, 6 * len(col), seed=seed))
+    return svc, handle, fwd, col
+
+
+def test_a_pump_launches_b4_once(monkeypatch):
+    """Every subgrid of a pump is answered by one call of the B4 wrapper,
+    over all their rows; the per-subgrid counts stay the reference's."""
+    from swiftly_tpu_torch.ops import kernels
+
+    calls = []
+    real = kernels.degrid_rows
+
+    def counted(rows, *args):
+        calls.append(len(rows))
+        return real(rows, *args)
+
+    monkeypatch.setattr(kernels, "degrid_rows", counted)
+    svc, handle, _, col = _half_cached_pump(seed=11)
+    G = len(handle.children)
+    assert G == len(col) > 2
+    assert svc.pump_once() == G and handle.status == "ok"
+    assert calls == [G]
+    stats = svc.stats()
+    assert stats["n_pumps"] == 1 and stats["n_batches"] == G
+    assert 0 < stats["cache_hits"] < G
+    assert {r.result.path for r in handle.children} == {"cache", "compute"}
+    assert all(r.result.batch_size == r.n_samples for r in handle.children)
+
+
+def test_pump_samples_equal_degrid_batch_bitwise():
+    """Each subgrid's samples served by a pump equal `degrid_batch` on the
+    same row fed the host's weights, bit for bit, for cache-fed and
+    computed rows alike."""
+    svc, handle, fwd, _ = _half_cached_pump(seed=12)
+    while svc.pump_once():
+        pass
+    assert handle.status == "ok"
+    kernel = svc.kernel
+    paths = set()
+    for req in handle.children:
+        row = (svc.cache_feed.lookup(req.config) if req.result.path == "cache"
+               else fwd.get_subgrid_task(req.config))
+        paths.add(req.result.path)
+        ref = tvis.degrid_batch(
+            row, req.iu0, req.iv0, kernel.weights(req.fu, dtype=np.float64),
+            kernel.weights(req.fv, dtype=np.float64), device="cpu")
+        np.testing.assert_array_equal(handle.data[req.idx], ref)
+    assert paths == {"cache", "compute"}
+
+
 # ---------------------------------------------------------------------------
 # Version gates
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ On the CPU the wrappers run the plain versions (gather plus ``einsum``;
 ``index_put_`` rounds that add each pixel's contributions in sample order),
 held here against the JAX package's ``degrid_batch`` / ``grid_batch`` on
 the same seeded numpy inputs: its einsum path, and B4's Pallas kernel in
-interpreter mode. On
+interpreter mode; B4 over a serving pump (``degrid_rows``, G rows in one
+launch, the tap weights computed from the table) likewise, row by row, with
+its weights equal to the reference's ``VisKernel.weights`` bit for bit. On
 this JAX (0.9) the reference's own Pallas branch
 (``SWIFTLY_PALLAS_INTERPRET=1``) does not trace: its kernel indexes refs
 with ``None``, which Pallas refuses (ROADMAP §C; pinned by
@@ -28,20 +30,26 @@ import pytest
 import torch
 
 from swiftly_tpu_torch.ops.kernels import (
+    check_tap_table,
     degrid,
     degrid_plain,
+    degrid_rows,
+    degrid_rows_plain,
     degrid_stats,
     grid,
     grid_plain,
     grid_stats,
+    tap_weights,
 )
 from swiftly_tpu_torch.vis import (
     ADJOINT_TOLERANCE,
     bucket_size,
     degrid_batch,
     grid_batch,
+    split_row_planes,
     vis_kernel,
 )
+from swiftly_tpu_torch.vis import degrid_rows as vis_degrid_rows
 
 REL = {np.float32: 1e-5, np.float64: 1e-12}
 # (row size, B, support W): ragged rows and batches
@@ -270,6 +278,178 @@ def test_wrappers_never_fall_back_for_non_cpu_tensors():
 
 
 # ---------------------------------------------------------------------------
+# B4 over a serving pump: G rows, the weights from the table
+# ---------------------------------------------------------------------------
+
+# G rows -> support W; the layouts cycle through LAYOUTS
+PUMPS = {1: 8, 3: 6, 7: 8}
+LAYOUTS = ("interleaved", "complex", "host")
+
+
+def _pump_inputs(G, W, dtype, seed):
+    """G planar host rows of mixed sizes, and B samples spread over them in
+    random order: slots, first taps from [-2W, size + 2) (wrapped from
+    negative indices, clamped past the far edge, inside), fractions with
+    the edge values 0, nextafter(1, 0) and a multiple of 1/oversample."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(W + 3, 60, size=G)
+    rows = [rng.standard_normal((n, n, 2)).astype(dtype) for n in sizes]
+    B = 40 * G + 3
+    slot = rng.integers(0, G, size=B)
+    iu0 = rng.integers(-2 * W, sizes[slot] + 2)
+    iv0 = rng.integers(-2 * W, sizes[slot] + 2)
+    fu, fv = rng.uniform(0, 1, size=(2, B))
+    fu[:3] = [0.0, np.nextafter(1.0, 0.0), 5 / 128]
+    fv[:3] = [np.nextafter(1.0, 0.0), 0.0, 0.25]
+    return rows, slot, iu0, iv0, fu, fv
+
+
+def _layout(row, layout):
+    """A host row as the serve path hands it over: a torch tensor of the
+    interleaved [..., 2] layout, a complex tensor, or the numpy array."""
+    if layout == "host":
+        return row
+    t = torch.from_numpy(row)
+    return torch.view_as_complex(t) if layout == "complex" else t
+
+
+def _pump_reference(rows, slot, iu0, iv0, fu, fv, W, dtype, interpret):
+    """The JAX package's degrid, row by row, fed its own weights."""
+    from swiftly_tpu import vis as jvis
+
+    k = jvis.VisKernel(support=W)
+    cu = k.weights(fu, dtype=np.float64).astype(dtype)
+    cv = k.weights(fv, dtype=np.float64).astype(dtype)
+    ref = np.zeros(slot.size, dtype=np.complex128)
+    for g, row in enumerate(rows):
+        sel = np.flatnonzero(slot == g)
+        if sel.size == 0:
+            continue
+        args = (row, iu0[sel], iv0[sel], cu[sel], cv[sel])
+        ref[sel] = (_b4_pallas_interpret(*args) if interpret
+                    else jvis.degrid_batch(*args))
+    return ref
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+@pytest.mark.parametrize("interpret", [False, True],
+                         ids=["einsum", "pallas-interpret"])
+@pytest.mark.parametrize("G", sorted(PUMPS))
+def test_degrid_rows_plain_matches_jax(G, interpret, dtype):
+    W = PUMPS[G]
+    rows, slot, iu0, iv0, fu, fv = _pump_inputs(G, W, dtype, seed=G)
+    ref = _pump_reference(rows, slot, iu0, iv0, fu, fv, W, dtype, interpret)
+    table = torch.from_numpy(vis_kernel(support=W).table)
+    planes = [split_row_planes(_layout(row, LAYOUTS[g % 3]))
+              for g, row in enumerate(rows)]
+    vr, vi = degrid_rows_plain(planes, *_t(slot, iu0, iv0, fu, fv), table)
+    got = vr.numpy() + 1j * vi.numpy()
+    assert _rel(got, ref) <= REL[dtype]
+    # the pump through the port's vis layer: host rows beside torch rows
+    port = vis_degrid_rows([_layout(row, LAYOUTS[g % 3])
+                            for g, row in enumerate(rows)],
+                           slot, iu0, iv0, fu, fv, table, device="cpu")
+    assert port.dtype == np.complex128 and port.shape == slot.shape
+    assert _rel(port, ref) <= REL[dtype]
+
+
+@pytest.mark.parametrize("params", [(8, 128, 0.75), (6, 64, 0.5),
+                                    (4, 100, 0.3)], ids=str)
+def test_tap_weights_equal_the_reference_bit_for_bit(params):
+    """The weights B4 computes from the table are the reference's
+    ``VisKernel.weights(frac, float64)`` cast to the row dtype, bit for
+    bit (compared as integers, so -0.0 and 0.0 differ)."""
+    from swiftly_tpu import vis as jvis
+
+    jk = jvis.VisKernel(*params)
+    oversample = params[1]
+    rng = np.random.default_rng(oversample)
+    frac = np.concatenate([
+        [0.0, -0.0, np.nextafter(1.0, 0.0), np.nextafter(0.0, 1.0), 1.0,
+         1.5, -0.25],
+        np.arange(oversample + 1) / oversample,
+        rng.uniform(0, 1, size=500)])
+    table = torch.from_numpy(jk.table)
+    for np_dt, dt, bits in ((np.float32, torch.float32, np.uint32),
+                            (np.float64, torch.float64, np.uint64)):
+        want = jk.weights(frac, dtype=np.float64).astype(np_dt)
+        got = tap_weights(torch.from_numpy(frac), table, dt).numpy()
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got.view(bits), want.view(bits))
+
+
+def test_tap_table_that_would_be_read_past_its_end_is_refused():
+    """A table of one row: the host's lookup reads row 1 and raises; the
+    port refuses the table before any lookup or launch."""
+    from swiftly_tpu import vis as jvis
+
+    jk = jvis.VisKernel(4, 4, 0.3)
+    jk.table, jk.oversample = jk.table[:1], 0
+    with pytest.raises(IndexError):
+        jk.weights(np.array([0.5]))
+    one_row = torch.from_numpy(jk.table)
+    with pytest.raises(ValueError, match="past the table"):
+        check_tap_table(one_row)
+    with pytest.raises(ValueError, match="past the table"):
+        tap_weights(torch.tensor([0.5], dtype=torch.float64), one_row,
+                    torch.float32)
+    rows, slot, iu0, iv0, fu, fv = _pump_inputs(1, 4, np.float32, seed=0)
+    planes = [split_row_planes(torch.from_numpy(rows[0]))]
+    with pytest.raises(ValueError, match="past the table"):
+        degrid_rows(planes, *_t(slot, iu0, iv0, fu, fv), one_row)
+    with pytest.raises(ValueError, match="float64"):
+        check_tap_table(one_row.float())
+    assert check_tap_table(torch.from_numpy(vis_kernel().table)) == (128, 8)
+
+
+def test_degrid_rows_cap_per_row():
+    """4096 samples a row pass and 4097 raise the reference's cap, whatever
+    the pump holds in all."""
+    W = 4
+    row = np.zeros((24, 24, 2), dtype=np.float32)
+    k = torch.from_numpy(vis_kernel(support=W).table)
+    slot = np.repeat([0, 1], [4096, 4000])
+    zeros = np.zeros(slot.size)
+    out = vis_degrid_rows([row, row], slot, zeros.astype(int),
+                          zeros.astype(int), zeros, zeros, k, device="cpu")
+    assert out.shape == (8096,) and not out.any()
+    slot = np.repeat([0, 1], [10, 4097])
+    with pytest.raises(ValueError, match="at most 4096"):
+        vis_degrid_rows([row, row], slot, slot * 0, slot * 0, slot * 0.0,
+                        slot * 0.0, k, device="cpu")
+
+
+def test_degrid_rows_wrapper_on_cpu_is_the_plain_version():
+    rows, slot, iu0, iv0, fu, fv = _pump_inputs(3, 8, np.float32, seed=6)
+    planes = [split_row_planes(torch.from_numpy(r)) for r in rows]
+    args = (planes, *_t(slot, iu0, iv0, fu, fv),
+            torch.from_numpy(vis_kernel().table))
+    degrid_stats.reset()
+    got, want = degrid_rows(*args), degrid_rows_plain(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].abs().sum() > 0
+    assert degrid_stats.launches == 0 and not degrid_stats.shapes
+
+
+def test_degrid_rows_never_falls_back_for_non_cpu_tensors():
+    """Rows that are not on the CPU never reach the plain version."""
+    meta = [(torch.empty((9, 9), device="meta"),) * 2]
+    idx = torch.zeros(3, dtype=torch.int64)
+    frac = torch.zeros(3, dtype=torch.float64)
+    table = torch.from_numpy(vis_kernel().table)
+    with pytest.raises(ValueError, match="CUDA device"):
+        degrid_rows(meta, idx, idx, idx, frac, frac, table)
+    with pytest.raises(ValueError, match="CUDA device"):
+        degrid_rows(meta, idx, idx, idx, frac, frac, table.to("meta"))
+    with pytest.raises(TypeError, match="on the host"):
+        degrid_rows(meta, idx, idx, idx, frac.float(), frac, table)
+    with pytest.raises(ValueError, match="row slots"):
+        degrid_rows(meta, idx + 1, idx, idx, frac, frac, table)
+    with pytest.raises(ValueError, match="expected"):
+        degrid_rows(meta, idx, idx[:2], idx, frac, frac, table)
+
+
+# ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
 
@@ -312,6 +492,48 @@ def test_cuda_degrid_matches_plain(cuda_device, dtype, tol):
         # the first two lanes alone (B = 2) give the same bits
         v2r, v2i = degrid(*planes, iu0[:2], iv0[:2], cu[:2], cv[:2])
         assert torch.equal(v2r, vr[:2]) and torch.equal(v2i, vi[:2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+def test_cuda_degrid_rows_matches_plain(cuda_device, dtype, tol):
+    """B4 over a pump against its plain version; bitwise equal to B4 on
+    each row fed the host's weights, and to the same pump with its rows
+    and samples in another order."""
+    np_dt = np.float32 if dtype == torch.float32 else np.float64
+    for G, W in PUMPS.items():
+        rows, slot, iu0, iv0, fu, fv = _pump_inputs(G, W, np_dt, seed=G)
+        host = [_layout(row, LAYOUTS[g % 3]) for g, row in enumerate(rows)]
+        planes = [split_row_planes(torch.as_tensor(r, device=cuda_device))
+                  for r in host]
+        table = torch.as_tensor(vis_kernel(support=W).table,
+                                device=cuda_device)
+        samples = _t(slot, iu0, iv0, fu, fv)
+        before = degrid_stats.launches
+        vr, vi = degrid_rows(planes, *samples, table)
+        torch.cuda.synchronize()
+        assert degrid_stats.launches == before + 1
+        pr, pi = degrid_rows_plain(planes, *samples, table)
+        scale = max(pr.abs().max().item(), pi.abs().max().item())
+        err = max((vr - pr).abs().max().item(), (vi - pi).abs().max().item())
+        assert err / scale <= tol, (G, err / scale)
+        k = vis_kernel(support=W)
+        cu, cv = (torch.as_tensor(k.weights(f, np.float64).astype(np_dt),
+                                  device=cuda_device) for f in (fu, fv))
+        idx = [torch.as_tensor(a, device=cuda_device) for a in (iu0, iv0)]
+        for g in range(G):
+            sel = torch.as_tensor(np.flatnonzero(slot == g),
+                                  device=cuda_device)
+            dr, di = degrid(*planes[g], idx[0][sel], idx[1][sel], cu[sel],
+                            cv[sel])
+            assert torch.equal(dr, vr[sel]) and torch.equal(di, vi[sel])
+        perm = np.random.default_rng(G).permutation(slot.size)
+        again = degrid_rows(planes[::-1], *_t(G - 1 - slot[perm], iu0[perm],
+                                              iv0[perm], fu[perm], fv[perm]),
+                            table)
+        p = torch.as_tensor(perm, device=cuda_device)
+        assert torch.equal(again[0], vr[p]) and torch.equal(again[1], vi[p])
 
 
 # (row size, B, support W, indices): ragged shapes, a hot subgrid's
