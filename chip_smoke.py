@@ -48,10 +48,19 @@ this checkout, and holds each kernel against its plain PyTorch version:
    host; a warm run and a timed run, checked against the oracle on
    sampled subgrids and on all facets, the two runs' facets bit-identical;
    then one more round trip under torch.profiler, its device-busy time
-   against its own synchronised window;
+   against its own synchronised window; then the slab paths at 32k: the
+   forward with ``facet_group`` forced to 1 and 3, from dense real planes
+   on the host (the pinned staging ring) and from sparse facets
+   synthesised on the card, against the resident forward and the oracle,
+   reruns bit-identical, each beside the slab sizer's modelled bytes and
+   its measured peak; one forward fed into the whole backward and two
+   row slabs split at a height that is no multiple of the fold's row
+   block, the slabs concatenated equal to the whole; and
+   ``synth_facet_device`` equal to the densified upload;
 7. every kernel against its plain version and one PyTorch library call,
-   timed at every shape each 32k path gave it (B3 at the fused path's
-   shapes, the streamed path's and the visibility path's; ``grid``, whose
+   timed at every shape each path gave it (B3 at the fused path's
+   shapes, the streamed path's and the visibility path's; B1, B2 and B3
+   also at the 128k path's (phase 9); ``grid``, whose
    batch size varies per dispatch, at its four most frequent and its four
    largest, beside its device time over all its launches traced in
    phase 8; B4 likewise at the pumps' four most frequent and four largest
@@ -61,14 +70,15 @@ this checkout, and holds each kernel against its plain PyTorch version:
    wrappers take on the host, with the run queued behind a device-side
    spin so that the events time the device alone (``call_ms`` beside it
    is the plain CUDA-event time per call, the host's call rate); it runs
-   last, after phase 8, whose shapes it times too;
+   last, after phases 8 and 9, whose shapes it times too;
 8. visibility serving and gridding at ``32k[1]-n16k-512``, planar f32
    (the main path of the visibility slice): a ``SwiftlyForward`` over
    facets of the grid-corrected, band-limited sky model, a cache feed
    (``SpillCache`` / ``CachedColumnFeed``) seeded with the hottest
    column's rows, 2^20 zipf-over-columns samples with a 10% uniform tail
-   served through ``VisibilityService`` in 16 batches (pumped dry after
-   every second, the feed force-evicted after the fourth), every served
+   cut into 16 batches, of which the first 8 (``--serve-full``: all 16)
+   are served through ``VisibilityService`` (pumped dry after every
+   second, the feed force-evicted after the fourth), every served
    sample gridded by a version-pinned ``VisGridder`` and ingested by a
    sampled ``StreamedBackward``; gated on the oracle, the shed reasons,
    the cache ladder, the adjoint identity, bit-identity to a fresh
@@ -77,15 +87,27 @@ this checkout, and holds each kernel against its plain PyTorch version:
    B4 launched once per pump that served a sample; then the traffic's
    first batch (65,536 samples, from a freshly seeded feed) served again
    under torch.profiler for the device's idle share and B4's device
-   time.
+   time;
+9. the 128k streamed round trip at ``128k[1]-n32k-512``, planar f32, the
+   full cover of 293 x 293 = 85,849 subgrids: facets made by
+   ``make_sparse_facet`` (9 of 45056^2, 73 GB as dense real planes, never
+   resident), ``StreamedForward(residency="device")`` choosing slabs of
+   one facet synthesised on the card, fed by ``feed_backward_passes`` into
+   a ``StreamedBackward(residency="sampled", fold_group=4)`` over one
+   2048-row slab that holds a source pixel, then ``finish_device``; one
+   run synchronised at both ends, gated on the oracle RMS of >= 2% of the
+   subgrids from every column and on the slab's rows of all 9 facets
+   against ``synth_facet_device``; its plan, seconds, peak memory beside
+   the slab sizer's model, and launches; then its first column group again
+   under torch.profiler for the device's busy share and the time by stage.
 
-The launch counters are set to 0 just before each 32k path runs and read
-just after it. Every phase that fails ends the run with a non-zero exit
+The launch counters are set to 0 just before each 32k and 128k path runs
+and read just after it. Every phase that fails ends the run with a non-zero exit
 code. The last lines are the ``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
-are its main path's: the streamed path's for B3, B1 and B2, the
-visibility path's for B4 and ``grid``; ``paths`` holds each 32k path's
-launches with the times at that path's shapes) and
+are its main path's: the 32k streamed path's for B3, B1 and B2, the
+visibility path's for B4 and ``grid``; ``paths`` holds each path's
+launches, the 128k one's too, with the times at that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -97,7 +119,9 @@ checks and digests; ``--b4-digests`` only B4's digests, through
 ``degrid``, which every checkout since the visibility slice has (with
 ``--root DIR``, the checkout in DIR). ``--serve-short`` serves phase 8's
 first two batches once (131,072 samples, one pump-dry cycle) and prints
-one ``serve_short`` JSON line; ``--serve-ab DIR --pairs N`` builds the
+one ``serve_short`` JSON line; ``--big`` runs phase 2, phase 3's B1 and
+B2 checks and digests, phase 9 and phase 7 at phase 9's shapes, and
+prints one ``big`` JSON line; ``--serve-ab DIR --pairs N`` builds the
 kernels of the checkout DIR and of this one, then runs ``--serve-short``
 on each in turn, N times each in their own processes (parent, tree, tree,
 parent, ...), and prints the medians and spreads.
@@ -121,6 +145,11 @@ ROOT = Path(__file__).resolve().parent
 
 MAIN_CONFIG = "32k[1]-n16k-512"
 SMALL_CONFIG = "1k[1]-n512-256"
+# Phase 9: the reference's scale target (swift_configs.py:30), 9 facets of
+# 45056^2 (73 GB as real f32 planes: never resident on one card), and the
+# height of the backward's output-row slab
+BIG_CONFIG = "128k[1]-n32k-512"
+BIG_SLAB_ROWS = 2048
 
 # Centre-relative source positions (fractions of N): the eight spread
 # sources of the JAX package's benchmark, so every subgrid column band
@@ -167,6 +196,8 @@ KERNEL_REL_TOL = {"float32": 1e-5, "float64": 1e-12}
 # along j); "shifted", the block one (re, im) pair off 16-byte alignment.
 B1_RAGGED = [  # ((S, F, Fx, M, P, Q, N, reduce_f), layout)
     ((5, 3, 3, 40, 24, 24, 40, True), "path"),
+    # phase 9's forward shape: one facet a slab, S = 293 (prime) subgrids
+    ((293, 1, 1, 512, 256, 256, 512, True), "path"),
     ((5, 3, 1, 70, 33, 50, 90, False), "path"),
     ((3, 2, 2, 130, 17, 70, 65, True), "path"),
     ((4, 3, 1, 132, 40, 33, 72, False), "path"),  # odd Q, interleaved
@@ -254,6 +285,9 @@ GRID_WRAPPED = [(300, 8, 61), (200, 4, 70), (200, 6, 70), (3300, 8, 448)]
 # bench.py:1747, at the full 2^20 samples)
 VIS_SAMPLES = 2**20
 VIS_BATCHES = 16
+# batches phase 8 serves by default (--serve-full: all VIS_BATCHES), to keep
+# the whole script within half its time limit beside phase 9
+VIS_SERVED = 8
 VIS_SEED = 1234
 VIS_ZIPF_S = 1.1
 VIS_MAX_DEPTH = 65536
@@ -1594,6 +1628,392 @@ def profile_streamed(torch, round_trip, rows=15):
     return out
 
 
+# -- beside phase 6: the slab paths at 32k ---------------------------------
+
+
+def _subgrids_in_order(torch, fwd, sgcs, out):
+    """Every subgrid of `fwd`'s stream written into `out` [n, xA, xA, 2]
+    on the device, in cover order; the stream's device seconds."""
+    t0 = time.perf_counter()
+    for items, sg in fwd.stream_columns(sgcs, device_arrays=True):
+        idx = torch.as_tensor([i for i, _ in items], device=out.device)
+        out[idx] = sg[:len(items)]
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _max_abs(torch, a, b, chunk=256):
+    """max |a - b| and max |b| over [n, ...] device tensors, in chunks."""
+    diff = scale = 0.0
+    for k in range(0, a.shape[0], chunk):
+        diff = max(diff, (a[k:k + chunk] - b[k:k + chunk]).abs().max().item())
+        scale = max(scale, b[k:k + chunk].abs().max().item())
+    return diff, scale
+
+
+def slabs_main(torch, config_name=MAIN_CONFIG, fold_group=4,
+               split_row=5000, device="cuda"):
+    """The slab paths at 32k beside phase 6 (planar f32): the forward with
+    facet_group forced to 1 and 3, from dense real planes on the host (the
+    pinned staging ring) and from sparse facets synthesised on the card,
+    against the resident forward (the f32 kernel bound, relative to the
+    largest value) and the oracle, reruns bit-identical; one forward fed
+    into the whole backward and two row slabs split at `split_row` (no
+    multiple of the fold's row block), the slabs concatenated equal to the
+    whole; ``synth_facet_device`` equal to the densified upload."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.parallel import streamed as sm
+
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    core = cfg.core
+    N = cfg.image_size
+    sources = sources_for(N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    n, xA, yB = len(sgcs), sgcs[0].size, fcs[0].size
+    dense = [st.make_real_facet(N, fc, sources) for fc in fcs]
+    sparse = [st.make_sparse_facet(N, fc, sources) for fc in fcs]
+    stride = max(1, n // MIN_SUBGRID_SAMPLES)
+    idxs = list(range(0, n, stride))
+    bound = SUBGRID_REL_RMS * sum(abs(s[0]) for s in sources) / N**2
+    out = {"config": config_name}
+
+    def forward(data, fg):
+        fwd = st.StreamedForward(cfg, list(zip(fcs, data)),
+                                 residency="device", facet_group=fg)
+        got = torch.empty((n, xA, xA, 2), dtype=torch.float32, device=device)
+        before = _reset_peak(torch)
+        secs = _subgrids_in_order(torch, fwd, sgcs, got)
+        fwd.peak_bytes = _peak(torch) - before
+        return got, fwd, secs
+
+    ref, fwd_ref, ref_s = forward(dense, None)
+    require(fwd_ref.last_plan["mode"] == "resident",
+            f"the 32k forward did not stay resident: {fwd_ref.last_plan}")
+    out["resident_s"] = ref_s
+    runs = {}
+    for source, data in (("host", dense), ("sparse", sparse)):
+        for fg in (1, 3):
+            got, fwd, secs = forward(data, fg)
+            plan = fwd.last_plan
+            diff, scale = _max_abs(torch, got, ref)
+            rms = max(st.check_subgrid(N, sgcs[i], core.as_complex(got[i]),
+                                       sources) for i in idxs)
+            rec = {"plan": plan, "seconds": secs, "max_rel_to_resident":
+                   diff / scale, "max_subgrid_rms": rms,
+                   "peak_gb": fwd.peak_bytes / 1e9,
+                   "modelled_gb": _modelled_bytes(fwd, sgcs) / 1e9}
+            want = "device-synth-sparse" if source == "sparse" else "host"
+            require(plan["mode"] == "grouped" and plan["facet_group"] == fg
+                    and plan["facet_source"] == want,
+                    f"32k {source} facet_group {fg}: plan {plan}")
+            require(diff / scale <= KERNEL_REL_TOL["float32"],
+                    f"32k {source} facet_group {fg}: {diff / scale:.3e} from "
+                    "the resident forward")
+            require(rms <= bound, f"32k {source} facet_group {fg}: subgrid "
+                    f"RMS {rms:.3e} over {bound:.3e}")
+            if (source, fg) in (("host", 3), ("sparse", 1)):
+                again, _, rec["rerun_s"] = forward(data, fg)
+                rec["bit_identical_rerun"] = bool(torch.equal(again, got))
+                require(rec["bit_identical_rerun"],
+                        f"32k {source} facet_group {fg}: reruns differ")
+                del again
+            del got
+            runs[f"{source}_fg{fg}"] = rec
+            log(f"{config_name} slabs {source} facet_group {fg}: " +
+                json.dumps(rec))
+    out["forwards"] = runs
+    del ref
+
+    # row slabs: one resident forward feeds the whole backward and two slabs
+    block = sm._fold_row_block(len(fcs), yB, 4)
+    require(split_row % block != 0, "the row split is a multiple of the "
+            "fold's row block")
+    fwd = st.StreamedForward(cfg, list(zip(fcs, dense)), residency="device")
+    # the three backwards' accumulators (the whole and two slabs: two
+    # facet stacks) and rows in flight
+    fwd.hbm_headroom = 2 * len(fcs) * yB * yB * 8 + 3 * (
+        2 * fold_group + 2) * len(fcs) * core.xM_yN_size * yB * 8
+    whole = st.StreamedBackward(cfg, fcs, residency="sampled",
+                                fold_group=fold_group)
+    slabs = [st.StreamedBackward(cfg, fcs, residency="sampled",
+                                 fold_group=fold_group, row_slab=rows)
+             for rows in ((0, split_row), (split_row, yB))]
+    st.feed_backward_passes(fwd, sgcs, [whole] + slabs)
+    full = whole.finish_device()
+    parts = [b.finish_device() for b in slabs]
+    out["row_slabs"] = {"split_row": split_row, "fold_row_block": block,
+                        "concatenated_equal_whole": all(
+                            torch.equal(p, full[:, a:b]) for p, (a, b) in
+                            zip(parts, ((0, split_row), (split_row, yB))))}
+    require(out["row_slabs"]["concatenated_equal_whole"],
+            "32k row slabs differ from the whole backward")
+    del full, parts, whole, slabs, fwd
+
+    sfwd = st.StreamedForward(cfg, list(zip(fcs, sparse)), residency="device")
+    out["synth_equal_densified"] = all(
+        torch.equal(sfwd.synth_facet_device(i),
+                    torch.as_tensor(sp.densify(np.float32), device=device))
+        for i, sp in enumerate(sparse))
+    require(out["synth_equal_densified"],
+            "synth_facet_device differs from the densified upload")
+    log(f"{config_name} slabs: " + json.dumps(
+        {k: v for k, v in out.items() if k != "forwards"}))
+    return out
+
+
+def _reset_peak(torch):
+    """Reset the device's peak-memory count; the bytes allocated now."""
+    if not torch.cuda.is_available():
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak(torch):
+    return (torch.cuda.max_memory_allocated() if torch.cuda.is_available()
+            else 0)
+
+
+def _modelled_bytes(fwd, sgcs):
+    """The device bytes the slab sizer prices for the plan `fwd` ran:
+    its flat costs plus G times its cost a column
+    (``streamed.grouped_working_set``)."""
+    from swiftly_tpu_torch.parallel import streamed as sm
+
+    plan = fwd.last_plan
+    S = len(sgcs) // len({sg.off0 for sg in sgcs})  # a full cover
+    flat, per_G = sm.grouped_working_set(
+        fwd._base, S, sgcs[0].size, fwd._facets_real, plan["facet_group"], 1,
+        plan["slab_depth"])
+    return flat + plan["col_group"] * per_G
+
+
+# -- phase 9: the 128k streamed round trip ---------------------------------
+
+
+def _facet_rms(torch, got, ref):
+    """RMS of a planar [..., 2] device tensor against a real one, in
+    float64."""
+    d2 = (got[..., 0].double() - ref.double()) ** 2 + got[..., 1].double() ** 2
+    return float(d2.mean().sqrt().item())
+
+
+def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
+             slab_rows=BIG_SLAB_ROWS, profile=True, device="cuda"):
+    """Phase 9: the 128k streamed round trip, planar f32, the full cover,
+    from sparse facets (module docstring)."""
+    import swiftly_tpu_torch as st
+
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    core = cfg.core
+    N = cfg.image_size
+    sources = sources_for(N)
+    t0 = time.perf_counter()
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    tasks = [(fc, st.make_sparse_facet(N, fc, sources)) for fc in fcs]
+    setup_s = time.perf_counter() - t0
+    F, yB, m = len(fcs), fcs[0].size, core.xM_yN_size
+    n, xA = len(sgcs), sgcs[0].size
+    # a row slab that holds a source pixel: the first facet with one
+    sp = next(sp for _, sp in tasks if sp.n_pixels)
+    r0 = int(min(max(0, int(sp.rows[0]) - slab_rows // 3), yB - slab_rows))
+    rows = (r0, r0 + slab_rows)
+    n_samples = max(MIN_SUBGRID_SAMPLES, -(-n * 2 // 100))
+    idxs = list(range(0, n, max(1, n // n_samples)))
+    log(f"{config_name} streamed: {F} sparse facets of {yB} "
+        f"({sum(s.n_pixels for _, s in tasks)} pixels) made in "
+        f"{setup_s:.1f} s; {n} subgrids, {len(idxs)} sampled; backward row "
+        f"slab {rows}")
+    item = 4
+    acc_bytes = F * slab_rows * yB * 2 * item
+    row_bytes = F * m * yB * 2 * item
+    sample_bytes = len(idxs) * xA * xA * 2 * item
+    headroom = acc_bytes + (2 * fold_group + 2) * row_bytes + sample_bytes
+
+    def executors(col_group=None):
+        fwd = st.StreamedForward(cfg, tasks, residency="device",
+                                 col_group=col_group)
+        fwd.hbm_headroom = headroom
+        bwd = st.StreamedBackward(cfg, fcs, residency="sampled",
+                                  fold_group=fold_group, row_slab=rows)
+        return fwd, bwd
+
+    fwd, bwd = executors()
+    feed = _TimedFeed(torch, fwd, idxs)
+    gc_collect(torch)
+    before = _reset_peak(torch)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.feed_backward_passes(feed, sgcs, [bwd])
+    facets = bwd.finish_device()
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = read_counts()
+    plan = fwd.last_plan
+    t_fwd = feed.forward_s()
+    peak = _peak(torch)
+    out = {"config": config_name, "dtype": "float32", "subgrids": n,
+           "facets": F, "facet_size": yB, "last_plan": plan,
+           "n_groups": feed.n_groups, "fold_group": fold_group,
+           "row_slab": list(rows), "forward_s": t_fwd,
+           "backward_s": total - t_fwd, "roundtrip_s": total,
+           "peak_memory_gib": peak / 2**30, "peak_memory_gb": peak / 1e9,
+           "hbm_headroom_gb": headroom / 1e9,
+           "allocated_before_gb": before / 1e9,
+           "forward_modelled_gb": _modelled_bytes(fwd, sgcs) / 1e9,
+           "launches": {k: v[0] for k, v in counts.items()},
+           "counts": counts, "facet_setup_s": setup_s}
+    log(f"{config_name} streamed round trip: forward {t_fwd:.3f} s, backward "
+        f"{total - t_fwd:.3f} s, plan {json.dumps(plan)}, {feed.n_groups} "
+        f"groups, peak {peak / 2**30:.2f} GiB, launches {out['launches']}")
+
+    # gates: sampled subgrids against the oracle, the slab against the input
+    scale = sum(abs(s[0]) for s in sources) / N**2
+    require(sorted(feed.samples) == idxs, "sampled subgrids missing")
+    t0 = time.perf_counter()
+    sg_rms = [st.check_subgrid(N, sgcs[i], core.as_complex(feed.samples[i]),
+                               sources) for i in idxs]
+    feed.samples.clear()
+    cols = {sgcs[i].off0 for i in idxs}
+    f_rms = []
+    for i in range(F):
+        ref = fwd.synth_facet_device(i)[rows[0]:rows[1]]
+        f_rms.append(_facet_rms(torch, facets[i], ref))
+        del ref
+    out.update(n_subgrid_samples=len(idxs), sampled_columns=len(cols),
+               max_subgrid_rms=max(sg_rms),
+               subgrid_rms_bound=SUBGRID_REL_RMS * scale,
+               max_facet_rms=max(f_rms), facet_rms=f_rms,
+               facet_rms_bound=FACET_RMS,
+               slab_source_pixels=int(sum(
+                   ((s.rows >= rows[0]) & (s.rows < rows[1])).sum()
+                   for _, s in tasks)),
+               gates_s=time.perf_counter() - t0)
+    log(f"{config_name} accuracy: max subgrid RMS {max(sg_rms):.3e} over "
+        f"{len(idxs)} samples in {len(cols)} columns (bound "
+        f"{SUBGRID_REL_RMS * scale:.3e}), max slab RMS {max(f_rms):.3e} over "
+        f"{F} facets (bound {FACET_RMS:.0e}), {out['slab_source_pixels']} "
+        "source pixels in the slab")
+    require(all(np.isfinite(sg_rms)) and all(np.isfinite(f_rms)),
+            "non-finite RMS at 128k")
+    require(len(cols) == len({sg.off0 for sg in sgcs}),
+            "the sampled subgrids miss a column")
+    require(max(sg_rms) <= SUBGRID_REL_RMS * scale,
+            "128k subgrid RMS over bound")
+    require(out["slab_source_pixels"] > 0, "the row slab holds no source")
+    require(max(f_rms) <= FACET_RMS, "128k slab RMS over bound")
+    require(peak < 80e9, f"128k peak {peak / 1e9:.1f} GB")
+    require(plan["mode"] == "grouped" and plan["facet_group"] == 1
+            and plan["facet_source"] == "device-synth-sparse",
+            f"the 128k forward chose {plan}")
+    fwd_b1 = sum(v for key, v in counts["colpass"][1].items() if key[-1])
+    bwd_b1 = sum(v for key, v in counts["colpass"][1].items() if not key[-1])
+    require(fwd_b1 > 0 and bwd_b1 > 0 and out["launches"]["fold"] > 0
+            and out["launches"]["cmatmul"] > 0,
+            f"the 128k path's launches: {out['launches']}")
+    del facets, feed, fwd, bwd
+    gc_collect(torch)
+    if profile:
+        out.update(profile_big(torch, executors, sgcs, plan["col_group"]))
+    return out
+
+
+def gc_collect(torch):
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _big_category(name):
+    """The stage a device activity of the 128k round trip belongs to, by
+    kernel name (B1 and B2 are one engine, told apart by its kConjL
+    template argument: false for B1)."""
+    lower = name.lower()
+    if "cgemm_kernel<" in name:
+        return "B1" if name.split(">")[0].endswith("false") else "B2"
+    if "cmatmul_kernel<" in name:
+        return "B3"
+    for key, words in (("cuBLAS GEMM", ("gemm",)), ("fill", ("fill",)),
+                       ("index", ("index",)), ("add", ("add",)),
+                       ("copy", ("memcpy", "copy"))):
+        if any(w in lower for w in words):
+            return key
+    return "other"
+
+
+def profile_big(torch, executors, sgcs, G, rows=12):
+    """One column group of the 128k round trip again (its first G columns
+    through the same executors) under torch.profiler, device activity
+    only: the busy share of its synchronised window and the device time
+    by stage; the facet pass of one slab over the group's rows, timed
+    alone with CUDA events."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.parallel import streamed as sm
+
+    cols = sorted({sg.off0 for sg in sgcs})[:G]
+    wanted = set(cols)
+    sub = [sg for sg in sgcs if sg.off0 in wanted]
+    fwd, bwd = executors(col_group=G)
+    with _device_profile(torch, True) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st.feed_backward_passes(fwd, sub, [bwd])
+        bwd.finish_device()
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    events = _device_events(prof)
+    busy_s = _busy_seconds([(a / 1e3, b / 1e3) for _, a, b in events])
+    by_cat, by_name = {}, {}
+    for name, a, b in events:
+        for table, key in ((by_cat, _big_category(name)), (by_name, name)):
+            k, total = table.get(key, (0, 0))
+            table[key] = (k + 1, total + b - a)
+    out = {"profiled_columns": len(cols), "profiled_window_s": window_s,
+           "profiled_device_busy_s": busy_s,
+           "profiled_busy_share": busy_s / window_s,
+           "profiled_by_stage_s": {k: v[1] / 1e9 for k, v in by_cat.items()},
+           "profiled_by_stage_launches": {k: v[0] for k, v in by_cat.items()}}
+    # one slab's synthesis, its facet pass over the group's rows and one
+    # column's add of partials, each alone (CUDA events), and their totals
+    # over the group (one slab a facet, G columns a slab)
+    core = fwd.core
+    xM, S = core.xM_size, len(sub) // len(cols)
+    synth_ms = _cuda_ms(torch, lambda: fwd._synth_slab(0, 1), 3)
+    slab = (fwd._synth_slab(0, 1),)
+    krows = torch.as_tensor(sm.sampled_row_indices(core, cols), device="cuda")
+    e0 = torch.zeros(1, dtype=torch.int64, device="cuda")
+    pass_ms = _cuda_ms(torch, lambda: sm._facet_pass_sampled(
+        core, slab, e0, krows, real_facets=True), 1)
+    del slab
+    acc = torch.zeros((S, xM, xM, 2), device="cuda")
+    part = torch.ones((S, xM, xM), device="cuda")
+
+    def add():
+        acc[..., 0].add_(part)
+        acc[..., 1].add_(part)
+
+    add_ms = _cuda_ms(torch, add, 3)
+    del acc, part
+    n_slabs = len(fwd.stack)
+    out.update(synth_one_slab_s=synth_ms / 1e3,
+               facet_pass_one_slab_s=pass_ms / 1e3,
+               add_one_column_s=add_ms / 1e3,
+               synth_group_s=synth_ms / 1e3 * n_slabs,
+               facet_pass_group_s=pass_ms / 1e3 * n_slabs,
+               add_group_s=add_ms / 1e3 * n_slabs * len(cols))
+    log("profiled 128k column group: " + json.dumps(out))
+    for name, (k, total) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:rows]:
+        log(f"  {total / 1e6:10.1f} ms {k:8d}  {name[:90]}")
+    return out
+
+
 # -- phase 8: visibility serving and gridding -------------------------------
 
 
@@ -1720,9 +2140,11 @@ def vis_setup(torch, config_name=MAIN_CONFIG, device="cuda",
 
 def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
              n_samples=VIS_SAMPLES, n_batches=VIS_BATCHES, fold_group=4,
-             n_bitcheck=48):
+             n_bitcheck=48, n_serve=None):
     """The main path of the visibility slice: serve, grid and ingest, with
-    its gates (module docstring, phase 8)."""
+    its gates (module docstring, phase 8). The traffic is cut into
+    `n_batches` batches, of which the first `n_serve` (None: all) are
+    served."""
     import swiftly_tpu_torch as st
     from swiftly_tpu_torch import vis as sv
 
@@ -1742,6 +2164,7 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
     hot_col, hot_stack, feed_tag = ctx.hot_col, ctx.hot_stack, ctx.feed_tag
     fwd, spill, feed, service = ctx.fwd, ctx.spill, ctx.feed, ctx.service
     batches, priorities, raw = ctx.batches, ctx.priorities, ctx.raw
+    n_serve = n_batches if n_serve is None else min(n_serve, n_batches)
     mark("forward and cache feed ready")
 
     # -- the counted path: serve, then grid and ingest ----------------------
@@ -1752,12 +2175,12 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
     sync()
     t0 = time.perf_counter()
     tracked, pending = [], 0
-    for k, b in enumerate(batches):
+    for k, b in enumerate(batches[:n_serve]):
         if k == VIS_EVICT_AFTER:
             spill.reset()  # forced eviction: the feed's index dangles
         tracked.append((b, service.submit(b, priority=int(priorities[k]))))
         pending += 1
-        if pending >= 2 or k == n_batches - 1:
+        if pending >= 2 or k == n_serve - 1:
             while service.pump_once():
                 pass
             pending = 0
@@ -1789,6 +2212,8 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
     n_served = stats["n_served_samples"]
     out = {
         "config": config_name, "samples": n_samples, "batches": n_batches,
+        "served_batches": n_serve,
+        "submitted_samples": int(sum(map(len, batches[:n_serve]))),
         "serve_s": serve_s, "samples_per_s": n_served / serve_s,
         "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
         "max_ms": stats["max_ms"], "dispatches": stats["n_batches"],
@@ -1806,7 +2231,8 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
         "pumps": stats["n_pumps"],
         "serve_b4_launches": serve_counts["degrid"][0],
     }
-    log(f"{config_name} vis: served {n_served} of {n_samples} samples in "
+    log(f"{config_name} vis: served {n_served} of "
+        f"{out['submitted_samples']} samples submitted in "
         f"{serve_s:.3f} s ({out['samples_per_s']:.0f}/s, {stats['n_batches']} "
         f"dispatches, mean {stats['mean_batch']}, in {stats['n_pumps']} "
         f"pumps), gridded in {grid_s:.3f} s, ingested in {ingest_s:.3f} s; "
@@ -1900,7 +2326,7 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
     index = sv.VisCoverIndex(sgcs, kernel.support, N)
     checked = mismatches = 0
     per_batch = max(1, n_bitcheck // 2)
-    for k in (0, n_batches - 1):  # a cache-era and a compute-era batch
+    for k in (0, n_serve - 1):  # a cache-era and a compute-era batch
         uv_b, h = tracked[k]
         owners, _ = index.map_samples(uv_b)
         keys = list(owners)
@@ -2270,15 +2696,55 @@ def _args():
     p.add_argument("--serve-ab", metavar="DIR",
                    help="the short serving run of checkout DIR and of this "
                    "one in turn, --pairs runs each")
+    p.add_argument("--big", action="store_true",
+                   help="phase 2, phase 3's B1 and B2 checks, phase 9 (the "
+                   "128k round trip) and phase 7 at its shapes")
+    p.add_argument("--serve-full", action="store_true",
+                   help="phase 8 serves all its batches (default: the first "
+                   f"{VIS_SERVED})")
     p.add_argument("--pairs", type=int, default=10)
     p.add_argument("--root", metavar="DIR",
                    help="import swiftly_tpu_torch from checkout DIR")
     return p.parse_args()
 
 
-def main():
-    import gc
+def _big_line(big):
+    """Phase 9's JSON record: every key but the per-shape launch counts
+    (the `kernels` line's ``paths`` holds them)."""
+    return {k: v for k, v in big.items() if k != "counts"}
 
+
+def big_only_main(torch):
+    """``--big``: phase 2, phase 3's B1 and B2 checks and digests, phase 9,
+    and phase 7 for B1, B2 and B3 at phase 9's shapes; one ``big`` JSON
+    line."""
+    for dt in (torch.float32, torch.float64):
+        for i, (shape, layout) in enumerate(B1_RAGGED):
+            check_colpass(torch, shape, dt, seed=i, layout=layout)
+        for i, (shape, layout) in enumerate(B2_RAGGED):
+            check_fold(torch, shape, dt, seed=i, layout=layout)
+    for shape, seed, want in B1_DIGESTS:
+        check_colpass_digest(torch, shape, seed, want)
+    for shape, seed, want in B2_DIGESTS:
+        check_fold_digest(torch, shape, seed, want)
+    big = big_main(torch)
+    checks = {"cmatmul": check_cmatmul, "colpass": check_colpass,
+              "fold": check_fold}
+    timed = {}
+    for kname, check in checks.items():
+        launches, shapes = big["counts"][kname]
+        recs, secs, _ = time_path(torch, check, _by_frequency(shapes))
+        timed[kname] = {"launches": launches, "seconds": secs, "shapes": [
+            {k: r.get(k) for k in ("shape", "launches", "ms", "plain_ms",
+                                   "library_ms", "bound_ms", "bound_by",
+                                   "tflops", "max_abs_err")}
+            for r in recs]}
+    log(json.dumps({"big": {"streamed_128k": _big_line(big),
+                            "kernels": timed}}))
+    return 0
+
+
+def main():
     import torch
 
     args = _args()
@@ -2315,6 +2781,8 @@ def main():
         return quick_main(torch)
     if args.b4 or args.b4_digests:
         return b4_main(torch, tree=args.b4)
+    if args.big:
+        return big_only_main(torch)
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
@@ -2347,10 +2815,15 @@ def main():
     done("fused")
     streamed = streamed_main(torch)
     done("streamed")
-    gc.collect()
-    torch.cuda.empty_cache()  # the earlier phases' device state
-    vis = vis_main(torch)
+    gc_collect(torch)
+    slabs = slabs_main(torch)
+    done("slabs")
+    gc_collect(torch)  # the earlier phases' device state
+    vis = vis_main(torch, n_serve=None if args.serve_full else VIS_SERVED)
     done("vis")
+    gc_collect(torch)
+    big = big_main(torch)
+    done("128k")
 
     # Phase 7: each kernel at the shapes each 32k path gave it.
     checks = {"cmatmul": check_cmatmul, "colpass": check_colpass,
@@ -2360,7 +2833,8 @@ def main():
                   "fold": "streamed", "degrid": "vis", "grid": "vis"}
     paths = {k: {} for k in checks}
     timed_shapes = {k: {} for k in checks}
-    results = {"fused": fused, "streamed": streamed, "vis": vis}
+    results = {"fused": fused, "streamed": streamed, "vis": vis,
+               "128k": big}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -2389,8 +2863,11 @@ def main():
         "profiled_window_s", "profiled_forward_s", "profiled_device_busy_s",
         "profiled_idle_share", "max_subgrid_rms", "max_facet_rms",
         "bit_identical_to_warm_run")}}))
+    log(json.dumps({"slabs_32k": slabs}))
+    log(json.dumps({"streamed_128k": _big_line(big)}))
     vis_line = {k: vis[k] for k in (
-        "config", "samples", "batches", "serve_s", "samples_per_s", "p50_ms",
+        "config", "samples", "batches", "served_batches",
+        "submitted_samples", "serve_s", "samples_per_s", "p50_ms",
         "p99_ms", "dispatches", "mean_batch", "served_samples",
         "shed_reasons", "rows_from_cache", "rows_computed",
         "column_extractions", "grid_s", "ingest_s", "launches",

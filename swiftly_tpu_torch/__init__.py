@@ -2,8 +2,11 @@
 
 Bidirectional facet <-> subgrid transforms between image space and uv-grid
 space that never materialise the full N x N plane, on one NVIDIA GPU,
-whole-cover (``SwiftlyForward`` / ``backward_all``) or streamed with the
-facets resident (``StreamedForward`` / ``StreamedBackward``):
+whole-cover (``SwiftlyForward`` / ``backward_all``) or streamed
+(``StreamedForward`` / ``StreamedBackward``: the facets resident, or
+streamed in slabs from the host or synthesised on the device from sparse
+facets, ``make_sparse_facet``; the backward's accumulator whole or in
+output-row slabs):
 complex torch tensors (``backend="torch"``), or the planar (re, im) layout
 whose DFTs run in hand-written Hopper kernels (``backend="planar"``), with
 a float64 numpy host reference (``backend="numpy"``). The JAX package
@@ -29,12 +32,14 @@ from .api import (
     make_full_facet_cover,
     make_full_subgrid_cover,
     make_real_facet,
+    make_sparse_facet,
     make_sparse_facet_cover,
     make_subgrid,
     sparse_fov_cover_offsets,
 )
 from .models import SWIFT_CONFIGS
 from .ops import (
+    SparseRealFacet,
     SwiftlyCore,
     cmatmul_stats,
     colpass_stats,
@@ -53,6 +58,7 @@ __all__ = [
     "FlightQueue",
     "LRUCache",
     "SWIFT_CONFIGS",
+    "SparseRealFacet",
     "StreamedBackward",
     "StreamedForward",
     "SubgridConfig",
@@ -75,6 +81,7 @@ __all__ = [
     "make_full_facet_cover",
     "make_full_subgrid_cover",
     "make_real_facet",
+    "make_sparse_facet",
     "make_sparse_facet_cover",
     "make_subgrid",
     "make_subgrid_from_sources",

@@ -36,6 +36,7 @@ from .models.covers import (
 from .ops.oracle import (
     make_facet_from_sources,
     make_real_facet_plane_from_sources,
+    make_sparse_real_facet_from_sources,
     make_subgrid_from_sources,
 )
 from .parallel import batched
@@ -56,6 +57,7 @@ __all__ = [
     "make_full_facet_cover",
     "make_full_subgrid_cover",
     "make_real_facet",
+    "make_sparse_facet",
     "make_sparse_facet_cover",
     "make_subgrid",
     "sparse_fov_cover_offsets",
@@ -93,6 +95,21 @@ def make_real_facet(image_size, facet_config, sources, dtype=None):
         **kwargs,
     )
 
+
+def make_sparse_facet(image_size, facet_config, sources, dtype=None):
+    """`make_facet` as a `SparseRealFacet` (pixel coordinates and values,
+    float32 by default): the input of the streamed forward at 128k, which
+    synthesises the plane on the device from these pixels instead of
+    uploading it. ``densify() == make_facet(...).real``."""
+    kwargs = {} if dtype is None else {"dtype": dtype}
+    return make_sparse_real_facet_from_sources(
+        sources,
+        image_size,
+        facet_config.size,
+        [facet_config.off0, facet_config.off1],
+        [facet_config.mask0, facet_config.mask1],
+        **kwargs,
+    )
 
 def make_subgrid(image_size, sg_config, sources):
     """Build a subgrid's data by direct DFT (test/demo input)."""

@@ -27,15 +27,18 @@ from .kernels import (
     grid_stats,
 )
 from .oracle import (
+    SparseRealFacet,
     generate_masks,
     make_facet_from_sources,
     make_real_facet_plane_from_sources,
+    make_sparse_real_facet_from_sources,
     make_subgrid_from_sources,
     mask_from_slices,
 )
 from .pswf import pswf_fb, pswf_fn, pswf_samples
 
 __all__ = [
+    "SparseRealFacet",
     "SwiftlyCore",
     "cmatmul",
     "cmatmul_plain",
@@ -58,6 +61,7 @@ __all__ = [
     "grid_stats",
     "make_facet_from_sources",
     "make_real_facet_plane_from_sources",
+    "make_sparse_real_facet_from_sources",
     "make_subgrid_from_sources",
     "mask_from_slices",
     "pswf_fb",

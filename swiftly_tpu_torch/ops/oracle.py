@@ -12,9 +12,11 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = [
+    "SparseRealFacet",
     "generate_masks",
     "make_facet_from_sources",
     "make_real_facet_plane_from_sources",
+    "make_sparse_real_facet_from_sources",
     "make_subgrid_from_sources",
     "mask_from_slices",
 ]
@@ -90,6 +92,86 @@ def make_real_facet_plane_from_sources(
             facet[tuple(rel)] += scale
     return facet
 
+
+
+class SparseRealFacet:
+    """A real facet plane as coordinates and values: zeros plus a few
+    pixels.
+
+    Point-source facet models are almost entirely zero: at 128k one dense
+    real plane is 8.1 GB, its content a handful of mask-scaled pixels. The
+    streamed forward synthesises the dense plane on the device from these
+    pixels instead of uploading it; the transform itself still runs
+    densely.
+    """
+
+    def __init__(self, size, rows, cols, vals):
+        self.size = int(size)
+        self.rows = np.asarray(rows, dtype=np.int32)
+        self.cols = np.asarray(cols, dtype=np.int32)
+        self.vals = np.asarray(vals)
+        if not (len(self.rows) == len(self.cols) == len(self.vals)):
+            raise ValueError("rows/cols/vals must have equal length")
+
+    @property
+    def n_pixels(self):
+        return len(self.vals)
+
+    def densify(self, dtype=None):
+        """The equivalent dense real plane (duplicates accumulate, in
+        index order)."""
+        out = np.zeros((self.size, self.size), dtype=dtype or self.vals.dtype)
+        np.add.at(out, (self.rows, self.cols), self.vals)
+        return out
+
+    def coalesced(self, dtype=None):
+        """(flat pixel indices, values) with each pixel once: duplicates
+        summed in index order from a zero of `dtype`, exactly as
+        `densify` adds them, so assigning these into a zeroed plane gives
+        `densify(dtype)` bit for bit."""
+        flat = self.rows.astype(np.int64) * self.size + self.cols
+        uniq, inv = np.unique(flat, return_inverse=True)
+        vals = np.zeros(len(uniq), dtype=dtype or self.vals.dtype)
+        np.add.at(vals, inv.reshape(-1), self.vals)
+        return uniq, vals
+
+
+def make_sparse_real_facet_from_sources(
+    sources,
+    image_size: int,
+    facet_size: int,
+    facet_offsets,
+    facet_masks=None,
+    dtype=np.float32,
+):
+    """`make_real_facet_plane_from_sources` as a `SparseRealFacet`: the
+    same pixel and mask arithmetic (``densify()`` equals that function's
+    plane); 2D only, as the streamed executors that take it are."""
+    if len(facet_offsets) != 2:
+        raise ValueError("sparse facets are 2D (two offsets required)")
+    centre = np.asarray(facet_offsets, dtype=int) - facet_size // 2
+    masks = [
+        None if m is None else np.asarray(m)
+        for m in (facet_masks or [None, None])
+    ]
+    rows, cols, vals = [], [], []
+    for intensity, *coords in sources:
+        if len(coords) != 2:
+            raise ValueError(
+                f"Source has {len(coords)} coordinates, expected 2"
+            )
+        rel = np.mod(np.asarray(coords, dtype=int) - centre, image_size)
+        if np.all((rel >= 0) & (rel < facet_size)):
+            scale = float(intensity)
+            for axis, mask in enumerate(masks):
+                if mask is not None:
+                    scale *= float(mask[rel[axis]])
+            rows.append(int(rel[0]))
+            cols.append(int(rel[1]))
+            vals.append(scale)
+    return SparseRealFacet(
+        facet_size, rows, cols, np.asarray(vals, dtype=dtype)
+    )
 
 def make_subgrid_from_sources(
     sources,

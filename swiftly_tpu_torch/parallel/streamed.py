@@ -1,24 +1,31 @@
-"""Streamed execution on one device: the facets-resident forward and the
-sampled backward.
+"""Streamed execution on one device: the sampled forward, the facets
+resident or streamed in slabs, and the sampled backward.
 
-The torch twin of the single-device, facets-resident path of the JAX
-package's ``swiftly_tpu/parallel/streamed.py``:
+The torch twin of the single-device sampled paths of the JAX package's
+``swiftly_tpu/parallel/streamed.py``:
 
 Forward (facets -> subgrids), ``StreamedForward(residency="device")``:
 
-1. *Sampled facet pass* -- the facets move to the device once and stay;
-   each group of G subgrid columns' contribution rows [F, G*m, yB] is a
-   sampled DFT of the facets: one matrix product against
-   ``A[r, j] = Fb[j]/yN * w^(j*kt_r)`` plus a per-facet diagonal phase
-   (``w = e^(2 pi i/yN)``, ``kt_r`` the extracted spectral rows). Plain
-   ``torch.matmul`` products, as the JAX package leaves these einsums to
-   XLA.
+1. *Sampled facet pass* -- each group of G subgrid columns' contribution
+   rows [F, G*m, yB] is a sampled DFT of the facets: one matrix product
+   against ``A[r, j] = Fb[j]/yN * w^(j*kt_r)`` plus a per-facet diagonal
+   phase (``w = e^(2 pi i/yN)``, ``kt_r`` the extracted spectral rows).
+   Plain ``torch.matmul`` products, as the JAX package leaves these
+   einsums to XLA.
 2. *Column pass* -- per column, the rows are prepared along axis 1 and
    every subgrid of the column comes out of one contraction with
    precomputed operators, ``P_s = sum_f A0_f @ Xn_sf @ B1_f``: kernel B1
    (``ops.kernels.colpass``, ``reduce_f=True``) for the planar backend,
    the complex operator einsums for the complex backend; then a crop and
    the masks.
+
+The facets either move to the device once and stay (``facet_group`` None
+or at least the facet count, and the stack fits), or stream in slabs of
+``facet_group`` facets per column group: uploaded from the host through a
+ring of pinned buffers on a copy stream, or synthesised on the device from
+sparse facets (``ops.oracle.SparseRealFacet``). Each slab's pre-finish
+partials add into the group's [G, S, xM, xM] accumulator (every stage is
+linear in the facets), and the crop and masks run once per group.
 
 Backward (subgrids -> facets), ``StreamedBackward(residency="sampled")``:
 
@@ -30,8 +37,9 @@ Backward (subgrids -> facets), ``StreamedBackward(residency="sampled")``:
    subgrid the destination indices are distinct), then finished along
    axis 1.
 2. *Sampled fold* -- the rows of ``fold_group`` columns fold straight into
-   the [F, yB, yB] image-space accumulator through the conjugate-phase
-   transpose of the forward's sampled DFT, in output-row blocks: kernel B2
+   the [F, yB, yB] image-space accumulator (or the output rows
+   ``row_slab`` of it) through the conjugate-phase transpose of the
+   forward's sampled DFT, in output-row blocks: kernel B2
    (``ops.kernels.fold``) in place on the accumulator for the planar
    backend, the complex einsum fold for the complex one.
 
@@ -39,25 +47,27 @@ On the card the planar bodies launch B1 and B2; on the CPU they run too,
 and the kernels' wrappers take their plain versions there.
 
 ``feed_backward_passes`` feeds one pass over the forward's column groups
-to several backward passes, on the device.
+to several backward passes (facet subsets, row slabs), on the device.
 
-The port runs eagerly: columns run in sequence (JAX's ``lax.map``), the
-column-pass operators are built once per executor, a short final column
-group is not padded (there is no program to recompile), and JAX's depth-2
-in-flight pipelines are CUDA events (``api.FlightQueue``).
+The port runs eagerly: columns run in sequence (JAX's ``lax.map`` and
+``lax.scan`` chunks), the column-pass operators are built once per
+executor, a short final column group is not padded (there is no program
+to recompile), and JAX's depth-2 in-flight pipelines and checksum pulls
+are CUDA events (``api.FlightQueue``).
 
 `CachedColumnFeed` is the serving path's view of a recorded stream
 (`utils.spill.SpillCache`): one host row per lookup, version-gated.
 
 Not ported yet (ROADMAP A5/A6): the host/device residencies with their FFT
-facet passes, facet-slab streaming, sparse facets, ``row_slab``, the
-executors' ``spill=`` arguments (recording and replaying the stream), the
-fft and CT folds, meshes, autosave, and the metrics/trace hooks. Each
-entry point to them raises ``NotImplementedError``.
+facet passes, the executors' ``spill=`` arguments (recording and
+replaying the stream), the fft and CT folds, meshes, autosave, and the
+metrics/trace hooks. Each entry point to them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import logging
 import os
@@ -90,6 +100,8 @@ __all__ = [
     "col_group_for_budget",
     "facet_stack_bytes",
     "feed_backward_passes",
+    "grouped_col_group_for_budget",
+    "grouped_working_set",
     "sampled_row_indices",
 ]
 
@@ -238,9 +250,10 @@ def _column_index(core, offs1):
 
 def _colpass_sblock() -> int:
     """Subgrids per column-pass block (``SWIFTLY_COLPASS_SBLOCK``, default
-    256): bounds the gather transient; every catalogue column fits one
-    block."""
-    return max(1, int(os.environ.get("SWIFTLY_COLPASS_SBLOCK", "256")))
+    512): bounds the gather transient; every catalogue column fits one
+    block (S <= 293, at 128k). The JAX package's default, 256, meant the
+    same but splits 128k's columns in two."""
+    return max(1, int(os.environ.get("SWIFTLY_COLPASS_SBLOCK", "512")))
 
 
 def _sblocks(S):
@@ -378,6 +391,25 @@ def _facet_pass_sampled(core, facets, e0, krows, real_facets=False):
 # operators come from applying the *_math chain to an identity block.
 
 
+def _group_tensors(core, groups, grp):
+    """A column group's device tensors: the sampled rows' spectral indices
+    krows [G*m], and per column and subgrid (zero-mask padding included)
+    the offsets [G, S, 2] and the masks [G, S, xA] along each axis."""
+    from ..api import _subgrid_masks
+
+    dev = core.device
+    krows = torch.as_tensor(sampled_row_indices(core, grp), device=dev)
+    items = [groups[off0] for off0 in grp]
+    sg_offs = [[(sg.off0, sg.off1) for _, sg in col] for col in items]
+    masks = [[_subgrid_masks(sg) for _, sg in col] for col in items]
+    m0, m1 = ([[mk[a] for mk in col] for col in masks] for a in (0, 1))
+    rdt = core.real_dtype
+    return (krows,
+            torch.as_tensor(np.asarray(sg_offs, np.int64), device=dev),
+            torch.as_tensor(np.asarray(m0), dtype=rdt, device=dev),
+            torch.as_tensor(np.asarray(m1), dtype=rdt, device=dev))
+
+
 def _colpass_operators(core, foffs0, foffs1):
     """Forward column-pass operators, built from an identity.
 
@@ -416,27 +448,28 @@ def _prepare_rows(core, NMBF, foffs1):
 
 def _colpass_einsum_body(core, ops, NMBF_BF, sg_offs):
     """The column's image-space partials P [S, xM, xM] through the complex
-    operator einsums (the complex backend): H = A0 @ NMBF_BF once, then a
-    gather of each subgrid's m columns of H and a K = F*m contraction with
-    B1."""
+    operator einsums (the complex backend), as kernel B1 computes them: a
+    gather of each subgrid's m columns of NMBF_BF, then A0 @ X and a
+    K = F*m contraction with B1. (The JAX package applies A0 to all yN
+    columns first, an [F, xM, yN] product; gathering first does the same
+    sums over S*m columns, far fewer than yN on a partial cover.)"""
     A0, B1 = ops
-    H = torch.einsum("fai,fij->faj", A0, NMBF_BF)  # [F, xM, yN]
     parts = []
     for s0, s1 in _sblocks(sg_offs.shape[0]):
         idx = _column_index(core, sg_offs[s0:s1, 1])  # [Sb, m]
-        X = H[:, :, idx]  # [F, xM, Sb, m]
-        parts.append(torch.einsum("fasj,fjb->sab", X, B1))
+        X = torch.einsum("fai,fisj->fasj", A0, NMBF_BF[:, :, idx])
+        parts.append(torch.einsum("fasj,fjb->sab", X, B1))  # [Sb, xM, xM]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _colpass_kernel_body(core, ops, NMBF_BF, sg_offs):
-    """The same partials, planar, through kernel B1: per subgrid
-    P_s = sum_f A0_f @ Xn_sf @ B1_f, where Xn_sf gathers the subgrid's m
-    columns of NMBF_BF directly (the gather commutes past the first
-    product, so the [F, xM, yN] H transient never exists). The planes go
-    to the kernel as strided views of the interleaved tensors."""
+def _colpass_kernel_blocks(core, ops, NMBF_BF, sg_offs):
+    """Kernel B1's partials of one column, planar, per subgrid block:
+    yields (s0, s1, P_re, P_im) with P_s = sum_f A0_f @ Xn_sf @ B1_f,
+    where Xn_sf gathers the subgrid's m columns of NMBF_BF directly (the
+    gather commutes past the first product, so the [F, xM, yN] H transient
+    never exists). The planes go to the kernel as strided views of the
+    interleaved tensors."""
     A0, B1 = ops
-    parts = []
     for s0, s1 in _sblocks(sg_offs.shape[0]):
         idx = _column_index(core, sg_offs[s0:s1, 1])  # [Sb, m]
         Xn = NMBF_BF[:, :, idx].permute(2, 0, 1, 3, 4)  # [Sb, F, m, m, 2]
@@ -444,7 +477,14 @@ def _colpass_kernel_body(core, ops, NMBF_BF, sg_offs):
             A0[..., 0], A0[..., 1], Xn[..., 0], Xn[..., 1],
             B1[..., 0], B1[..., 1], reduce_f=True,
         )
-        parts.append(torch.stack([Pr, Pi], dim=-1))
+        yield s0, s1, Pr, Pi
+
+
+def _colpass_kernel_body(core, ops, NMBF_BF, sg_offs):
+    """The same partials as the einsum body, planar, through kernel B1
+    (`_colpass_kernel_blocks`), as one [S, xM, xM, 2] tensor."""
+    parts = [torch.stack([Pr, Pi], dim=-1) for _, _, Pr, Pi in
+             _colpass_kernel_blocks(core, ops, NMBF_BF, sg_offs)]
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -468,6 +508,53 @@ def _column_pass_fwd_group(core, subgrid_size, ops, buf, foffs1, sg_offs_g,
         del NMBF_BF
         out[g] = _crop_masked_subgrid(core, P, sg_offs_g[g], subgrid_size,
                                       masks0_g[g], masks1_g[g])
+    return out
+
+
+# -- facet-slab forward step -----------------------------------------------
+#
+# A facet stack larger than the device (9 facets of 45056^2 at 128k: 73 GB
+# as real f32 planes) streams in slabs of Fg facets within each column
+# group. Every stage of the forward is linear in the facets, so each slab's
+# PRE-FINISH partials [S, xM, xM] add into the group's accumulator, and the
+# crop and masks run once per group (JAX package, streamed.py:2101-2240).
+
+
+def _column_slab_step(core, ops, buf, foffs1, sg_offs_g, acc):
+    """``acc [G, S, xM, xM(,2)] +=`` one facet slab's pre-finish partials,
+    in place. `buf` [Fg, G*m, yB(,2)] holds the slab's sampled rows for the
+    whole column group, `ops` the slab's operators, `foffs1` [Fg] its
+    facets' axis-1 offsets. Columns run one at a time, each through one
+    B1 launch per subgrid block (reducing over the slab's facets) for the
+    planar backend, or the einsum body; the add is a plain ``add_``."""
+    m = core.xM_yN_size
+    kernel = resolve_colpass(core, buf.shape[0]) == "kernel"
+    for g in range(acc.shape[0]):
+        NMBF_BF = _prepare_rows(core, buf[:, g * m:(g + 1) * m], foffs1)
+        if kernel:
+            for s0, s1, Pr, Pi in _colpass_kernel_blocks(core, ops, NMBF_BF,
+                                                         sg_offs_g[g]):
+                acc[g, s0:s1, ..., 0].add_(Pr)
+                acc[g, s0:s1, ..., 1].add_(Pi)
+                del Pr, Pi
+        else:
+            acc[g].add_(_colpass_einsum_body(core, ops, NMBF_BF,
+                                             sg_offs_g[g]))
+        del NMBF_BF
+    return acc
+
+
+def _column_group_finish(core, subgrid_size, acc, sg_offs_g, masks0_g,
+                         masks1_g):
+    """A group's accumulated partials [G, S, xM, xM(,2)] -> finished
+    subgrids [G, S, xA, xA(,2)]: the crop and masks (the finish iFFTs live
+    in the operators), once per group, one column at a time."""
+    G, S = acc.shape[0], acc.shape[1]
+    out = torch.empty((G, S, subgrid_size, subgrid_size) + _tail(core),
+                      dtype=acc.dtype, device=acc.device)
+    for g in range(G):
+        out[g] = _crop_masked_subgrid(core, acc[g], sg_offs_g[g],
+                                      subgrid_size, masks0_g[g], masks1_g[g])
     return out
 
 
@@ -599,22 +686,26 @@ def _fold_row_block(F, yB, itemsize):
     return max(1, (B // 128) * 128 or B)
 
 
-def _bwd_sampled_fold(core, acc, rows, e0, krows):
-    """``acc [F, yB, yB(,2)] += `` the adjoint sampled fold of rows
-    [F, R, yB(,2)], in place.
+def _bwd_sampled_fold(core, acc, rows, e0, krows, row0=0):
+    """``acc [F, Rs, yB(,2)] += `` the adjoint sampled fold of rows
+    [F, R, yB(,2)], in place, for the facets' output rows
+    [row0, row0 + Rs) (the whole facet: row0 = 0, Rs = yB).
 
     `krows` [R] are the rows' centred spectral indices and `e0` [F] the
-    per-facet embedding shifts. The accumulator's output rows run in
-    blocks of ``_fold_row_block``; the last block is clamped to end at the
-    last row, and its weight ``keep`` zeroes the rows the previous block
-    already folded, so the tiling is exact for any yB. The body is
-    ``resolve_fold_kernel``'s: for the planar backend each block is one
-    call of B2, which updates the block where it lies in the accumulator;
-    for the complex backend one complex product.
+    per-facet embedding shifts. The accumulator's rows run in blocks of
+    ``_fold_row_block``; the last block is clamped to end at the last row,
+    and its weight ``keep`` zeroes the rows the previous block already
+    folded, so the tiling is exact for any height. A block's phases and
+    window weights are those of its absolute facet rows (``row0`` +
+    the block's rows), so a row slab folds exactly what the whole facet's
+    fold gives those rows. The body is ``resolve_fold_kernel``'s: for the
+    planar backend each block is one call of B2, which updates the block
+    where it lies in the accumulator; for the complex backend one complex
+    product.
     """
     yN = core.yN_size
     F, Rs = acc.shape[0], acc.shape[1]
-    yB = rows.shape[2]
+    yB = rows.shape[2]  # the full facet width (the pass-through axis)
     kernel = resolve_fold_kernel(core) == "kernel"
     dt = core.real_dtype
     fb = core._p.extract_mid(core._Fb, yB, 0).to(dt)  # no 1/yN
@@ -632,10 +723,10 @@ def _bwd_sampled_fold(core, acc, rows, e0, krows):
     n_blk = -(-Rs // B)
     for i0 in range(0, n_blk * B, B):
         start = min(i0, Rs - B)
-        ii = start + torch.arange(B, dtype=torch.int64, device=acc.device)
+        jj = start + torch.arange(B, dtype=torch.int64, device=acc.device)
         b_cos, b_sin = _sampled_phases(
-            core, _mulmod(krows[:, None], ii[None, :], yN), dt)  # [R, B]
-        w = fb[start:start + B] * (ii >= i0).to(dt)
+            core, _mulmod(krows[:, None], row0 + jj[None, :], yN), dt)  # [R, B]
+        w = fb[row0 + start:row0 + start + B] * (jj >= i0).to(dt)
         cur = acc[:, start:start + B]  # [F, B, yB(,2)] view
         if kernel:
             kernels.fold(cur[..., 0], cur[..., 1], b_cos, b_sin, Rr2, Ri2, w)
@@ -651,27 +742,35 @@ def _bwd_sampled_fold(core, acc, rows, e0, krows):
 
 
 class StreamedForward:
-    """Facets -> subgrids with the facets resident on the device.
+    """Facets -> subgrids through the sampled DFT, the facets resident on
+    the device or streamed to it in slabs.
 
     :param swiftly_config: SwiftlyConfig (device backend: "torch" or
         "planar")
     :param facet_tasks: list of (FacetConfig, facet_data) pairs; the data
-        is a numpy array or tensor (complex, planar, or a real plane), or
-        a callable returning one (built when the executor is made, one
-        facet at a time)
+        is a numpy array or tensor (complex, planar, or a real plane), a
+        `SparseRealFacet` (``make_sparse_facet``), or a callable returning
+        one (built when the executor is made, one facet at a time).
+        Sparse facets stay sparse for the planar backend, which
+        synthesises them on the device, when every facet is sparse; else
+        they are densified.
     :param col_block: unused; the reference's signature (the block width
         of the host residency, ROADMAP A5)
-    :param residency: "device" (the only one ported): the facets move to
-        the device once and each column group's rows are a sampled DFT of
-        them. "host" is ROADMAP A5.
+    :param residency: "device" (the only one ported): each column group's
+        rows are a sampled DFT of the facets on the device. "host" is
+        ROADMAP A5.
     :param col_group: columns per sampled group (None: the largest that
-        fits the device memory budget, ``col_group_for_budget``)
-    :param facet_group: facets resident at once; None or at least the
-        facet count. Facet-slab streaming is ROADMAP A5.
+        fits the device memory budget, ``col_group_for_budget`` or, for
+        facet slabs, ``grouped_col_group_for_budget``)
+    :param facet_group: facets on the device at once. None: all of them if
+        the stack fits the budget, else slabs of 1. Below the facet count,
+        each column group streams the facets in slabs of `facet_group`.
     """
 
     def __init__(self, swiftly_config, facet_tasks, col_block=512,
                  residency="device", col_group=None, facet_group=None):
+        from ..ops.oracle import SparseRealFacet
+
         if residency == "sampled":
             raise ValueError(
                 "residency='sampled' is a StreamedBackward strategy; the "
@@ -692,10 +791,18 @@ class StreamedForward:
         # Facet data held on the host in device layout, one array per facet.
         # All-real facets (planar) are kept as single real planes: half the
         # host memory and upload, and the sampled pass skips the zero
-        # imaginary plane's products.
-        store, real_flags = [], []
+        # imaginary plane's products. Sparse facets stay sparse where the
+        # device synthesises them (the planar backend).
+        store, real_flags, sparse_flags = [], [], []
         for _, d in facet_tasks:
             raw = d() if callable(d) else d
+            if isinstance(raw, SparseRealFacet):
+                if _planar(core):
+                    store.append(raw)
+                    real_flags.append(True)
+                    sparse_flags.append(True)
+                    continue
+                raw = raw.densify(_np_dtype(core))
             plane = _real_plane_or_none(core, raw)
             if plane is not None:
                 store.append(plane)
@@ -703,7 +810,15 @@ class StreamedForward:
             else:
                 store.append(_to_host_layout(core, raw))
                 real_flags.append(False)
+            sparse_flags.append(False)
             del raw
+        # all or nothing: a mixed stack densifies its sparse facets (the
+        # synthesis writes whole slabs)
+        self._facets_sparse = all(sparse_flags)
+        if not self._facets_sparse:
+            for i, is_sparse in enumerate(sparse_flags):
+                if is_sparse:
+                    store[i] = store[i].densify(_np_dtype(core))
         self._facets_real = all(real_flags)
         if not self._facets_real and any(real_flags):
             # mixed: re-expand the real planes to planar pairs
@@ -713,6 +828,7 @@ class StreamedForward:
                     pair[..., 0] = s
                     store[i] = pair
         self._facet_data = store
+        self._slab_pixels = {}  # (i0, i1) -> device (flat index, value)
         self.col_group = col_group
         self.facet_group = facet_group
         self._dev_facets = None
@@ -723,12 +839,51 @@ class StreamedForward:
         # column-group sizer sees
         self.hbm_headroom = 0
 
+    # -- sparse synthesis --------------------------------------------------
+
+    def _synth_slab(self, i0, i1):
+        """Facets [i0, i1) as a real slab [i1 - i0, yB, yB] synthesised on
+        the device: the pixels (each once, duplicates summed on the host in
+        index order as ``SparseRealFacet.densify`` sums them) assigned into
+        zeros. Facets past the stack are zero. The pixels go up once per
+        slab and stay cached."""
+        core = self.core
+        yB = self._base.stack.size
+        key = (i0, i1)
+        if key not in self._slab_pixels:
+            idx, vals = [], []
+            for j, i in enumerate(range(i0, min(i1, len(self._facet_data)))):
+                flat, v = self._facet_data[i].coalesced(_np_dtype(core))
+                idx.append(flat + j * yB * yB)
+                vals.append(v)
+            idx = np.concatenate(idx) if idx else np.zeros(0, np.int64)
+            vals = (np.concatenate(vals) if vals
+                    else np.zeros(0, _np_dtype(core)))
+            self._slab_pixels[key] = (
+                torch.as_tensor(idx, device=core.device),
+                torch.as_tensor(vals, device=core.device),
+            )
+        idx, vals = self._slab_pixels[key]
+        slab = torch.zeros((i1 - i0, yB, yB), dtype=core.real_dtype,
+                           device=core.device)
+        slab.view(-1)[idx] = vals  # distinct indices: no accumulation
+        return slab
+
+    def synth_facet_device(self, i):
+        """Facet i's dense real plane [yB, yB], synthesised on the device
+        (sparse facets only): equal, bit for bit, to its ``densify()``
+        uploaded."""
+        if not self._facets_sparse:
+            raise ValueError("synth_facet_device requires sparse facets")
+        return self._synth_slab(i, i + 1)[0]
+
     # -- facet residency ---------------------------------------------------
 
     def _upload_resident_facets(self):
-        """Move the facet stack to the device once: real planes [F, yB, yB],
-        planar (re, im) planes as two such tensors (the sampled pass never
-        slices planes out of a stacked tensor), or complex facets."""
+        """Move the facet stack to the device once: real planes [F, yB, yB]
+        (synthesised on the device from sparse facets), planar (re, im)
+        planes as two such tensors (the sampled pass never slices planes
+        out of a stacked tensor), or complex facets."""
         core = self.core
         yB = self.stack.size
         F = len(self.stack)
@@ -742,7 +897,9 @@ class StreamedForward:
                     planes_of(d))))
             return out
 
-        if self._facets_real:
+        if self._facets_sparse:
+            self._dev_facets = (self._synth_slab(0, F),)
+        elif self._facets_real:
             self._dev_facets = (upload(lambda d: d),)
         elif _planar(core):
             self._dev_facets = (upload(lambda d: d[..., 0]),
@@ -794,17 +951,15 @@ class StreamedForward:
         return self._ops
 
     def _sampled_generator(self, groups, size, whole_groups=False):
-        """The facets-resident generator, after checking that the facets
-        stay resident (facet-slab streaming is not ported)."""
+        """The resident generator, or the facet-slab one when `facet_group`
+        is below the facet count or (None) the stack does not fit the
+        budget: the one place that choice is made."""
         fg = self.facet_group
         if fg is None and not self._facet_stack_fits():
             fg = 1
         if fg is not None and fg < self._base.stack.n_total:
-            raise NotImplementedError(
-                "facet-slab streaming (facet_group smaller than the facet "
-                "count, or a facet stack larger than the device memory "
-                "budget) is not ported yet (ROADMAP A5)"
-            )
+            return self._grouped_device_columns(groups, size, fg,
+                                                whole_groups=whole_groups)
         return self._device_columns(groups, size, whole_groups=whole_groups)
 
     def _device_columns(self, groups, subgrid_size, whole_groups=False):
@@ -815,7 +970,7 @@ class StreamedForward:
         waits for the previous group to finish before it starts the next
         (a CUDA event), so at most one group's work is queued ahead.
         """
-        from ..api import FlightQueue, _subgrid_masks
+        from ..api import FlightQueue
 
         base = self._base
         core = base.core
@@ -833,27 +988,15 @@ class StreamedForward:
             "colpass": resolve_colpass(core, base.stack.n_total),
         }
         ops = self._operators()
-        rdt = core.real_dtype
         inflight = FlightQueue(1)
         for g0 in range(0, len(col_offs0), G):
             grp = col_offs0[g0:g0 + G]
-            krows = torch.as_tensor(sampled_row_indices(core, grp),
-                                    device=dev)
-            sg_offs_g, m0_g, m1_g = [], [], []
-            for off0 in grp:
-                prog_items = groups[off0]  # incl. zero-mask padding
-                sg_offs_g.append([(sg.off0, sg.off1) for _, sg in prog_items])
-                ms = [_subgrid_masks(sg) for _, sg in prog_items]
-                m0_g.append([mk[0] for mk in ms])
-                m1_g.append([mk[1] for mk in ms])
+            krows, sg_offs_g, m0_g, m1_g = _group_tensors(core, groups, grp)
             buf = _facet_pass_sampled(core, self._dev_facets, e0, krows,
                                       self._facets_real)
             out_g = _column_pass_fwd_group(
-                core, subgrid_size, ops, buf, base._foffs1,
-                torch.as_tensor(np.asarray(sg_offs_g, np.int64), device=dev),
-                torch.as_tensor(np.asarray(m0_g), dtype=rdt, device=dev),
-                torch.as_tensor(np.asarray(m1_g), dtype=rdt, device=dev),
-            )  # [G, S, xA, xA(,2)]
+                core, subgrid_size, ops, buf, base._foffs1, sg_offs_g, m0_g,
+                m1_g)  # [G, S, xA, xA(,2)]
             del buf
             inflight.admit([out_g])
             if whole_groups:
@@ -861,6 +1004,191 @@ class StreamedForward:
                 continue
             for gi, off0 in enumerate(grp):
                 yield _real_items(groups[off0]), out_g[gi]
+
+    def _grouped_device_columns(self, groups, subgrid_size, facet_group,
+                                whole_groups=False):
+        """Sampled-DFT pass streaming facet slabs: stacks larger than the
+        device.
+
+        Column groups of G are the outer loop; within one, the facets come
+        in slabs of `facet_group` (zero-padded to a whole number of slabs),
+        each synthesised on the device (sparse facets) or uploaded from the
+        host, and each slab's pre-finish partials add into the group's
+        [G, S, xM, xM] accumulator (`_column_slab_step`); the crop and
+        masks run once per group (`_column_group_finish`). The device holds
+        `slab_depth` slabs, the accumulator and one slab's sampled rows,
+        whatever N.
+
+        Host slabs go up through a ring of pinned staging buffers, copied
+        without blocking on a copy stream into `slab_depth` device buffers;
+        CUDA events fence each buffer's reuse (a staging buffer until its
+        copy has run, a device buffer until the step that read it has run).
+        A background thread fills the next staging buffer while the current
+        slab computes (``SWIFTLY_STREAM_PREFETCH=0`` turns it off).
+        """
+        from ..api import FlightQueue
+
+        base = self._base
+        core = base.core
+        dev = core.device
+        cuda = dev.type == "cuda"
+        yB = base.stack.size
+        F_total = base.stack.n_total
+        Fg = int(facet_group)
+        n_slabs = -(-F_total // Fg)
+        F_pad = n_slabs * Fg
+        col_offs0 = list(groups)
+        S = len(next(iter(groups.values())))
+        # slab depth: 2 overlaps a slab's upload with the previous slab's
+        # compute; where two slabs alone would take half the budget, 1
+        budget = self._hbm_budget()
+        fsize = _np_dtype(core).itemsize * (
+            1 if self._facets_real else (2 if _planar(core) else 1))
+        slab_bytes = Fg * yB * yB * fsize
+        depth = 2
+        if budget is not None and 2 * slab_bytes > 0.5 * budget:
+            depth = 1
+        if self.col_group:
+            G = max(1, int(self.col_group))
+        elif budget is None:
+            G = len(col_offs0)
+        else:
+            G = grouped_col_group_for_budget(
+                base, budget, len(col_offs0), S, subgrid_size,
+                self._facets_real, Fg, 1, slab_depth=depth)
+        G = min(G, len(col_offs0))
+        n_groups = -(-len(col_offs0) // G)
+        use_prefetch = (
+            not self._facets_sparse
+            and os.environ.get("SWIFTLY_STREAM_PREFETCH", "1") != "0"
+            and n_slabs * n_groups > 1
+        )
+        colpass = resolve_colpass(core, Fg)
+        self.last_plan = {
+            "mode": "grouped", "col_group": G, "facet_group": Fg,
+            "n_slabs": n_slabs, "slab_depth": depth,
+            "facet_source": ("device-synth-sparse" if self._facets_sparse
+                             else "host"),
+            "colpass": colpass, "stream_prefetch": use_prefetch,
+        }
+
+        # per-slab facet metadata, zero-padded to F_pad facets
+        pad = np.zeros(F_pad - F_total, np.int64)
+        offs0 = np.concatenate([np.asarray(base.stack.offs0, np.int64), pad])
+        offs1 = np.concatenate([np.asarray(base.stack.offs1, np.int64), pad])
+        e0 = torch.as_tensor(offs0 - yB // 2, device=dev)
+        foffs0 = torch.as_tensor(offs0, device=dev)
+        foffs1 = torch.as_tensor(offs1, device=dev)
+        A0, B1 = _colpass_operators(core, foffs0, foffs1)
+
+        # planar facets: real planes, or (re, im) pairs; complex facets
+        n_planes = 2 if (_planar(core) and not self._facets_real) else 1
+        if not self._facets_sparse:
+            n_stage = 3 if use_prefetch else 2
+            stage = [[torch.empty((Fg, yB, yB), dtype=core.dtype,
+                                  pin_memory=cuda) for _ in range(n_planes)]
+                     for _ in range(n_stage)]
+            ring = [[torch.empty((Fg, yB, yB), dtype=core.dtype, device=dev)
+                     for _ in range(n_planes)] for _ in range(depth)]
+            copy_stream = torch.cuda.Stream(dev) if cuda else None
+        copied = {}  # dispatch -> event: its staging buffer was copied
+        stepped = {}  # dispatch -> event: its device buffer was read
+
+        def wait(events, d):
+            ev = events.pop(d, None)
+            if ev is not None:
+                ev.synchronize()
+
+        def fill(d):
+            """Stage slab d (facets from (d % n_slabs) * Fg) in its pinned
+            buffer, once the copy that last read the buffer has run."""
+            wait(copied, d - n_stage)
+            bufs = stage[d % n_stage]
+            s0 = (d % n_slabs) * Fg
+            for k in range(Fg):
+                i = s0 + k
+                for pi, buf in enumerate(bufs):
+                    if i >= base.stack.n_real:
+                        buf[k].zero_()
+                    elif n_planes == 2:
+                        buf[k].copy_(torch.from_numpy(
+                            self._facet_data[i][..., pi]))
+                    else:
+                        buf[k].copy_(torch.from_numpy(self._facet_data[i]))
+            return bufs
+
+        def upload(d, bufs):
+            """Slab d's staged planes into device buffer d % depth."""
+            dst = ring[d % depth]
+            if not cuda:
+                for a, b in zip(dst, bufs):
+                    a.copy_(b)
+                return tuple(dst)
+            prev = stepped.pop(d - depth, None)
+            with torch.cuda.stream(copy_stream):
+                if prev is not None:
+                    copy_stream.wait_event(prev)
+                for a, b in zip(dst, bufs):
+                    a.copy_(b, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(copy_stream)
+            copied[d] = ev
+            torch.cuda.current_stream(dev).wait_event(ev)
+            return tuple(dst)
+
+        prefetch = None
+        fut = None  # (dispatch, future)
+        if use_prefetch:
+            prefetch = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="swiftly-slab-stage")
+            fut = (0, prefetch.submit(fill, 0))
+        n_dispatch = n_slabs * n_groups
+        d = 0  # slab dispatches so far, continuous across groups
+        xM = core.xM_size
+        inflight = FlightQueue(1)
+        try:
+            for g0 in range(0, len(col_offs0), G):
+                grp = col_offs0[g0:g0 + G]
+                krows, sg_offs_g, m0_g, m1_g = _group_tensors(core, groups,
+                                                              grp)
+                acc = torch.zeros((len(grp), S, xM, xM) + _tail(core),
+                                  dtype=core.dtype, device=dev)
+                for s0 in range(0, F_pad, Fg):
+                    if self._facets_sparse:
+                        slab = (self._synth_slab(s0, s0 + Fg),)
+                    else:
+                        if fut is not None and fut[0] == d:
+                            bufs = fut[1].result()
+                        else:
+                            bufs = fill(d)
+                        fut = None
+                        slab = upload(d, bufs)
+                        if prefetch is not None and d + 1 < n_dispatch:
+                            fut = (d + 1, prefetch.submit(fill, d + 1))
+                    sl = slice(s0, s0 + Fg)
+                    buf = _facet_pass_sampled(core, slab, e0[sl], krows,
+                                              self._facets_real)
+                    del slab
+                    _column_slab_step(core, (A0[sl], B1[sl]), buf,
+                                      foffs1[sl], sg_offs_g, acc)
+                    del buf
+                    if cuda and not self._facets_sparse:
+                        ev = torch.cuda.Event()
+                        ev.record(torch.cuda.current_stream(dev))
+                        stepped[d] = ev
+                    d += 1
+                out_g = _column_group_finish(core, subgrid_size, acc,
+                                             sg_offs_g, m0_g, m1_g)
+                del acc
+                inflight.admit([out_g])
+                if whole_groups:
+                    yield [_real_items(groups[off0]) for off0 in grp], out_g
+                    continue
+                for gi, off0 in enumerate(grp):
+                    yield _real_items(groups[off0]), out_g[gi]
+        finally:
+            if prefetch is not None:
+                prefetch.shutdown(wait=True, cancel_futures=True)
 
     def stream_column_groups(self, subgrid_configs, spill=None):
         """Yield (per_col_items, group_subgrids) per column group:
@@ -928,9 +1256,10 @@ def col_group_for_budget(base, budget, n_cols, real=False,
     Live per unit G: the sampled group buffer and its product transients
     (3 * F*m*yB) and the in-flight output stacks (2 * S*xA^2). Flat: the
     facet stack, one column's transients (prepared rows, the gather block
-    or the einsum body's H buffer, the partials) and a 0.4 GB reserve for
-    tables and fragmentation. The reserve is the reference's value; it
-    was not calibrated on the port's device.
+    or the reference's einsum body's [F, xM, yN] H buffer, more than the
+    port's gather-first einsum body holds, the partials) and a 0.4 GB
+    reserve for tables and fragmentation. The reserve is the reference's
+    value; it was not calibrated on the port's device.
     """
     core = base.core
     dsize = _np_dtype(core).itemsize * (2 if _planar(core) else 1)
@@ -966,6 +1295,69 @@ def col_group_for_budget(base, budget, n_cols, real=False,
         )
     G = int(headroom // col_b)
     return max(1, min(n_cols, G))
+
+
+def grouped_working_set(base, S, subgrid_size, real, facet_group, chunk,
+                        slab_depth=2, extra_out_stacks=0):
+    """(flat bytes, bytes per unit G) of the facet-slab stream's device
+    working set, as ``grouped_col_group_for_budget`` prices it."""
+    core = base.core
+    dsize = _np_dtype(core).itemsize * (2 if _planar(core) else 1)
+    rsize = torch.empty((), dtype=core.real_dtype).element_size()
+    fsize = rsize if real else dsize
+    yB = base.stack.size
+    m = core.xM_yN_size
+    xM = core.xM_size
+    yN = core.yN_size
+    xA = subgrid_size
+    Fg = facet_group
+    slab_b = slab_depth * Fg * yB * yB * fsize
+    sampled_b = m * yB * (3 * 8 + 2 * rsize) + 4 * Fg * m * yB * dsize
+    Sb = min(_colpass_sblock(), S)
+    Sb = -(-S // -(-S // Sb))  # executed blocks are rebalanced
+    if resolve_colpass(core, Fg) == "einsum":
+        body = Fg * Sb * m * (m + xM) + Sb * xM * xM
+    else:
+        body = 2 * Sb * Fg * m * m
+    chunk_b = chunk * (4 * Fg * m * yN + body + 2 * S * xM * xM) * dsize
+    per_G = (Fg * m * yB + S * xM * xM
+             + (2 + extra_out_stacks) * S * xA * xA) * dsize
+    return slab_b + sampled_b + chunk_b + 0.6e9, per_G
+
+
+def grouped_col_group_for_budget(base, budget, n_cols, S, subgrid_size, real,
+                                 facet_group, chunk, slab_depth=2, warn=True,
+                                 extra_out_stacks=0):
+    """Largest column group G for the facet-slab stream whose working set
+    fits `budget` bytes on the device.
+
+    The JAX package's signature (``swiftly_tpu/parallel/streamed.py:3727``),
+    pricing the port's own buffers (``grouped_working_set``). Flat:
+    `slab_depth` facet slabs; the sampled pass's per-column transients (the
+    int64 residue matrix [m, yB], the (A_re, A_im) phase planes and the
+    products' planes); `chunk` columns' column-pass transients (the
+    prepared rows [Fg, m, yN] with their FFT's planes, the gather block and
+    B1's or the einsum's partials, the crop), the executor running one
+    column at a time (chunk 1); and a 0.6 GB reserve for tables and
+    fragmentation (the reference's). Per unit G: the slab's sampled rows
+    [Fg, m, yB], the pre-finish accumulator [S, xM, xM], and the finished
+    stack plus one in flight (and `extra_out_stacks` more) [S, xA, xA].
+    ``warn=False`` sizes quietly.
+    """
+    flat, per_G = grouped_working_set(base, S, subgrid_size, real,
+                                      facet_group, chunk, slab_depth,
+                                      extra_out_stacks)
+    headroom = budget - flat
+    if warn and headroom <= per_G:
+        logger.warning(
+            "device memory budget %.2f GiB cannot fit %d facet slab(s) of "
+            "%d plus one column (flat %.2f GiB, %.2f GiB a column); "
+            "proceeding with G=1 - expect an out-of-memory error",
+            budget / 2**30, slab_depth, facet_group, flat / 2**30,
+            per_G / 2**30,
+        )
+    G = int(headroom // per_G)
+    return max(1, min(G, -(-n_cols // chunk) * chunk))
 
 
 # ---------------------------------------------------------------------------
@@ -1138,7 +1530,12 @@ class StreamedBackward:
         output. "host" and "device" are ROADMAP A6.
     :param fold_group: columns folded per fold (its contraction depth is
         fold_group*m rows)
-    :param row_slab: not ported yet (ROADMAP A6), must be None
+    :param row_slab: optional (r0, r1): the accumulator covers only the
+        facets' output rows [r0, r1), [F, r1 - r0, yB(,2)], so a facet
+        stack whose whole accumulator exceeds the device splits into row
+        slabs, each a backward over the same subgrid stream (one forward
+        feeds them all through ``feed_backward_passes``). The finished
+        slabs, concatenated along axis 1, are the whole-facet backward.
     """
 
     def __init__(self, swiftly_config, facet_configs, col_block=512,
@@ -1149,21 +1546,27 @@ class StreamedBackward:
             raise ValueError(
                 f"residency must be host|device|sampled, got {residency}"
             )
+        if row_slab is not None and residency != "sampled":
+            raise ValueError("row_slab requires residency='sampled'")
         if residency != "sampled":
             raise NotImplementedError(
                 f"StreamedBackward(residency={residency!r}), the column "
                 "row buffer with the FFT facet pass, is not ported yet "
                 "(ROADMAP A6); use residency='sampled'"
             )
-        if row_slab is not None:
-            raise NotImplementedError(
-                "row_slab (output-row slabs of the accumulator) is not "
-                "ported yet (ROADMAP A6)"
-            )
         self._base = _StreamedBase(swiftly_config, facet_configs)
         self.core = self._base.core
         self.stack = self._base.stack
-        self._acc = None  # device [F, yB, yB(,2)] accumulator
+        self._row_slab = None
+        if row_slab is not None:
+            r0, r1 = int(row_slab[0]), int(row_slab[1])
+            yB = self.stack.size
+            if not 0 <= r0 < r1 <= yB:
+                raise ValueError(
+                    f"row_slab {(r0, r1)} outside the facet rows [0, {yB})"
+                )
+            self._row_slab = (r0, r1)
+        self._acc = None  # device [F, r1 - r0, yB(,2)] accumulator
         self._fold_group = max(1, int(fold_group))
         self._pending_rows = []  # [(off0, rows [F, m, yB(,2)])]
         self._ops = None
@@ -1243,8 +1646,9 @@ class StreamedBackward:
         base = self._base
         if self._acc is None:
             yB = base.stack.size
+            r0, r1 = self._row_slab or (0, yB)
             self._acc = torch.zeros(
-                (base.stack.n_total, yB, yB) + _tail(base.core),
+                (base.stack.n_total, r1 - r0, yB) + _tail(base.core),
                 dtype=base.core.dtype, device=base.core.device,
             )
 
@@ -1262,7 +1666,8 @@ class StreamedBackward:
                 device=core.device)
         krows = torch.as_tensor(sampled_row_indices(core, offs),
                                 device=core.device)
-        _bwd_sampled_fold(core, self._acc, rows_cat, self._e0, krows)
+        _bwd_sampled_fold(core, self._acc, rows_cat, self._e0, krows,
+                          row0=(self._row_slab or (0, 0))[0])
         self._fold_inflight.admit([self._acc])
 
     def _flush_folds(self):
@@ -1326,14 +1731,19 @@ class StreamedBackward:
 
     def finish_device(self):
         """The finished facet stack [F, yB, yB(,2)] as a device tensor (the
-        accumulator itself, masked in place)."""
+        accumulator itself, masked in place); with ``row_slab`` its rows
+        [F, r1 - r0, yB(,2)]."""
         if self._finished:
             raise RuntimeError("finish() was already called")
         self._flush_folds()
         if self._acc is None:
             raise RuntimeError("No subgrids were added")
         acc, self._acc = self._acc, None
-        m = self._base._masks0_dev[:, :, None]
+        masks0 = self._base._masks0_dev
+        if self._row_slab is not None:
+            # the finish mask runs along the output rows: slice it to the slab
+            masks0 = masks0[:, self._row_slab[0]:self._row_slab[1]]
+        m = masks0[:, :, None]
         if _planar(self.core):
             m = m[..., None]
         acc.mul_(m)
@@ -1342,5 +1752,6 @@ class StreamedBackward:
         return acc
 
     def finish(self):
-        """The finished facet stack [F, yB, yB(,2)] as a host array."""
+        """The finished facet stack [F, yB, yB(,2)] (or its row slab) as a
+        host array."""
         return self.finish_device()[: self.stack.n_real].cpu().numpy()
