@@ -99,15 +99,37 @@ this checkout, and holds each kernel against its plain PyTorch version:
    subgrids from every column and on the slab's rows of all 9 facets
    against ``synth_facet_device``; its plan, seconds, peak memory beside
    the slab sizer's model, and launches; then its first column group again
-   under torch.profiler for the device's busy share and the time by stage.
+   under torch.profiler for the device's busy share and the time by stage;
+10. the host and device residencies at ``32k[1]-n16k-512``, planar f32,
+   from real facet planes on the host (run after the slab checks): (a)
+   ``StreamedForward(residency="host", col_block=512)`` (the FFT facet
+   pass into the pinned host row buffer, two deep) ->
+   ``stream_columns(..., device_arrays=True)`` ->
+   ``StreamedBackward(residency="device").add_subgrid_stack`` per column
+   -> ``finish()`` (the backward FFT facet pass), a warm and a timed run,
+   gated on the oracle RMS of >= 100 subgrids from every part of the
+   cover and of every facet, and on the two runs' facets being
+   bit-identical; the facet pass's seconds and bytes, the column uploads,
+   the column passes' and ``finish``'s seconds, peak device memory, peak
+   host memory (``getrusage``) and the B1 and B3 launches; (b) a resident
+   forward feeding ``StreamedBackward(residency="host")`` once, its facets
+   within 1e-6 (RMS over the largest value) of (a)'s and (a)'s host-forward
+   subgrids within 1e-5 (relative) of its resident forward's; (c) on the
+   first column group (``fold_group`` = 4 columns, full width)
+   ``SWIFTLY_COLPASS=fft``, ``SWIFTLY_COLPASS_BWD=fft``,
+   ``SWIFTLY_FOLD=fft`` and ``SWIFTLY_FOLD=ct`` against the default
+   bodies, each within 1e-5 (relative), with its seconds.
 
 The launch counters are set to 0 just before each 32k and 128k path runs
 and read just after it. Every phase that fails ends the run with a non-zero exit
-code. The last lines are the ``vis`` JSON record of phase 8, the
+code. The last lines are the ``residency_32k`` JSON record of phase
+10, the ``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
 visibility path's for B4 and ``grid``; ``paths`` holds each path's
-launches, the 128k one's too, with the times at that path's shapes) and
+launches, the 128k one's and phase 10's (``residency``, its part (a), and
+``residency_bodies``, its part (c)) too, with the times at that path's
+shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -124,7 +146,8 @@ B2 checks and digests, phase 9 and phase 7 at phase 9's shapes, and
 prints one ``big`` JSON line; ``--serve-ab DIR --pairs N`` builds the
 kernels of the checkout DIR and of this one, then runs ``--serve-short``
 on each in turn, N times each in their own processes (parent, tree, tree,
-parent, ...), and prints the medians and spreads.
+parent, ...), and prints the medians and spreads. ``--residency`` runs
+phase 2 and phase 10 alone and prints one ``residency_32k`` JSON line.
 """
 
 from __future__ import annotations
@@ -1790,6 +1813,309 @@ def _modelled_bytes(fwd, sgcs):
     return flat + plan["col_group"] * per_G
 
 
+# -- phase 10: the host and device residencies at 32k ----------------------
+
+
+def _rss_gib():
+    """The process's resident host memory now (``/proc/self/statm``),
+    GiB."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+def _host_peak_gib():
+    """The process's peak resident host memory so far (``getrusage``),
+    GiB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _release_pinned(torch):
+    """Drop freed device blocks and hand PyTorch's cached pinned host
+    blocks back to the system (a host row buffer is ~16 GiB at 32k)."""
+    import gc
+
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+    torch.cuda.empty_cache()
+
+
+class _env:
+    """Set one environment variable for a ``with`` block."""
+
+    def __init__(self, name, value):
+        import os
+
+        self.os, self.name, self.value = os, name, value
+
+    def __enter__(self):
+        self.prior = self.os.environ.get(self.name)
+        self.os.environ[self.name] = self.value
+
+    def __exit__(self, *exc):
+        if self.prior is None:
+            del self.os.environ[self.name]
+        else:
+            self.os.environ[self.name] = self.prior
+
+
+def _host_facets_rel_rms(torch, got, ref, device="cuda"):
+    """RMS of ``got - ref`` over max |ref|, for host facet stacks
+    [F, yB, yB, 2], facet by facet on `device` in float64."""
+    d2 = count = scale = 0.0
+    for a, b in zip(got, ref):
+        a = torch.as_tensor(a, device=device).double()
+        b = torch.as_tensor(b, device=device).double()
+        d2 += float(((a - b) ** 2).sum().item())
+        count += a.numel() / 2
+        scale = max(scale, float((b ** 2).sum(-1).max().sqrt().item()))
+        del a, b
+    return (d2 / count) ** 0.5 / scale
+
+
+def residency_main(torch, config_name=MAIN_CONFIG, fold_group=4,
+                   col_block=512, device="cuda", warm=True):
+    """Phase 10: the host and device residencies at 32k, planar f32, from
+    real facet planes on the host. (a) ``StreamedForward(residency=
+    "host")`` (the FFT facet pass into the host row buffer, a column's
+    rows uploaded for each column pass) -> ``stream_columns(...,
+    device_arrays=True)`` -> ``StreamedBackward(residency="device")
+    .add_subgrid_stack`` per column -> ``finish()`` (the backward FFT facet
+    pass), a warm and a timed run; (b) a resident forward feeding
+    ``StreamedBackward(residency="host")`` once; (c) on the first column
+    group (`fold_group` columns), the FFT column bodies and the FFT and CT
+    folds against the default bodies."""
+    import swiftly_tpu_torch as st
+
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    core = cfg.core
+    N = cfg.image_size
+    sources = sources_for(N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    F = len(fcs)
+    t0 = time.perf_counter()
+    facets_in = [st.make_real_facet(N, fc, sources) for fc in fcs]
+    tasks = list(zip(fcs, facets_in))
+    n = len(sgcs)
+    idxs = list(range(0, n, max(1, n // MIN_SUBGRID_SAMPLES)))
+    wanted = set(idxs)
+    scale = sum(abs(s[0]) for s in sources) / N**2
+    out = {"config": config_name, "col_block": col_block,
+           "fold_group": fold_group, "n_subgrid_samples": len(idxs),
+           "facet_setup_s": time.perf_counter() - t0}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def feed(fwd, bwd):
+        """Every column of `fwd` into `bwd`, the wanted subgrids kept on
+        the card; (samples, seconds, synchronised at both ends)."""
+        samples = {}
+        sync()
+        t = time.perf_counter()
+        for items, sub in fwd.stream_columns(sgcs, device_arrays=True):
+            for s, (i, _) in enumerate(items):
+                if i in wanted:
+                    samples[i] = sub[s].clone()
+            bwd.add_subgrid_stack([sg for _, sg in items], sub[:len(items)])
+        sync()
+        return samples, time.perf_counter() - t
+
+    def host_run():
+        fwd = st.StreamedForward(cfg, tasks, col_block=col_block,
+                                 residency="host")
+        bwd = st.StreamedBackward(cfg, fcs, col_block=col_block,
+                                  residency="device")
+        samples, stream_s = feed(fwd, bwd)
+        plan = fwd.last_plan
+        del fwd
+        t = time.perf_counter()
+        facets = bwd.finish()
+        return facets, samples, plan, stream_s, time.perf_counter() - t
+
+    def digests(facets):
+        return [hashlib.sha256(f.data).hexdigest() for f in facets]
+
+    # (a) the host forward into the device backward, warm then timed
+    warm_digests = None
+    if warm:
+        facets, _, _, _, _ = host_run()
+        warm_digests = digests(facets)
+        del facets
+        gc_collect(torch)
+        log(f"{config_name} residency: warm run done")
+    rss0 = _rss_gib()
+    _reset_peak(torch)
+    reset_counts()
+    facets_a, samples_a, plan, stream_s, finish_s = host_run()
+    counts = read_counts()
+    rec = {
+        "plan": plan, "forward_and_column_passes_s": stream_s,
+        "facet_pass_s": plan["facet_pass_s"],
+        "facet_pass_d2h_gb": plan["facet_d2h_bytes"] / 1e9,
+        "facet_pass_h2d_gb": plan["facet_h2d_bytes"] / 1e9,
+        "column_uploads": plan["column_uploads"],
+        "column_upload_gb": plan["column_upload_bytes"] / 1e9,
+        "column_passes_s": stream_s - plan["facet_pass_s"],
+        "finish_s": finish_s, "roundtrip_s": stream_s + finish_s,
+        "peak_device_gib": _peak(torch) / 2**30,
+        "host_rss_gib_before": rss0, "host_rss_gib_after": _rss_gib(),
+        "host_peak_gib": _host_peak_gib(),
+        "launches": {k: v[0] for k, v in counts.items()},
+    }
+    dig = digests(facets_a)
+    sg_rms = [st.check_subgrid(N, sgcs[i], core.as_complex(samples_a[i]),
+                               sources) for i in idxs]
+    f_rms = []
+    for i in range(F):  # the oracle is the input real plane
+        got = torch.as_tensor(facets_a[i], device=device).double()
+        ref = torch.as_tensor(facets_in[i], device=device).double()
+        d2 = (got[..., 0] - ref) ** 2 + got[..., 1] ** 2
+        f_rms.append(float(d2.mean().sqrt().item()))
+        del got, ref, d2
+    rec.update(max_subgrid_rms=max(sg_rms), subgrid_rms_bound=(
+        SUBGRID_REL_RMS * scale), max_facet_rms=max(f_rms),
+        facet_rms_bound=FACET_RMS, bit_identical_to_warm_run=(
+            None if warm_digests is None else dig == warm_digests),
+        facet_digests=dig)
+    fwd_b1 = sum(v for key, v in counts["colpass"][1].items() if key[-1])
+    bwd_b1 = sum(v for key, v in counts["colpass"][1].items() if not key[-1])
+    rec["b1_forward_launches"], rec["b1_adjoint_launches"] = fwd_b1, bwd_b1
+    out["host"] = rec
+    out["counts"] = counts
+    log(f"{config_name} residency (a) host forward -> device backward: " +
+        json.dumps({k: v for k, v in rec.items() if k != "facet_digests"}))
+    require(all(np.isfinite(sg_rms)) and all(np.isfinite(f_rms)),
+            "residency: non-finite RMS")
+    require(max(sg_rms) <= SUBGRID_REL_RMS * scale,
+            "residency: host-forward subgrid RMS over bound")
+    require(max(f_rms) <= FACET_RMS,
+            "residency: device-backward facet RMS over bound")
+    require(warm_digests is None or dig == warm_digests,
+            "residency: the warm and timed runs' facets differ")
+    require(device != "cuda" or (fwd_b1 > 0 and bwd_b1 > 0
+                                 and rec["launches"]["cmatmul"] > 0),
+            f"residency: B1 ran {fwd_b1} forward and {bwd_b1} adjoint "
+            f"launches, B3 {rec['launches']['cmatmul']}")
+    _release_pinned(torch)
+
+    # (b) a resident forward feeding the host backward once
+    fwd = st.StreamedForward(cfg, tasks, residency="device")
+    bwd = st.StreamedBackward(cfg, fcs, col_block=col_block,
+                              residency="host")
+    samples_b, stream_b = feed(fwd, bwd)
+    plan_b = fwd.last_plan
+    del fwd
+    t = time.perf_counter()
+    facets_b = bwd.finish()
+    finish_b = time.perf_counter() - t
+    del bwd
+    diff = sub_scale = 0.0
+    for i in idxs:
+        diff = max(diff, (samples_a[i] - samples_b[i]).abs().max().item())
+        sub_scale = max(sub_scale, samples_b[i].abs().max().item())
+    rec_b = {"forward_plan": plan_b, "resident_forward_and_column_passes_s":
+             stream_b, "finish_s": finish_b, "host_peak_gib": _host_peak_gib(),
+             "host_rss_gib_after": _rss_gib(),
+             "host_forward_max_rel_to_resident": diff / sub_scale,
+             "facets_rel_rms_to_a": _host_facets_rel_rms(torch, facets_b,
+                                                         facets_a, device)}
+    del facets_a, facets_b, samples_a, samples_b
+    out["host_backward"] = rec_b
+    log(f"{config_name} residency (b) resident forward -> host backward: " +
+        json.dumps(rec_b))
+    require(rec_b["host_forward_max_rel_to_resident"]
+            <= KERNEL_REL_TOL["float32"],
+            "residency: the host forward's subgrids differ from the "
+            f"resident forward's by {diff / sub_scale:.3e}")
+    require(rec_b["facets_rel_rms_to_a"] <= FACET_RMS,
+            "residency: the host backward's facets differ from (a)'s by "
+            f"{rec_b['facets_rel_rms_to_a']:.3e}")
+    _release_pinned(torch)
+
+    # (c) the selectable bodies on the first column group
+    offs = list(dict.fromkeys(sg.off0 for sg in sgcs))[:fold_group]
+    group = [sg for sg in sgcs if sg.off0 in offs]
+    reset_counts()
+
+    def columns(fwd):
+        sync()
+        t = time.perf_counter()
+        cols = list(fwd.stream_columns(group, device_arrays=True))
+        sync()
+        return cols, time.perf_counter() - t
+
+    fwd = st.StreamedForward(cfg, tasks, col_block=col_block,
+                             residency="host")
+    columns(fwd)  # the facet pass for these columns' rows
+    ref_cols, default_s = columns(fwd)
+    with _env("SWIFTLY_COLPASS", "fft"):
+        fft_cols, fft_s = columns(fwd)
+    del fwd
+    diff = sub_scale = 0.0
+    for (_, a), (_, b) in zip(fft_cols, ref_cols):
+        d, sc = _max_abs(torch, a, b)
+        diff, sub_scale = max(diff, d), max(sub_scale, sc)
+    del fft_cols
+    bodies = {"columns": len(offs), "subgrids": len(group),
+              "forward_default_s": default_s, "SWIFTLY_COLPASS=fft": {
+                  "seconds": fft_s, "max_rel": diff / sub_scale}}
+
+    def backward():
+        bwd = st.StreamedBackward(cfg, fcs, residency="sampled",
+                                  fold_group=fold_group)
+        sync()
+        t = time.perf_counter()
+        for items, sub in ref_cols:
+            bwd.add_subgrid_stack([sg for _, sg in items], sub)
+        facets = bwd.finish_device()
+        sync()
+        return facets, time.perf_counter() - t
+
+    ref_f, bodies["backward_default_s"] = backward()
+    for knob, value in (("SWIFTLY_COLPASS_BWD", "fft"),
+                        ("SWIFTLY_FOLD", "fft"), ("SWIFTLY_FOLD", "ct")):
+        with _env(knob, value):
+            got, secs = backward()
+        d, sc = _max_abs(torch, got, ref_f)
+        bodies[f"{knob}={value}"] = {"seconds": secs, "max_rel": d / sc}
+        del got
+    del ref_f, ref_cols
+    bodies["counts"] = read_counts()
+    bodies["launches"] = {k: v[0] for k, v in bodies["counts"].items()}
+    out["bodies"] = bodies
+    log(f"{config_name} residency (c) bodies on {len(offs)} columns: " +
+        json.dumps({k: v for k, v in bodies.items() if k != "counts"}))
+    for key, val in bodies.items():
+        if isinstance(val, dict) and "max_rel" in val:
+            require(val["max_rel"] <= KERNEL_REL_TOL["float32"],
+                    f"residency: {key} differs from the default body by "
+                    f"{val['max_rel']:.3e}")
+    require(device != "cuda" or bodies["launches"]["cmatmul"] > 0,
+            "residency: the FFT bodies launched B3 no time")
+    del facets_in, tasks
+    gc_collect(torch)
+    return out
+
+
+def _residency_line(res):
+    """Phase 10's JSON record without the per-shape launch counts (the
+    `kernels` line's ``paths`` holds them)."""
+    line = {k: v for k, v in res.items() if k != "counts"}
+    line["bodies"] = {k: v for k, v in res["bodies"].items()
+                      if k != "counts"}
+    line["host"] = {k: v for k, v in res["host"].items()
+                    if k != "facet_digests"}
+    return line
+
+
 # -- phase 9: the 128k streamed round trip ---------------------------------
 
 
@@ -2699,6 +3025,9 @@ def _args():
     p.add_argument("--big", action="store_true",
                    help="phase 2, phase 3's B1 and B2 checks, phase 9 (the "
                    "128k round trip) and phase 7 at its shapes")
+    p.add_argument("--residency", action="store_true",
+                   help="phase 2, then phase 10 (the host and device "
+                   "residencies at 32k) alone")
     p.add_argument("--serve-full", action="store_true",
                    help="phase 8 serves all its batches (default: the first "
                    f"{VIS_SERVED})")
@@ -2783,6 +3112,11 @@ def main():
         return b4_main(torch, tree=args.b4)
     if args.big:
         return big_only_main(torch)
+    if args.residency:
+        res = residency_main(torch)
+        done("residency")
+        log(json.dumps({"residency_32k": _residency_line(res)}))
+        return 0
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
@@ -2818,6 +3152,9 @@ def main():
     gc_collect(torch)
     slabs = slabs_main(torch)
     done("slabs")
+    gc_collect(torch)
+    residency = residency_main(torch)
+    done("residency")
     gc_collect(torch)  # the earlier phases' device state
     vis = vis_main(torch, n_serve=None if args.serve_full else VIS_SERVED)
     done("vis")
@@ -2834,7 +3171,8 @@ def main():
     paths = {k: {} for k in checks}
     timed_shapes = {k: {} for k in checks}
     results = {"fused": fused, "streamed": streamed, "vis": vis,
-               "128k": big}
+               "128k": big, "residency": residency,
+               "residency_bodies": residency["bodies"]}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -2864,6 +3202,7 @@ def main():
         "profiled_idle_share", "max_subgrid_rms", "max_facet_rms",
         "bit_identical_to_warm_run")}}))
     log(json.dumps({"slabs_32k": slabs}))
+    log(json.dumps({"residency_32k": _residency_line(residency)}))
     log(json.dumps({"streamed_128k": _big_line(big)}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",

@@ -152,13 +152,17 @@ def extract_columns_batch(core, BF_Fs, off0, offs1):
     )
 
 
-def _subgrids_from_columns(core, NMBF_BFs, offs0, offs1, sg_off0, sg_offs1,
-                           subgrid_size, masks0, masks1):
-    """One column's S subgrids from its NMBF_BFs [F, m, yN]: [S, xA, xA].
+def facet_contrib_to_subgrid(core, NMBF_BFs, offs0, offs1, sg_offs1):
+    """One column's prepared rows NMBF_BFs [F, m, yN] -> every facet's
+    padded-subgrid summand for each of the column's subgrids,
+    [S, F, xM, xM] (grid space).
 
-    Every (subgrid, facet) pair is one row of an [S, F, ...] stack, so
-    each add_to_subgrid FFT is one batched DFT over S*F*m (axis 0) or
-    S*F*xM (axis 1) rows; the facet sum is a reduction over F.
+    The twin of the JAX package's per-facet ``facet_contrib_to_subgrid``
+    (``swiftly_tpu/parallel/batched.py:79``), batched as its ``vmap`` over
+    subgrids and facets: every (subgrid, facet) pair is one row of an
+    [S, F, ...] stack, so each add_to_subgrid FFT is one batched DFT over
+    S*F*m (axis 0) or S*F*xM (axis 1) rows. `sg_offs1` [S] are the
+    subgrids' axis-1 offsets.
     """
     p = core._p
     foffs0 = _index(core, offs0).reshape(1, -1)
@@ -173,12 +177,33 @@ def _subgrids_from_columns(core, NMBF_BFs, offs0, offs1, sg_off0, sg_offs1,
         p, core._Fn, core.xM_size, core.N, NMBF_NMBFs, foffs0, -2
     )
     del NMBF_NMBFs
-    acc = add_to_subgrid_math(p, core._Fn, core.xM_size, core.N, acc, foffs1, -1)
-    summed = acc.sum(dim=1)
-    del acc
-    subgrids = finish_subgrid_math(p, subgrid_size, summed, [sg_off0, sg1])
+    return add_to_subgrid_math(p, core._Fn, core.xM_size, core.N, acc,
+                               foffs1, -1)
+
+
+def finish_masked_subgrid(core, summed, sg_offs, subgrid_size, masks0,
+                          masks1):
+    """Summed padded subgrids [S, xM, xM] -> finished subgrids
+    [S, xA, xA]: the finish iFFTs, the crops at ``sg_offs`` = [off0, off1]
+    (each a Python int or one offset per subgrid) and the ownership masks
+    [S, xA] (the twin of ``swiftly_tpu/parallel/batched.py:114``)."""
+    p = core._p
+    subgrids = finish_subgrid_math(p, subgrid_size, summed, sg_offs)
     subgrids = _mask_along(p, subgrids, _real(core, masks0), -2)
     return _mask_along(p, subgrids, _real(core, masks1), -1)
+
+
+def _subgrids_from_columns(core, NMBF_BFs, offs0, offs1, sg_off0, sg_offs1,
+                           subgrid_size, masks0, masks1):
+    """One column's S subgrids from its NMBF_BFs [F, m, yN]: [S, xA, xA].
+
+    The facet sum is a reduction over F of `facet_contrib_to_subgrid`'s
+    stack."""
+    sg1 = _index(core, sg_offs1)
+    summed = facet_contrib_to_subgrid(core, NMBF_BFs, offs0, offs1,
+                                      sg1).sum(dim=1)
+    return finish_masked_subgrid(core, summed, [sg_off0, sg1], subgrid_size,
+                                 masks0, masks1)
 
 
 def subgrid_from_columns_batch(
@@ -285,26 +310,36 @@ def forward_all_batch(
 # -- subgrid -> facet -------------------------------------------------------
 
 
-def _split_subgrids(core, subgrids, sg_offs0, sg_offs1, offs0, offs1):
-    """Subgrids [S, xA, xA] -> NAF_NAFs [S, F, m, m]: every subgrid's
-    contribution to every facet, as [S, F] stacks of DFT rows."""
+def subgrid_contrib_to_facet(core, prepped, offs0, offs1):
+    """Prepared subgrids [S, xM, xM] -> each one's contribution to every
+    facet, [S, F, m, m]: the twin of the JAX package's per-facet
+    ``subgrid_contrib_to_facet`` (``swiftly_tpu/parallel/batched.py:98``),
+    batched over [S, F] stacks of DFT rows."""
     p = core._p
-    prepped = prepare_subgrid_math(
-        p, core.xM_size, subgrids, [_index(core, sg_offs0), _index(core, sg_offs1)]
-    )
-    F = len(offs0)
+    foffs0 = _index(core, offs0)
+    F = foffs0.numel()
     stack = prepped.unsqueeze(1).expand(
         (prepped.shape[0], F) + tuple(prepped.shape[1:])
     )
     e0 = extract_from_subgrid_math(
         p, core._Fn, core.xM_yN_size, core.xM_size, core.N, stack,
-        _index(core, offs0).reshape(1, F), -2,
+        foffs0.reshape(1, F), -2,
     )
-    del prepped, stack
+    del stack
     return extract_from_subgrid_math(
         p, core._Fn, core.xM_yN_size, core.xM_size, core.N, e0,
         _index(core, offs1).reshape(1, F), -1,
     )
+
+
+def _split_subgrids(core, subgrids, sg_offs0, sg_offs1, offs0, offs1):
+    """Subgrids [S, xA, xA] -> NAF_NAFs [S, F, m, m]: every subgrid's
+    contribution to every facet, as [S, F] stacks of DFT rows."""
+    prepped = prepare_subgrid_math(
+        core._p, core.xM_size, subgrids,
+        [_index(core, sg_offs0), _index(core, sg_offs1)],
+    )
+    return subgrid_contrib_to_facet(core, prepped, offs0, offs1)
 
 
 def split_subgrid_batch(core, subgrid, sg_off0, sg_off1, offs0, offs1):

@@ -1,66 +1,88 @@
-"""Streamed execution on one device: the sampled forward, the facets
-resident or streamed in slabs, and the sampled backward.
+"""Streamed execution on one device: the host, device and sampled
+residencies, with the facets resident or streamed in slabs.
 
-The torch twin of the single-device sampled paths of the JAX package's
-``swiftly_tpu/parallel/streamed.py``:
+The torch twin of the single-device paths of the JAX package's
+``swiftly_tpu/parallel/streamed.py``. Both executors default to
+``residency="host"``, as the JAX package's do.
 
-Forward (facets -> subgrids), ``StreamedForward(residency="device")``:
+Forward (facets -> subgrids):
 
-1. *Sampled facet pass* -- each group of G subgrid columns' contribution
-   rows [F, G*m, yB] is a sampled DFT of the facets: one matrix product
-   against ``A[r, j] = Fb[j]/yN * w^(j*kt_r)`` plus a per-facet diagonal
-   phase (``w = e^(2 pi i/yN)``, ``kt_r`` the extracted spectral rows).
-   Plain ``torch.matmul`` products, as the JAX package leaves these
-   einsums to XLA.
-2. *Column pass* -- per column, the rows are prepared along axis 1 and
-   every subgrid of the column comes out of one contraction with
-   precomputed operators, ``P_s = sum_f A0_f @ Xn_sf @ B1_f``: kernel B1
-   (``ops.kernels.colpass``, ``reduce_f=True``) for the planar backend,
-   the complex operator einsums for the complex backend; then a crop and
-   the masks.
+* ``StreamedForward(residency="host")``: the *FFT facet pass* runs over
+  the facets in blocks of ``col_block`` facet columns: each block is
+  uploaded, prepared along axis 0 (an FFT of size yN) and cut into every
+  subgrid column's contribution rows [K, F, m, Cb], which return to a
+  [K, F, m, yB_pad] row buffer in host memory (pinned on the card) through
+  a two-deep device-to-host pipeline. Then one column at a time: its rows
+  go up and through the column pass.
+* ``StreamedForward(residency="device")``: the *sampled facet pass* --
+  each group of G subgrid columns' contribution rows [F, G*m, yB] is a
+  sampled DFT of the facets: one matrix product against
+  ``A[r, j] = Fb[j]/yN * w^(j*kt_r)`` plus a per-facet diagonal phase
+  (``w = e^(2 pi i/yN)``, ``kt_r`` the extracted spectral rows). The facets
+  either move to the device once and stay (``facet_group`` None or at
+  least the facet count, and the stack fits), or stream in slabs of
+  ``facet_group`` facets per column group: uploaded from the host through
+  a ring of pinned buffers on a copy stream, or synthesised on the device
+  from sparse facets (``ops.oracle.SparseRealFacet``). Each slab's
+  pre-finish partials add into the group's [G, S, xM, xM] accumulator
+  (every stage is linear in the facets), and the finish runs once per
+  group.
 
-The facets either move to the device once and stay (``facet_group`` None
-or at least the facet count, and the stack fits), or stream in slabs of
-``facet_group`` facets per column group: uploaded from the host through a
-ring of pinned buffers on a copy stream, or synthesised on the device from
-sparse facets (``ops.oracle.SparseRealFacet``). Each slab's pre-finish
-partials add into the group's [G, S, xM, xM] accumulator (every stage is
-linear in the facets), and the crop and masks run once per group.
+The facet passes' products are plain ``torch.matmul`` products (the JAX
+package leaves them to XLA). The *column pass* takes one column's rows
+[F, m, yB], prepares them along axis 1 and gives every subgrid of the
+column, through the body ``resolve_colpass`` picks (``SWIFTLY_COLPASS``):
+kernel B1 (``ops.kernels.colpass``, ``reduce_f=True``, precomputed
+operators ``P_s = sum_f A0_f @ Xn_sf @ B1_f``) for the planar backend, the
+operator einsums for the complex backend, or the per-facet FFT chain
+(``parallel.batched.facet_contrib_to_subgrid``, batched over subgrids and
+facets, so kernel B3 runs its DFTs in a few large launches). The operator
+bodies' partials are in image space and finish with a crop and the
+masks; the FFT chain's are in grid space and finish with the crop iFFTs.
 
-Backward (subgrids -> facets), ``StreamedBackward(residency="sampled")``:
+Backward (subgrids -> facets):
 
-1. *Column pass* -- per column, the adjoint operators give every facet's
-   contribution block ``Z_sf = E0_f @ emb_s @ E1_f`` (B1 with
-   ``reduce_f=False`` for the planar backend, the complex einsum pair for
-   the complex one), scattered into the column's
-   [F, m, yN] rows one subgrid at a time (a fixed order: within one
-   subgrid the destination indices are distinct), then finished along
+1. *Column pass* -- per column, every facet's contribution block
+   ``Z_sf`` (B1 with ``reduce_f=False``, the complex einsum pair, or the
+   FFT chain ``parallel.batched.subgrid_contrib_to_facet``, per
+   ``resolve_colpass_bwd`` / ``SWIFTLY_COLPASS_BWD``), scattered into the
+   column's [F, m, yN] rows one subgrid at a time (a fixed order: within
+   one subgrid the destination indices are distinct), then finished along
    axis 1.
-2. *Sampled fold* -- the rows of ``fold_group`` columns fold straight into
-   the [F, yB, yB] image-space accumulator (or the output rows
-   ``row_slab`` of it) through the conjugate-phase transpose of the
-   forward's sampled DFT, in output-row blocks: kernel B2
-   (``ops.kernels.fold``) in place on the accumulator for the planar
-   backend, the complex einsum fold for the complex one.
+2. ``residency="host"`` / ``"device"``: the column's rows [F, m, yB_pad]
+   are kept, summed per column offset, in host memory or on the device;
+   ``finish`` runs the *FFT facet pass* backwards over blocks of
+   ``col_block`` columns of all of them (embed, an FFT of size yN, the
+   masks), two deep, into the host facet stack.
+   ``residency="sampled"``: the rows of ``fold_group`` columns fold
+   straight into the [F, yB, yB] image-space accumulator (or the output
+   rows ``row_slab`` of it) through the fold ``resolve_fold_mode`` picks
+   (``SWIFTLY_FOLD``): the adjoint sampled DFT (kernel B2,
+   ``ops.kernels.fold``, in place for the planar backend, the complex
+   einsum fold for the complex one), the FFT fold (the rows embedded in
+   the spectrum and finished by an FFT, in chunks of the pass-through
+   axis), or the Cooley-Tukey-factored fold (three dense stages of plain
+   products).
 
-On the card the planar bodies launch B1 and B2; on the CPU they run too,
-and the kernels' wrappers take their plain versions there.
+On the card the planar bodies launch B1, B2 and B3; on the CPU they run
+too, and the kernels' wrappers take their plain versions there.
 
 ``feed_backward_passes`` feeds one pass over the forward's column groups
-to several backward passes (facet subsets, row slabs), on the device.
+to several sampled backward passes (facet subsets, row slabs), on the
+device.
 
 The port runs eagerly: columns run in sequence (JAX's ``lax.map`` and
 ``lax.scan`` chunks), the column-pass operators are built once per
 executor, a short final column group is not padded (there is no program
 to recompile), and JAX's depth-2 in-flight pipelines and checksum pulls
-are CUDA events (``api.FlightQueue``).
+are CUDA events (``api.FlightQueue``). Every accumulation runs in a fixed
+order, so reruns are bit-identical.
 
 `CachedColumnFeed` is the serving path's view of a recorded stream
 (`utils.spill.SpillCache`): one host row per lookup, version-gated.
 
-Not ported yet (ROADMAP A5/A6): the host/device residencies with their FFT
-facet passes, the executors' ``spill=`` arguments (recording and
-replaying the stream), the fft and CT folds, meshes, autosave, and the
+Not ported yet (ROADMAP A5/A6 and later steps): the executors' ``spill=``
+arguments (recording and replaying the stream), meshes, autosave, and the
 metrics/trace hooks. Each entry point to them raises
 ``NotImplementedError``.
 """
@@ -70,7 +92,9 @@ from __future__ import annotations
 import concurrent.futures
 import functools
 import logging
+import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -79,6 +103,7 @@ from ..ops import kernels
 from ..ops import planar_backend as plk
 from ..ops.core import (
     add_to_subgrid_math,
+    extract_from_facet_math,
     extract_from_subgrid_math,
     finish_facet_math,
     prepare_facet_math,
@@ -88,8 +113,15 @@ from ..utils.flops import (
     resolve_colpass,
     resolve_colpass_bwd,
     resolve_fold_kernel,
+    resolve_fold_mode,
 )
-from .batched import _mask_along
+from .batched import (
+    _fold_into,
+    _mask_along,
+    _split_subgrids,
+    facet_contrib_to_subgrid,
+    finish_masked_subgrid,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -102,6 +134,7 @@ __all__ = [
     "feed_backward_passes",
     "grouped_col_group_for_budget",
     "grouped_working_set",
+    "resolve_fold_mode",
     "sampled_row_indices",
 ]
 
@@ -180,7 +213,8 @@ def _identity(core, n):
 
 
 class _StreamedBase:
-    def __init__(self, swiftly_config, facet_configs):
+    def __init__(self, swiftly_config, facet_configs, col_block=512,
+                 residency="device"):
         from ..api import _FacetStack
 
         self.config = swiftly_config
@@ -190,13 +224,23 @@ class _StreamedBase:
                 "Streamed execution requires a device backend "
                 "('torch' or 'planar')"
             )
+        if residency not in ("host", "device", "sampled"):
+            raise ValueError(
+                f"residency must be host|device|sampled, got {residency}"
+            )
         if not facet_configs:
             raise ValueError(
                 "facet_configs must be non-empty (the streamed paths "
                 "size their programs from the first facet)"
             )
         plk.set_matmul_precision()  # full f32 products: no TF32
+        self.residency = residency
         self.stack = _FacetStack(facet_configs)
+        # the host/device residencies' facet-column blocks: yB_pad is the
+        # facet width rounded up to whole blocks (the pad columns are zero)
+        self.col_block = int(col_block)
+        self._n_blocks = -(-self.stack.size // self.col_block)
+        self._yB_pad = self._n_blocks * self.col_block
         dev = self.core.device
         self._foffs0 = torch.as_tensor(
             np.asarray(self.stack.offs0, np.int64), device=dev)
@@ -207,6 +251,17 @@ class _StreamedBase:
                                            device=dev)
         self._masks1_dev = torch.as_tensor(self.stack.masks1, dtype=rdt,
                                            device=dev)
+
+    def _alloc_buffer(self, n_cols):
+        """A host row buffer [n_cols, F, m, yB_pad(,2)], pinned when the
+        core runs on the card (the column uploads then read it by DMA).
+        Not zeroed: the forward facet pass writes every element, the pad
+        columns included."""
+        core = self.core
+        shape = (n_cols, len(self.stack), core.xM_yN_size,
+                 self._yB_pad) + _tail(core)
+        return torch.empty(shape, dtype=core.dtype,
+                           pin_memory=core.device.type == "cuda")
 
 
 def _group_full_columns(subgrid_configs):
@@ -446,9 +501,23 @@ def _prepare_rows(core, NMBF, foffs1):
                               -1)
 
 
+def _ceinsum(core, spec, a, b):
+    """A complex einsum written for the logical axes: complex tensors
+    directly, planar ones as four real einsums (the JAX package's
+    ``_ceinsum``)."""
+    if not _planar(core):
+        return torch.einsum(spec, a, b)
+    ar, ai, br, bi = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
+    return torch.stack([
+        torch.einsum(spec, ar, br) - torch.einsum(spec, ai, bi),
+        torch.einsum(spec, ar, bi) + torch.einsum(spec, ai, br),
+    ], dim=-1)
+
+
 def _colpass_einsum_body(core, ops, NMBF_BF, sg_offs):
-    """The column's image-space partials P [S, xM, xM] through the complex
-    operator einsums (the complex backend), as kernel B1 computes them: a
+    """The column's image-space partials P [S, xM, xM(,2)] through the
+    operator einsums (the complex backend's body; on the planar backend
+    with ``SWIFTLY_COLPASS=einsum``), as kernel B1 computes them: a
     gather of each subgrid's m columns of NMBF_BF, then A0 @ X and a
     K = F*m contraction with B1. (The JAX package applies A0 to all yN
     columns first, an [F, xM, yN] product; gathering first does the same
@@ -457,8 +526,8 @@ def _colpass_einsum_body(core, ops, NMBF_BF, sg_offs):
     parts = []
     for s0, s1 in _sblocks(sg_offs.shape[0]):
         idx = _column_index(core, sg_offs[s0:s1, 1])  # [Sb, m]
-        X = torch.einsum("fai,fisj->fasj", A0, NMBF_BF[:, :, idx])
-        parts.append(torch.einsum("fasj,fjb->sab", X, B1))  # [Sb, xM, xM]
+        X = _ceinsum(core, "fai,fisj->fasj", A0, NMBF_BF[:, :, idx])
+        parts.append(_ceinsum(core, "fasj,fjb->sab", X, B1))
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
@@ -488,26 +557,59 @@ def _colpass_kernel_body(core, ops, NMBF_BF, sg_offs):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def _column_pass_fwd_group(core, subgrid_size, ops, buf, foffs1, sg_offs_g,
-                           masks0_g, masks1_g):
+def _column_partials(core, mode, ops, NMBF_BF, foffs0, foffs1, sg_offs):
+    """One column's pre-finish partials [S, xM, xM(,2)] from its prepared
+    rows NMBF_BF [F, m, yN(,2)], through the body `mode`
+    (``resolve_colpass``): "kernel" (B1) and "einsum" give image-space
+    partials with the prebuilt operators `ops`; "fft" (the per-facet FFT
+    chain, the JAX package's ``_column_pass_fwd_fft_fn`` with
+    ``finish=False``) gives grid-space ones and takes no operators.
+    Partials of one mode pair only with `_finish_partials` of the same."""
+    if mode == "kernel":
+        return _colpass_kernel_body(core, ops, NMBF_BF, sg_offs)
+    if mode == "einsum":
+        return _colpass_einsum_body(core, ops, NMBF_BF, sg_offs)
+    return facet_contrib_to_subgrid(core, NMBF_BF, foffs0, foffs1,
+                                    sg_offs[:, 1]).sum(dim=1)
+
+
+def _finish_partials(core, mode, P, sg_offs, subgrid_size, mask0, mask1):
+    """Partials [S, xM, xM(,2)] of body `mode` -> finished subgrids
+    [S, xA, xA(,2)]: a crop and the masks for the operator bodies (their
+    iFFTs live in the operators), the crop iFFTs too for the FFT chain."""
+    if mode == "fft":
+        return finish_masked_subgrid(core, P, [sg_offs[:, 0], sg_offs[:, 1]],
+                                     subgrid_size, mask0, mask1)
+    return _crop_masked_subgrid(core, P, sg_offs, subgrid_size, mask0, mask1)
+
+
+def _column_pass_fwd(core, subgrid_size, mode, ops, NMBF, foffs0, foffs1,
+                     sg_offs, mask0, mask1):
+    """One column's rows [F, m, yB(,2)] -> its finished subgrids
+    [S, xA, xA(,2)] through body `mode` (the JAX package's
+    ``_column_pass_fwd_fn``)."""
+    NMBF_BF = _prepare_rows(core, NMBF, foffs1)
+    P = _column_partials(core, mode, ops, NMBF_BF, foffs0, foffs1, sg_offs)
+    del NMBF_BF
+    return _finish_partials(core, mode, P, sg_offs, subgrid_size, mask0,
+                            mask1)
+
+
+def _column_pass_fwd_group(core, subgrid_size, mode, ops, buf, foffs0,
+                           foffs1, sg_offs_g, masks0_g, masks1_g):
     """Sampled group buffer [F, G*m, yB(,2)] -> subgrids [G, S, xA, xA(,2)].
 
     The group's columns run in sequence (JAX's ``lax.map``), each through
-    the body ``resolve_colpass`` picks: one B1 launch per column on the
-    card."""
+    `_column_pass_fwd`: one B1 launch per column on the card with the
+    default planar body."""
     m = core.xM_yN_size
-    F = buf.shape[0]
     G, S = sg_offs_g.shape[0], sg_offs_g.shape[1]
-    body = (_colpass_kernel_body
-            if resolve_colpass(core, F) == "kernel" else _colpass_einsum_body)
     out = torch.empty((G, S, subgrid_size, subgrid_size) + _tail(core),
                       dtype=buf.dtype, device=buf.device)
     for g in range(G):
-        NMBF_BF = _prepare_rows(core, buf[:, g * m:(g + 1) * m], foffs1)
-        P = body(core, ops, NMBF_BF, sg_offs_g[g])
-        del NMBF_BF
-        out[g] = _crop_masked_subgrid(core, P, sg_offs_g[g], subgrid_size,
-                                      masks0_g[g], masks1_g[g])
+        out[g] = _column_pass_fwd(
+            core, subgrid_size, mode, ops, buf[:, g * m:(g + 1) * m], foffs0,
+            foffs1, sg_offs_g[g], masks0_g[g], masks1_g[g])
     return out
 
 
@@ -517,44 +619,44 @@ def _column_pass_fwd_group(core, subgrid_size, ops, buf, foffs1, sg_offs_g,
 # as real f32 planes) streams in slabs of Fg facets within each column
 # group. Every stage of the forward is linear in the facets, so each slab's
 # PRE-FINISH partials [S, xM, xM] add into the group's accumulator, and the
-# crop and masks run once per group (JAX package, streamed.py:2101-2240).
+# finish runs once per group (JAX package, streamed.py:2101-2240).
 
 
-def _column_slab_step(core, ops, buf, foffs1, sg_offs_g, acc):
-    """``acc [G, S, xM, xM(,2)] +=`` one facet slab's pre-finish partials,
-    in place. `buf` [Fg, G*m, yB(,2)] holds the slab's sampled rows for the
-    whole column group, `ops` the slab's operators, `foffs1` [Fg] its
-    facets' axis-1 offsets. Columns run one at a time, each through one
-    B1 launch per subgrid block (reducing over the slab's facets) for the
-    planar backend, or the einsum body; the add is a plain ``add_``."""
+def _column_slab_step(core, mode, ops, buf, foffs0, foffs1, sg_offs_g, acc):
+    """``acc [G, S, xM, xM(,2)] +=`` one facet slab's pre-finish partials
+    of body `mode`, in place. `buf` [Fg, G*m, yB(,2)] holds the slab's
+    sampled rows for the whole column group, `ops` the slab's operators,
+    `foffs0`/`foffs1` [Fg] its facets' offsets. Columns run one at a time:
+    with B1, one launch per subgrid block (reducing over the slab's
+    facets), added block by block; the other bodies add a column's
+    partials with a plain ``add_``."""
     m = core.xM_yN_size
-    kernel = resolve_colpass(core, buf.shape[0]) == "kernel"
     for g in range(acc.shape[0]):
         NMBF_BF = _prepare_rows(core, buf[:, g * m:(g + 1) * m], foffs1)
-        if kernel:
+        if mode == "kernel":
             for s0, s1, Pr, Pi in _colpass_kernel_blocks(core, ops, NMBF_BF,
                                                          sg_offs_g[g]):
                 acc[g, s0:s1, ..., 0].add_(Pr)
                 acc[g, s0:s1, ..., 1].add_(Pi)
                 del Pr, Pi
         else:
-            acc[g].add_(_colpass_einsum_body(core, ops, NMBF_BF,
-                                             sg_offs_g[g]))
+            acc[g].add_(_column_partials(core, mode, ops, NMBF_BF, foffs0,
+                                         foffs1, sg_offs_g[g]))
         del NMBF_BF
     return acc
 
 
-def _column_group_finish(core, subgrid_size, acc, sg_offs_g, masks0_g,
+def _column_group_finish(core, mode, subgrid_size, acc, sg_offs_g, masks0_g,
                          masks1_g):
-    """A group's accumulated partials [G, S, xM, xM(,2)] -> finished
-    subgrids [G, S, xA, xA(,2)]: the crop and masks (the finish iFFTs live
-    in the operators), once per group, one column at a time."""
+    """A group's accumulated partials [G, S, xM, xM(,2)] of body `mode` ->
+    finished subgrids [G, S, xA, xA(,2)], once per group, one column at a
+    time (the JAX package's ``_column_group_finish_fn``)."""
     G, S = acc.shape[0], acc.shape[1]
     out = torch.empty((G, S, subgrid_size, subgrid_size) + _tail(core),
                       dtype=acc.dtype, device=acc.device)
     for g in range(G):
-        out[g] = _crop_masked_subgrid(core, acc[g], sg_offs_g[g],
-                                      subgrid_size, masks0_g[g], masks1_g[g])
+        out[g] = _finish_partials(core, mode, acc[g], sg_offs_g[g],
+                                  subgrid_size, masks0_g[g], masks1_g[g])
     return out
 
 
@@ -605,29 +707,34 @@ def _bwd_colpass_operators(core, foffs0, foffs1):
     return E0, E1
 
 
-def _column_pass_bwd(core, facet_size, ops, subgrids, sg_offs, foffs1,
-                     masks1, out):
+def _column_pass_bwd(core, facet_size, mode, ops, subgrids, sg_offs,
+                     foffs0, foffs1, masks1, out):
     """A column's subgrids [S, xA, xA(,2)] -> its finished rows
     [F, m, yB(,2)], written into `out`.
 
-    The per-(facet, subgrid) extract chains collapse into two K = xM
-    products with the adjoint operators: B1 with ``reduce_f=False``
-    (Z_sf = E0_f @ emb_s @ E1_f, the embedded subgrid broadcast over the
-    facets) for the planar backend, or the complex einsum pair, per
-    ``resolve_colpass_bwd``. Then the
-    scatter into the column's [F, m, yN] rows, the axis-1 finish and the
-    facet masks."""
+    Per block of subgrids (`_sblocks`, rebalanced), every facet's
+    contribution block Z_sf through the body `mode`
+    (``resolve_colpass_bwd``): "kernel", B1 with ``reduce_f=False``
+    (Z_sf = E0_f @ emb_s @ E1_f with the adjoint operators `ops`, the
+    embedded subgrid broadcast over the facets); "einsum", the same two
+    K = xM products as einsums; "fft", the per-(subgrid, facet) FFT chain
+    (``parallel.batched._split_subgrids``: prepare, then both extracts,
+    batched over [Sb, F], no operators). Then the scatter into the
+    column's [F, m, yN] rows, block by block, the axis-1 finish and the
+    facet masks (the JAX package's ``_column_pass_bwd_fn``)."""
     p = core._p
     xM = core.xM_size
-    E0, E1 = ops
-    F = E0.shape[0]
-    kernel = resolve_colpass_bwd(core, F) == "kernel"
-    emb = p.wrapped_embed(subgrids, xM, sg_offs[:, 0], -2)
-    emb = p.wrapped_embed(emb, xM, sg_offs[:, 1], -1)  # [S, xM, xM(,2)]
+    if mode != "fft":
+        E0, E1 = ops
+        emb = p.wrapped_embed(subgrids, xM, sg_offs[:, 0], -2)
+        emb = p.wrapped_embed(emb, xM, sg_offs[:, 1], -1)  # [S, xM, xM(,2)]
     acc = None
     for s0, s1 in _sblocks(sg_offs.shape[0]):
-        blk = emb[s0:s1]
-        if kernel:
+        if mode == "fft":
+            Z = _split_subgrids(core, subgrids[s0:s1], sg_offs[s0:s1, 0],
+                                sg_offs[s0:s1, 1], foffs0, foffs1)
+        elif mode == "kernel":
+            blk = emb[s0:s1]
             Zr, Zi = kernels.colpass(
                 E0[..., 0], E0[..., 1], blk[:, None, ..., 0],
                 blk[:, None, ..., 1], E1[..., 0], E1[..., 1],
@@ -636,8 +743,8 @@ def _column_pass_bwd(core, facet_size, ops, subgrids, sg_offs, foffs1,
             Z = torch.stack([Zr, Zi], dim=-1)  # [Sb, F, m, m, 2]
             del Zr, Zi
         else:
-            Y = torch.einsum("fia,sab->sfib", E0, blk)
-            Z = torch.einsum("sfib,fbj->sfij", Y, E1)
+            Y = _ceinsum(core, "fia,sab->sfib", E0, emb[s0:s1])
+            Z = _ceinsum(core, "sfib,fbj->sfij", Y, E1)
             del Y
         part = _bwd_scatter_rows(core, Z, sg_offs[s0:s1])
         acc = part if acc is None else acc.add_(part)
@@ -647,19 +754,20 @@ def _column_pass_bwd(core, facet_size, ops, subgrids, sg_offs, foffs1,
     return out
 
 
-def _column_pass_bwd_group(core, facet_size, ops, subgrids_g, sg_offs_g,
-                           foffs1, masks1):
+def _column_pass_bwd_group(core, facet_size, mode, ops, subgrids_g,
+                           sg_offs_g, foffs0, foffs1, masks1):
     """A group of columns' subgrids [g, S, xA, xA(,2)] -> their rows
-    concatenated along R, [F, g*m, yB(,2)]: the sampled fold's layout,
+    concatenated along R, [F, g*m, yB(,2)]: the sampled folds' layout,
     written in place (no transpose copy). Columns run in sequence."""
     m = core.xM_yN_size
     g = subgrids_g.shape[0]
-    F = ops[0].shape[0]
+    F = foffs0.shape[0]
     out = torch.empty((F, g * m, facet_size) + _tail(core),
                       dtype=subgrids_g.dtype, device=subgrids_g.device)
     for j in range(g):
-        _column_pass_bwd(core, facet_size, ops, subgrids_g[j], sg_offs_g[j],
-                         foffs1, masks1, out[:, j * m:(j + 1) * m])
+        _column_pass_bwd(core, facet_size, mode, ops, subgrids_g[j],
+                         sg_offs_g[j], foffs0, foffs1, masks1,
+                         out[:, j * m:(j + 1) * m])
     return out
 
 
@@ -736,14 +844,270 @@ def _bwd_sampled_fold(core, acc, rows, e0, krows, row0=0):
     return acc
 
 
+# -- FFT backward fold -------------------------------------------------------
+#
+# The same accumulation as the sampled fold, as the adjoint chain: embed
+# each column's rows at its spectral window (``add_to_facet_math``), ONE
+# FFT of size yN along the output axis (``finish_facet_math``), add into
+# the image accumulator. Its cost per fold is F FFTs over the pass-through
+# axis, flat in the number of columns folded. The [F, yN, Cj] spectrum is
+# bounded by chunking the pass-through axis j; the last chunk is clamped
+# to end at the last column and its ``keep`` weight zeroes the columns the
+# previous chunk already folded, so the tiling is exact for any yB (JAX
+# package, streamed.py:1680-1775).
+
+
+def _fft_fold_chunk(core, F, yB) -> int:
+    """The FFT fold's j-chunk width: its spectrum [F, yN, Cj(,2)] near
+    ``SWIFTLY_FFT_FOLD_CHUNK_MB`` (default 96), rounded down to a multiple
+    of 128 columns where that leaves any."""
+    target = float(os.environ.get("SWIFTLY_FFT_FOLD_CHUNK_MB", "96")) * 1e6
+    dsize = _np_dtype(core).itemsize * (2 if _planar(core) else 1)
+    per_col = max(1, F * core.yN_size * dsize)
+    C = int(target // per_col)
+    if C >= yB:
+        return yB
+    return max(1, (C // 128) * 128 or C)
+
+
+def _bwd_fft_fold(core, acc, rows, col_offs0, foffs0):
+    """``acc [F, yB, yB(,2)] +=`` the FFT fold of the concatenated rows
+    [F, g*m, yB(,2)] of the columns at `col_offs0`, in place, chunk by
+    chunk of the pass-through axis; `foffs0` [F] are the facets' axis-0
+    offsets. The accumulator contract is the sampled fold's (Fb applied,
+    the axis-0 masks left to the finish)."""
+    p = core._p
+    m, yN = core.xM_yN_size, core.yN_size
+    F, yB = acc.shape[0], acc.shape[1]
+    Cj = min(_fft_fold_chunk(core, F, yB), yB)
+    for j0 in range(0, yB, Cj):
+        start = min(j0, yB - Cj)
+        spec = acc.new_zeros((F, yN, Cj) + _tail(core))
+        for k, off0 in enumerate(col_offs0):
+            _fold_into(core, spec, rows[:, k * m:(k + 1) * m, start:start + Cj],
+                       int(off0), -2)
+        out = finish_facet_math(p, core._Fb, yB, spec, foffs0, -2)
+        del spec
+        j = start + torch.arange(Cj, device=acc.device)
+        keep = (j >= j0).to(core.real_dtype)
+        acc[:, :, start:start + Cj] += out * p.broadcast_along(keep, 3, 2)
+    return acc
+
+
+# -- Cooley-Tukey backward fold -----------------------------------------------
+#
+# The sampled fold out[f, i, j] = fb[i] sum_r rows2[f, r, j] W^{-kt_r i}
+# (W = e^{2 pi i/yN}, rows2 the rows with the per-facet phase W^{-e0 kt}
+# applied) factored over kt_r = Q*a_r + b_r and i = q*P + p (P = yN/Q):
+#
+#   W^{-kt i} = e^{-2 pi i a p/P} * e^{-2 pi i b p/yN} * e^{-2 pi i b q/Q}
+#
+# gives three dense stages: the rows grouped by b-lane (a fixed gather: a
+# column's m consecutive kt values hit each lane ceil(m/Q) times at most)
+# contracted with their a-phases, G[b, p, j]; the twiddle
+# e^{-2 pi i b p/yN}; and one [q, b] DFT product, out[q*P + p, j]. Exact
+# index algebra; plain products (JAX package, streamed.py:1800-2025).
+
+
+def _ct_fold_tables(core, col_offs0):
+    """The CT fold's index tables for one fold's columns, in exact int64
+    host arithmetic: (Q, P, kmax, r_idx, a_vals). ``r_idx[c, b, k]`` is the
+    row (into the g*m concatenated rows) of the k-th row of column c in
+    lane b (0 for pads), ``a_vals[c, b, k]`` its a-value in [0, P), -1 for
+    pads (their contributions are masked)."""
+    yN = core.yN_size
+    m = core.xM_yN_size
+    Q = math.gcd(128, yN)
+    P = yN // Q
+    kmax = -(-m // Q) if m >= Q else 1
+    g = len(col_offs0)
+    kt = sampled_row_indices(core, col_offs0)  # [g*m] int64
+    r_idx = np.zeros((g, Q, kmax), dtype=np.int64)
+    a_vals = np.full((g, Q, kmax), -1, dtype=np.int64)
+    fill = np.zeros((g, Q), dtype=np.int64)
+    for c in range(g):
+        for rp in range(m):
+            r = c * m + rp
+            b = int(kt[r] % Q)
+            k = fill[c, b]
+            r_idx[c, b, k] = r
+            a_vals[c, b, k] = int((kt[r] // Q) % P)
+            fill[c, b] += 1
+    return Q, P, kmax, r_idx, a_vals
+
+
+def _ct_fold_width(yB, all_planes_bytes) -> int:
+    """The CT fold's j-window: the largest divisor of yB that keeps all
+    facets' stage planes near ``SWIFTLY_CT_FOLD_MB`` (default 4096)."""
+    target = float(os.environ.get("SWIFTLY_CT_FOLD_MB", "4096")) * 1e6
+    want = max(1, int(np.ceil(all_planes_bytes / target)))
+    for n in range(want, yB + 1):
+        if yB % n == 0:
+            return yB // n
+    return 1
+
+
+def _bwd_ct_fold(core, acc, rows, e0, krows, col_offs0):
+    """``acc [F, yB, yB(,2)] +=`` the CT-factored adjoint sampled fold of
+    the concatenated rows [F, g*m, yB(,2)] of the columns at `col_offs0`,
+    in place, one j-window and one facet at a time. `e0` [F] are the
+    per-facet embedding shifts and `krows` [g*m] the rows' centred
+    spectral indices (as for the sampled fold). Every phase is a lookup in
+    the float64 table of the yN angles (``_sampled_phases``), at residues
+    reduced exactly (``_mulmod``); both backends run the same real
+    products on (re, im) planes."""
+    yN = core.yN_size
+    F, yB = acc.shape[0], acc.shape[1]
+    dev = acc.device
+    dt = core.real_dtype
+    Q, P, kmax, r_idx, a_vals = _ct_fold_tables(core, col_offs0)
+    g = r_idx.shape[0]
+    itemsize = _np_dtype(core).itemsize
+    planes = 2 * F * yN * yB * (itemsize if _planar(core) else itemsize // 2)
+    W = _ct_fold_width(yB, planes)
+    Qi = -(-yB // P)  # output rows i = q*P + p, q < Qi
+
+    def phases(residues):  # e^{-2 pi i residues/yN} as (re, im)
+        c, s_ = _sampled_phases(core, residues, dt)
+        return c, -s_
+
+    p_cos, p_sin = _sampled_phases(
+        core, _mulmod(e0[:, None], krows[None, :], yN), dt)  # [F, R]
+    a = torch.as_tensor(a_vals, device=dev)
+    pj = torch.arange(P, dtype=torch.int64, device=dev)
+    bj = torch.arange(Q, dtype=torch.int64, device=dev)
+    qj = torch.arange(Qi, dtype=torch.int64, device=dev)
+    # stage 1: e^{-2 pi i a p/P} = W^{-Q (a p mod P)}, zero on the pads
+    T_re, T_im = phases(Q * torch.remainder(a.clamp(min=0)[..., None] * pj, P))
+    pad = (a >= 0).to(dt)[..., None]
+    T_re, T_im = T_re * pad, T_im * pad  # [g, Q, kmax, P]
+    # stage 2: e^{-2 pi i b p/yN} (b p < Q P = yN)
+    W2_re, W2_im = phases(bj[:, None] * pj[None, :])  # [Q, P]
+    W2_re, W2_im = W2_re[..., None], W2_im[..., None]
+    # stage 3: e^{-2 pi i q b/Q} = W^{-P (q b mod Q)}
+    D_re, D_im = phases(P * torch.remainder(qj[:, None] * bj[None, :], Q))
+    fb = core._p.extract_mid(core._Fb, yB, 0).to(dt)[:, None]  # no 1/yN
+    flat = torch.as_tensor(r_idx.reshape(-1), device=dev)
+
+    def cmul(spec, ar, ai, br, bi):
+        return (torch.einsum(spec, ar, br) - torch.einsum(spec, ai, bi),
+                torch.einsum(spec, ar, bi) + torch.einsum(spec, ai, br))
+
+    for j0 in range(0, yB, W):
+        for f in range(F):
+            blk = rows[f, :, j0:j0 + W]  # [R, W(,2)]
+            if _planar(core):
+                Rr, Ri = blk[..., 0], blk[..., 1]
+            else:
+                Rr, Ri = blk.real, blk.imag
+            pc, ps = p_cos[f, :, None], p_sin[f, :, None]
+            # rows * W^{-e0_f kt_r}, gathered into lanes [g, Q, kmax, W]
+            Gr = (Rr * pc + Ri * ps)[flat].reshape(g, Q, kmax, W)
+            Gi = (Ri * pc - Rr * ps)[flat].reshape(g, Q, kmax, W)
+            G_re, G_im = cmul("cbkp,cbkj->bpj", T_re, T_im, Gr, Gi)
+            del Gr, Gi
+            G2_re = G_re * W2_re - G_im * W2_im
+            G2_im = G_im * W2_re + G_re * W2_im
+            del G_re, G_im
+            O_re, O_im = cmul("qb,bpj->qpj", D_re, D_im, G2_re, G2_im)
+            del G2_re, G2_im
+            O_re = O_re.reshape(Qi * P, W)[:yB] * fb
+            O_im = O_im.reshape(Qi * P, W)[:yB] * fb
+            cur = acc[f, :, j0:j0 + W]
+            if _planar(core):
+                cur[..., 0] += O_re
+                cur[..., 1] += O_im
+            else:
+                cur += torch.complex(O_re, O_im)
+            del O_re, O_im
+    return acc
+
+
+# -- the host/device residencies' FFT facet passes ---------------------------
+
+
+def _facet_pass_fwd(core, block, foffs0, col_offs0, out):
+    """A facet block [F, yB, Cb(,2)] of all facets' columns -> every
+    subgrid column's contribution rows, written into `out`
+    [K, F, m, Cb(,2)]: prepared along axis 0 (Fb window, embed, an iFFT of
+    size yN) with the facets' offsets `foffs0` [F], then each column's
+    rows extracted at its offset (the JAX package's
+    ``_facet_pass_fwd_fn``)."""
+    p = core._p
+    prep = prepare_facet_math(p, core._Fb, core.yN_size, block, foffs0, -2)
+    for k, off0 in enumerate(col_offs0):
+        out[k] = extract_from_facet_math(p, core.xM_yN_size, core.N,
+                                         core.yN_size, prep, int(off0), -2)
+    return out
+
+
+def _facet_pass_bwd(core, facet_size, blocks, col_offs0, foffs0, masks0):
+    """The columns' rows, one block [F, m, Cb(,2)] per column offset in
+    `col_offs0` -> the facets' block [F, yB, Cb(,2)]: each embedded at its
+    spectral window and summed in order, then finished along axis 0 (an
+    FFT of size yN, the crop, Fb) and masked (the JAX package's
+    ``_facet_pass_bwd_fn``)."""
+    p = core._p
+    acc = None
+    for blk, off0 in zip(blocks, col_offs0):
+        if acc is None:
+            acc = blk.new_zeros((blk.shape[0], core.yN_size) +
+                                tuple(blk.shape[2:]))
+        _fold_into(core, acc, blk, int(off0), -2)
+    out = finish_facet_math(p, core._Fb, facet_size, acc, foffs0, -2)
+    return _mask_along(p, out, masks0, -2)
+
+
+class _HostPipe:
+    """A two-deep device-to-host pipeline: `put` starts a non-blocking
+    copy of a device tensor into one of two pinned staging buffers and then
+    hands the previous one, once its copy has landed (a CUDA event), to
+    ``consume(tag, host_tensor)``. A staging buffer is written again two
+    puts later, after the host consumed it. On the CPU the copies are
+    plain."""
+
+    def __init__(self, consume, cuda):
+        self._consume = consume
+        self._cuda = cuda
+        self._stage = [None, None]
+        self._pending = None
+        self._n = 0
+
+    def put(self, tag, dev):
+        i = self._n % 2
+        self._n += 1
+        st = self._stage[i]
+        if st is None or st.shape != dev.shape:
+            st = self._stage[i] = torch.empty(dev.shape, dtype=dev.dtype,
+                                              pin_memory=self._cuda)
+        st.copy_(dev, non_blocking=self._cuda)
+        ev = None
+        if self._cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev.device))
+        prev, self._pending = self._pending, (tag, st, ev)
+        if prev is not None:
+            self._land(prev)
+
+    def _land(self, item):
+        tag, st, ev = item
+        if ev is not None:
+            ev.synchronize()
+        self._consume(tag, st)
+
+    def flush(self):
+        if self._pending is not None:
+            item, self._pending = self._pending, None
+            self._land(item)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
 
 
 class StreamedForward:
-    """Facets -> subgrids through the sampled DFT, the facets resident on
-    the device or streamed to it in slabs.
+    """Facets -> subgrids with bounded device residency.
 
     :param swiftly_config: SwiftlyConfig (device backend: "torch" or
         "planar")
@@ -751,24 +1115,28 @@ class StreamedForward:
         is a numpy array or tensor (complex, planar, or a real plane), a
         `SparseRealFacet` (``make_sparse_facet``), or a callable returning
         one (built when the executor is made, one facet at a time).
-        Sparse facets stay sparse for the planar backend, which
-        synthesises them on the device, when every facet is sparse; else
-        they are densified.
-    :param col_block: unused; the reference's signature (the block width
-        of the host residency, ROADMAP A5)
-    :param residency: "device" (the only one ported): each column group's
-        rows are a sampled DFT of the facets on the device. "host" is
-        ROADMAP A5.
-    :param col_group: columns per sampled group (None: the largest that
-        fits the device memory budget, ``col_group_for_budget`` or, for
-        facet slabs, ``grouped_col_group_for_budget``)
-    :param facet_group: facets on the device at once. None: all of them if
-        the stack fits the budget, else slabs of 1. Below the facet count,
-        each column group streams the facets in slabs of `facet_group`.
+        Sparse facets stay sparse for the planar backend with
+        ``residency="device"``, which synthesises them on the device, when
+        every facet is sparse; else they are densified.
+    :param col_block: ("host") facet columns per block of the FFT facet
+        pass, the device working-set knob
+    :param residency: "host" (default): the FFT facet pass into a host
+        row buffer, each column's rows uploaded for its column pass (scales
+        to any N whose rows fit host memory); "device": each column
+        group's rows are a sampled DFT of the facets on the device, with
+        no row buffer at all (the facets resident, or streamed in slabs)
+    :param col_group: ("device") columns per sampled group (None: the
+        largest that fits the device memory budget,
+        ``col_group_for_budget`` or, for facet slabs,
+        ``grouped_col_group_for_budget``)
+    :param facet_group: ("device") facets on the device at once. None: all
+        of them if the stack fits the budget, else slabs of 1. Below the
+        facet count, each column group streams the facets in slabs of
+        `facet_group`.
     """
 
     def __init__(self, swiftly_config, facet_tasks, col_block=512,
-                 residency="device", col_group=None, facet_group=None):
+                 residency="host", col_group=None, facet_group=None):
         from ..ops.oracle import SparseRealFacet
 
         if residency == "sampled":
@@ -776,28 +1144,22 @@ class StreamedForward:
                 "residency='sampled' is a StreamedBackward strategy; the "
                 "forward equivalent is residency='device' (sampled DFT)"
             )
-        if residency == "host":
-            raise NotImplementedError(
-                "StreamedForward(residency='host'), the FFT facet pass with "
-                "a host row buffer, is not ported yet (ROADMAP A5); use "
-                "residency='device'"
-            )
-        if residency != "device":
-            raise ValueError(f"residency must be host|device, got {residency}")
         self._base = _StreamedBase(
-            swiftly_config, [cfg for cfg, _ in facet_tasks])
+            swiftly_config, [cfg for cfg, _ in facet_tasks], col_block,
+            residency)
         core = self.core = self._base.core
         self.stack = self._base.stack
         # Facet data held on the host in device layout, one array per facet.
         # All-real facets (planar) are kept as single real planes: half the
         # host memory and upload, and the sampled pass skips the zero
         # imaginary plane's products. Sparse facets stay sparse where the
-        # device synthesises them (the planar backend).
+        # device synthesises them (the planar backend's sampled paths).
+        sparse_ok = _planar(core) and residency == "device"
         store, real_flags, sparse_flags = [], [], []
         for _, d in facet_tasks:
             raw = d() if callable(d) else d
             if isinstance(raw, SparseRealFacet):
-                if _planar(core):
+                if sparse_ok:
                     store.append(raw)
                     real_flags.append(True)
                     sparse_flags.append(True)
@@ -829,6 +1191,9 @@ class StreamedForward:
                     store[i] = pair
         self._facet_data = store
         self._slab_pixels = {}  # (i0, i1) -> device (flat index, value)
+        self._nmbf = None  # ("host") the row buffer [K, F, m, yB_pad(,2)]
+        self._col_index = None  # ("host") off0 -> its index in the buffer
+        self._pass_stats = None  # ("host") the facet pass's seconds, bytes
         self.col_group = col_group
         self.facet_group = facet_group
         self._dev_facets = None
@@ -983,11 +1348,10 @@ class StreamedForward:
             device=dev)
         col_offs0 = list(groups)
         G = self.col_group or self._auto_col_group(len(col_offs0))
-        self.last_plan = {
-            "mode": "resident", "col_group": G,
-            "colpass": resolve_colpass(core, base.stack.n_total),
-        }
-        ops = self._operators()
+        colpass = resolve_colpass(core, base.stack.n_total)
+        self.last_plan = {"mode": "resident", "col_group": G,
+                          "colpass": colpass}
+        ops = self._operators() if colpass != "fft" else None
         inflight = FlightQueue(1)
         for g0 in range(0, len(col_offs0), G):
             grp = col_offs0[g0:g0 + G]
@@ -995,8 +1359,8 @@ class StreamedForward:
             buf = _facet_pass_sampled(core, self._dev_facets, e0, krows,
                                       self._facets_real)
             out_g = _column_pass_fwd_group(
-                core, subgrid_size, ops, buf, base._foffs1, sg_offs_g, m0_g,
-                m1_g)  # [G, S, xA, xA(,2)]
+                core, subgrid_size, colpass, ops, buf, base._foffs0,
+                base._foffs1, sg_offs_g, m0_g, m1_g)  # [G, S, xA, xA(,2)]
             del buf
             inflight.admit([out_g])
             if whole_groups:
@@ -1079,7 +1443,8 @@ class StreamedForward:
         e0 = torch.as_tensor(offs0 - yB // 2, device=dev)
         foffs0 = torch.as_tensor(offs0, device=dev)
         foffs1 = torch.as_tensor(offs1, device=dev)
-        A0, B1 = _colpass_operators(core, foffs0, foffs1)
+        if colpass != "fft":
+            A0, B1 = _colpass_operators(core, foffs0, foffs1)
 
         # planar facets: real planes, or (re, im) pairs; complex facets
         n_planes = 2 if (_planar(core) and not self._facets_real) else 1
@@ -1169,7 +1534,8 @@ class StreamedForward:
                     buf = _facet_pass_sampled(core, slab, e0[sl], krows,
                                               self._facets_real)
                     del slab
-                    _column_slab_step(core, (A0[sl], B1[sl]), buf,
+                    ops = None if colpass == "fft" else (A0[sl], B1[sl])
+                    _column_slab_step(core, colpass, ops, buf, foffs0[sl],
                                       foffs1[sl], sg_offs_g, acc)
                     del buf
                     if cuda and not self._facets_sparse:
@@ -1177,7 +1543,7 @@ class StreamedForward:
                         ev.record(torch.cuda.current_stream(dev))
                         stepped[d] = ev
                     d += 1
-                out_g = _column_group_finish(core, subgrid_size, acc,
+                out_g = _column_group_finish(core, colpass, subgrid_size, acc,
                                              sg_offs_g, m0_g, m1_g)
                 del acc
                 inflight.admit([out_g])
@@ -1190,18 +1556,123 @@ class StreamedForward:
             if prefetch is not None:
                 prefetch.shutdown(wait=True, cancel_futures=True)
 
+    # -- host residency: the FFT facet pass --------------------------------
+
+    def _facet_block(self, j0, out):
+        """Facet columns [j0, j0 + Cb) of every facet into the host tensor
+        `out` [F, yB, Cb(,2)] (zero past the facet's edge): the real planes
+        alone for real facets on the planar backend (the device adds the
+        zero imaginary plane), else the facets' device layout."""
+        yB = self._base.stack.size
+        j1 = min(j0 + self._base.col_block, yB)
+        for i, data in enumerate(self._facet_data):
+            out[i, :, :j1 - j0].copy_(torch.from_numpy(data[:, j0:j1]))
+            out[i, :, j1 - j0:].zero_()
+        return out
+
+    def _build_nmbf(self, col_offs0):
+        """The FFT facet pass into the host row buffer: per block of
+        ``col_block`` facet columns, an upload, the pass on the device
+        (`_facet_pass_fwd`) and the rows [K, F, m, Cb] back into buffer
+        columns [j0, j0 + Cb), two deep (`_HostPipe`)."""
+        base = self._base
+        core = base.core
+        dev = core.device
+        cuda = dev.type == "cuda"
+        stack = base.stack
+        F, yB, Cb = len(stack), stack.size, base.col_block
+        t0 = time.perf_counter()
+        buf = base._alloc_buffer(len(col_offs0))
+        real = self._facets_real and _planar(core)
+        in_shape = (F, yB, Cb) + (() if real else _tail(core))
+        in_dtype = core.real_dtype if real else core.dtype
+        # two upload stages: block b's is written again at block b + 2,
+        # after block b's rows landed on the host (the pipe's event), so
+        # its upload, which came before them on the stream, is done
+        stages = [torch.empty(in_shape, dtype=in_dtype, pin_memory=cuda)
+                  for _ in range(2)]
+        out = None
+        h2d = d2h = 0
+
+        def land(j0, host):
+            buf[:, :, :, j0:j0 + Cb] = host
+
+        pipe = _HostPipe(land, cuda)
+        for b, j0 in enumerate(range(0, base._yB_pad, Cb)):
+            block = self._facet_block(j0, stages[b % 2])
+            h2d += block.numel() * block.element_size()
+            block = block.to(dev, non_blocking=cuda)
+            if real:
+                planar = torch.zeros(block.shape + (2,), dtype=block.dtype,
+                                     device=dev)
+                planar[..., 0] = block
+                block = planar
+            if out is None:
+                out = torch.empty((len(col_offs0), F, core.xM_yN_size, Cb) +
+                                  _tail(core), dtype=core.dtype, device=dev)
+            _facet_pass_fwd(core, block, base._foffs0, col_offs0, out)
+            del block
+            d2h += out.numel() * out.element_size()
+            pipe.put(j0, out)
+        pipe.flush()
+        self._nmbf = buf
+        self._col_index = {int(o): k for k, o in enumerate(col_offs0)}
+        return {"facet_pass_s": time.perf_counter() - t0,
+                "facet_h2d_bytes": h2d, "facet_d2h_bytes": d2h}
+
+    def _host_columns(self, groups, subgrid_size):
+        """The host residency's stream: the FFT facet pass (once per
+        executor and column set), then per column its rows
+        [F, m, yB_pad] uploaded from the host buffer and its column pass
+        (the body ``resolve_colpass`` picks), one column at a time."""
+        from ..api import FlightQueue
+
+        base = self._base
+        core = base.core
+        dev = core.device
+        yB = base.stack.size
+        col_offs0 = list(groups)
+        if self._nmbf is None or any(int(o) not in self._col_index
+                                     for o in col_offs0):
+            self._pass_stats = self._build_nmbf(col_offs0)
+        colpass = resolve_colpass(core, base.stack.n_total)
+        ops = self._operators() if colpass != "fft" else None
+        plan = self.last_plan = dict(
+            self._pass_stats, mode="host", col_block=base.col_block,
+            n_blocks=base._n_blocks, colpass=colpass, column_uploads=0,
+            column_upload_bytes=0)
+        inflight = FlightQueue(2)
+        for off0 in col_offs0:
+            host = self._nmbf[self._col_index[int(off0)]]
+            NMBF = host.to(dev, non_blocking=dev.type == "cuda")[:, :, :yB]
+            plan["column_uploads"] += 1
+            plan["column_upload_bytes"] += host.numel() * host.element_size()
+            _, sg_offs, m0, m1 = _group_tensors(core, groups, [off0])
+            out = _column_pass_fwd(core, subgrid_size, colpass, ops, NMBF,
+                                   base._foffs0, base._foffs1, sg_offs[0],
+                                   m0[0], m1[0])
+            del NMBF
+            inflight.admit([out])
+            yield _real_items(groups[off0]), out
+
     def stream_column_groups(self, subgrid_configs, spill=None):
-        """Yield (per_col_items, group_subgrids) per column group:
-        `per_col_items` holds one list per column of
-        [(input_index, SubgridConfig), ...], `group_subgrids` the group's
-        device tensor [G, S, xA, xA(,2)] (rows past a column's items are
-        its zero-mask padding). For consumers that take a whole group at
-        once (``StreamedBackward.add_subgrid_group``).
+        """Yield (per_col_items, group_subgrids) per column group of the
+        sampled paths (``residency="device"``): `per_col_items` holds one
+        list per column of [(input_index, SubgridConfig), ...],
+        `group_subgrids` the group's device tensor [G, S, xA, xA(,2)]
+        (rows past a column's items are its zero-mask padding). For
+        consumers that take a whole group at once
+        (``StreamedBackward.add_subgrid_group``).
 
         :param spill: a spill cache to record the stream into and replay
             it from; recording and replaying through `spill=` is not
             ported yet (ROADMAP A6), so it must be None
         """
+        if self._base.residency != "device":
+            raise ValueError(
+                "stream_column_groups is a sampled-path (residency="
+                "'device') API"
+            )
         if spill is not None:
             raise NotImplementedError(
                 "recording and replaying the column stream through spill= "
@@ -1220,7 +1691,11 @@ class StreamedForward:
         subgrid_configs = list(subgrid_configs)
         groups = _group_full_columns(subgrid_configs)
         size = subgrid_configs[0].size
-        for items, out in self._sampled_generator(groups, size):
+        if self._base.residency == "device":
+            gen = self._sampled_generator(groups, size)
+        else:
+            gen = self._host_columns(groups, size)
+        for items, out in gen:
             yield items, (out if device_arrays else out.cpu().numpy())
 
     def all_subgrids(self, subgrid_configs):
@@ -1517,58 +1992,62 @@ def feed_backward_passes(forward, subgrid_configs, backwards, spill=None,
 
 
 class StreamedBackward:
-    """Subgrids -> facets, accumulated in an image-space facet stack on
-    the device.
+    """Subgrids -> facets with bounded device residency.
 
     Subgrids are fed column-grouped in any order; repeated columns
     accumulate (every fold is linear).
 
-    :param col_block: unused; the reference's signature (ROADMAP A6)
-    :param residency: "sampled" (the only one ported): each column's rows
-        fold straight into a [F, yB, yB(,2)] device accumulator through
-        the adjoint sampled DFT, so the device state is the size of the
-        output. "host" and "device" are ROADMAP A6.
-    :param fold_group: columns folded per fold (its contraction depth is
-        fold_group*m rows)
-    :param row_slab: optional (r0, r1): the accumulator covers only the
-        facets' output rows [r0, r1), [F, r1 - r0, yB(,2)], so a facet
-        stack whose whole accumulator exceeds the device splits into row
-        slabs, each a backward over the same subgrid stream (one forward
-        feeds them all through ``feed_backward_passes``). The finished
-        slabs, concatenated along axis 1, are the whole-facet backward.
+    :param col_block: ("host", "device") facet columns per block of the
+        backward FFT facet pass in `finish`
+    :param residency: "host" (default) keeps each column's rows
+        [F, m, yB_pad(,2)], summed per column offset, in host memory;
+        "device" keeps them on the device (both hold K*F*m*yB values, the
+        whole cover's rows, and `finish` streams them through the backward
+        FFT facet pass); "sampled" folds each column's rows straight into
+        a [F, yB, yB(,2)] device accumulator through the fold
+        ``resolve_fold_mode`` picks (``SWIFTLY_FOLD``: the adjoint sampled
+        DFT, the FFT fold or the CT fold), so the device state is the size
+        of the output
+    :param fold_group: ("sampled") columns folded per fold (its
+        contraction depth is fold_group*m rows)
+    :param row_slab: ("sampled", sampled fold) optional (r0, r1): the
+        accumulator covers only the facets' output rows [r0, r1),
+        [F, r1 - r0, yB(,2)], so a facet stack whose whole accumulator
+        exceeds the device splits into row slabs, each a backward over the
+        same subgrid stream (one forward feeds them all through
+        ``feed_backward_passes``). The finished slabs, concatenated along
+        axis 1, are the whole-facet backward.
     """
 
     def __init__(self, swiftly_config, facet_configs, col_block=512,
-                 residency="sampled", fold_group=4, row_slab=None):
+                 residency="host", fold_group=4, row_slab=None):
         from ..api import FlightQueue
 
-        if residency not in ("host", "device", "sampled"):
-            raise ValueError(
-                f"residency must be host|device|sampled, got {residency}"
-            )
-        if row_slab is not None and residency != "sampled":
-            raise ValueError("row_slab requires residency='sampled'")
-        if residency != "sampled":
-            raise NotImplementedError(
-                f"StreamedBackward(residency={residency!r}), the column "
-                "row buffer with the FFT facet pass, is not ported yet "
-                "(ROADMAP A6); use residency='sampled'"
-            )
-        self._base = _StreamedBase(swiftly_config, facet_configs)
+        self._base = _StreamedBase(swiftly_config, facet_configs, col_block,
+                                   residency)
         self.core = self._base.core
         self.stack = self._base.stack
+        self._naf = {}  # ("host", "device") off0 -> rows [F, m, yB_pad(,2)]
+        self._fold_mode = resolve_fold_mode()  # sampled | ct | fft
         self._row_slab = None
         if row_slab is not None:
             r0, r1 = int(row_slab[0]), int(row_slab[1])
             yB = self.stack.size
+            if residency != "sampled":
+                raise ValueError("row_slab requires residency='sampled'")
+            if self._fold_mode != "sampled":
+                raise ValueError(
+                    "row_slab requires the sampled fold body "
+                    f"(SWIFTLY_FOLD=sampled|auto, got {self._fold_mode!r})"
+                )
             if not 0 <= r0 < r1 <= yB:
                 raise ValueError(
                     f"row_slab {(r0, r1)} outside the facet rows [0, {yB})"
                 )
             self._row_slab = (r0, r1)
-        self._acc = None  # device [F, r1 - r0, yB(,2)] accumulator
+        self._acc = None  # ("sampled") device [F, r1 - r0, yB(,2)]
         self._fold_group = max(1, int(fold_group))
-        self._pending_rows = []  # [(off0, rows [F, m, yB(,2)])]
+        self._pending_rows = []  # ("sampled") [(off0, rows [F, m, yB(,2)])]
         self._ops = None
         self._e0 = None
         # depth-2 in-flight pipelines (CUDA events): folds, and column
@@ -1579,7 +2058,11 @@ class StreamedBackward:
         # (off0, off1) of every folded subgrid
         self.processed = []
 
-    def _operators(self):
+    def _operators(self, mode):
+        """The adjoint operators of the operator bodies (None for the FFT
+        chain, which takes none)."""
+        if mode == "fft":
+            return None
         if self._ops is None:
             self._ops = _bwd_colpass_operators(self.core, self._base._foffs0,
                                                self._base._foffs1)
@@ -1600,7 +2083,7 @@ class StreamedBackward:
                                device=self.core.device)
 
     def add_subgrids(self, tasks):
-        """Fold (SubgridConfig, subgrid_data) pairs into the accumulator."""
+        """Fold (SubgridConfig, subgrid_data) pairs into the accumulators."""
         if self._finished:
             raise RuntimeError("finish() was already called")
         groups = {}
@@ -1627,20 +2110,37 @@ class StreamedBackward:
             raise ValueError(
                 f"add_subgrid_stack takes ONE column, got offsets {off0s}"
             )
-        off0 = off0s.pop()
+        key = int(off0s.pop())
         yB = base.stack.size
         m = core.xM_yN_size
         subgrids = self._device_subgrids(subgrids)
         sg_offs = self._offsets([(sg.off0, sg.off1) for sg in sg_configs])
-        rows = torch.empty((len(base.stack), m, yB) + _tail(core),
-                           dtype=subgrids.dtype, device=subgrids.device)
-        _column_pass_bwd(core, yB, self._operators(), subgrids, sg_offs,
-                         base._foffs1, base._masks1_dev, rows)
-        self._rows_inflight.admit([rows])
-        self._pending_rows.append((int(off0), rows))
-        if len(self._pending_rows) >= self._fold_group:
-            self._flush_folds()
+        mode = resolve_colpass_bwd(core, len(base.stack))
+        sampled = base.residency == "sampled"
+        # the kept residencies' rows carry zero pad columns to yB_pad
+        width = yB if sampled else base._yB_pad
+        alloc = torch.empty if width == yB else torch.zeros
+        rows = alloc((len(base.stack), m, width) + _tail(core),
+                     dtype=subgrids.dtype, device=subgrids.device)
+        _column_pass_bwd(core, yB, mode, self._operators(mode), subgrids,
+                         sg_offs, base._foffs0, base._foffs1,
+                         base._masks1_dev, rows[:, :, :yB])
         self.processed.extend((sg.off0, sg.off1) for sg in sg_configs)
+        if sampled:
+            self._rows_inflight.admit([rows])
+            self._pending_rows.append((key, rows))
+            if len(self._pending_rows) >= self._fold_group:
+                self._flush_folds()
+        elif base.residency == "device":
+            prev = self._naf.get(key)
+            self._naf[key] = rows if prev is None else prev.add_(rows)
+            self._rows_inflight.admit([self._naf[key]])
+        else:
+            host = rows.cpu()
+            if key in self._naf:
+                self._naf[key].add_(host)
+            else:
+                self._naf[key] = host
 
     def _ensure_acc(self):
         base = self._base
@@ -1653,9 +2153,10 @@ class StreamedBackward:
             )
 
     def _fold_rows(self, offs, rows_cat):
-        """One adjoint sampled fold of concatenated column rows
-        [F, P*m, yB(,2)] into the image-space accumulator: kernel B2 or
-        the complex einsum fold, per ``resolve_fold_kernel``."""
+        """One fold of concatenated column rows [F, P*m, yB(,2)] into the
+        image-space accumulator, through the fold ``resolve_fold_mode``
+        picked: the adjoint sampled fold (kernel B2 or the complex einsum
+        fold, per ``resolve_fold_kernel``), the FFT fold or the CT fold."""
         base = self._base
         core = base.core
         yB = base.stack.size
@@ -1664,10 +2165,16 @@ class StreamedBackward:
             self._e0 = torch.as_tensor(
                 (np.asarray(base.stack.offs0) - yB // 2).astype(np.int64),
                 device=core.device)
-        krows = torch.as_tensor(sampled_row_indices(core, offs),
-                                device=core.device)
-        _bwd_sampled_fold(core, self._acc, rows_cat, self._e0, krows,
-                          row0=(self._row_slab or (0, 0))[0])
+        if self._fold_mode == "fft":
+            _bwd_fft_fold(core, self._acc, rows_cat, offs, base._foffs0)
+        else:
+            krows = torch.as_tensor(sampled_row_indices(core, offs),
+                                    device=core.device)
+            if self._fold_mode == "ct":
+                _bwd_ct_fold(core, self._acc, rows_cat, self._e0, krows, offs)
+            else:
+                _bwd_sampled_fold(core, self._acc, rows_cat, self._e0, krows,
+                                  row0=(self._row_slab or (0, 0))[0])
         self._fold_inflight.admit([self._acc])
 
     def _flush_folds(self):
@@ -1685,8 +2192,8 @@ class StreamedBackward:
         self._fold_rows(offs, rows_cat)
 
     def add_subgrid_group(self, col_sg_lists, subgrids_group):
-        """Fold a whole forward column group: its column passes and one
-        fold per ``fold_group`` columns.
+        """("sampled") fold a whole forward column group: its column
+        passes and one fold per ``fold_group`` columns.
 
         :param col_sg_lists: per-column lists of SubgridConfigs (one shared
             off0 each). A column may hold fewer configs than the group's S
@@ -1698,6 +2205,10 @@ class StreamedBackward:
         if self._finished:
             raise RuntimeError("finish() was already called")
         base = self._base
+        if base.residency != "sampled":
+            raise ValueError(
+                "add_subgrid_group requires residency='sampled'"
+            )
         core = base.core
         yB = base.stack.size
         subgrids_group = self._device_subgrids(subgrids_group)
@@ -1718,11 +2229,13 @@ class StreamedBackward:
         self._flush_folds()
         sg_offs = torch.as_tensor(np.asarray(sg_offs, np.int64),
                                   device=core.device)
+        mode = resolve_colpass_bwd(core, len(base.stack))
         cap = self._fold_group
         for j in range(0, len(offs), cap):
             rows_cat = _column_pass_bwd_group(
-                core, yB, self._operators(), subgrids_group[j:j + cap],
-                sg_offs[j:j + cap], base._foffs1, base._masks1_dev,
+                core, yB, mode, self._operators(mode),
+                subgrids_group[j:j + cap], sg_offs[j:j + cap], base._foffs0,
+                base._foffs1, base._masks1_dev,
             )  # [F, g*m, yB(,2)]
             self._fold_rows(offs[j:j + cap], rows_cat)
             del rows_cat
@@ -1730,9 +2243,11 @@ class StreamedBackward:
             self.processed.extend((sg.off0, sg.off1) for sg in col)
 
     def finish_device(self):
-        """The finished facet stack [F, yB, yB(,2)] as a device tensor (the
-        accumulator itself, masked in place); with ``row_slab`` its rows
-        [F, r1 - r0, yB(,2)]."""
+        """("sampled") the finished facet stack [F, yB, yB(,2)] as a device
+        tensor (the accumulator itself, masked in place); with
+        ``row_slab`` its rows [F, r1 - r0, yB(,2)]."""
+        if self._base.residency != "sampled":
+            raise ValueError("finish_device() requires residency='sampled'")
         if self._finished:
             raise RuntimeError("finish() was already called")
         self._flush_folds()
@@ -1753,5 +2268,47 @@ class StreamedBackward:
 
     def finish(self):
         """The finished facet stack [F, yB, yB(,2)] (or its row slab) as a
-        host array."""
-        return self.finish_device()[: self.stack.n_real].cpu().numpy()
+        host array. For the host and device residencies, the backward FFT
+        facet pass over blocks of ``col_block`` facet columns of every
+        column's rows (`_facet_pass_bwd`), each block's facets back to the
+        host two deep (`_HostPipe`)."""
+        base = self._base
+        if base.residency == "sampled":
+            return self.finish_device()[: self.stack.n_real].cpu().numpy()
+        if self._finished:
+            raise RuntimeError("finish() was already called")
+        core = base.core
+        dev = core.device
+        cuda = dev.type == "cuda"
+        yB, Cb = base.stack.size, base.col_block
+        col_offs0 = sorted(self._naf)
+        if not col_offs0:
+            raise RuntimeError("No subgrids were added")
+        facets = torch.empty((len(base.stack), yB, yB) + _tail(core),
+                             dtype=core.dtype)
+
+        def land(j0, host):
+            j1 = min(j0 + Cb, yB)
+            facets[:, :, j0:j1] = host[:, :, :j1 - j0]
+
+        pipe = _HostPipe(land, cuda)
+        stages = [None, None]
+        for b, j0 in enumerate(range(0, base._yB_pad, Cb)):
+            cols = [self._naf[o][:, :, j0:j0 + Cb] for o in col_offs0]
+            if base.residency == "host":
+                # stage b is written again at block b + 2, after block b's
+                # facets landed, so its upload before them is done
+                if stages[b % 2] is None:
+                    stages[b % 2] = torch.empty(
+                        (len(cols),) + tuple(cols[0].shape),
+                        dtype=core.dtype, pin_memory=cuda)
+                torch.stack(cols, out=stages[b % 2])
+                cols = stages[b % 2].to(dev, non_blocking=cuda)
+            out = _facet_pass_bwd(core, yB, cols, col_offs0, base._foffs0,
+                                  base._masks0_dev)
+            del cols
+            pipe.put(j0, out)
+        pipe.flush()
+        self._naf = {}
+        self._finished = True
+        return facets[: self.stack.n_real].numpy()

@@ -6,13 +6,20 @@ for the batched (fused whole-cover) path and the streamed stages: every
 compute op of the planar backend is a matmul (or elementwise op) of
 statically known shape, so the FLOP count of a whole transform is exact.
 
-``resolve_colpass`` / ``resolve_colpass_bwd`` / ``resolve_fold_kernel``
-pick the body of the streamed column passes and of the sampled fold by
-backend: "kernel" (the hand-written kernels B1 and B2, which contract
-split real/imaginary planes) for the planar backend, "einsum" (complex
-``torch.einsum`` products) for the complex "torch" backend. On the card
-the kernel bodies launch B1 and B2; on the CPU the same bodies run, and
-the kernels' wrappers take their plain versions there.
+``resolve_colpass`` / ``resolve_colpass_bwd`` pick the body of the
+streamed column passes, ``resolve_fold_mode`` the sampled backward's fold
+and ``resolve_fold_kernel`` the sampled fold's body. They read the JAX
+package's knobs, with its values and errors: ``SWIFTLY_COLPASS``
+(einsum|fft|pallas|auto), ``SWIFTLY_COLPASS_BWD`` (einsum|fft|pallas) and
+``SWIFTLY_FOLD`` (ct|fft|sampled|auto). "pallas" names the hand-written
+column-pass kernel B1, which contracts split real/imaginary planes: on
+the planar backend it resolves to "kernel", on the complex backend to
+"einsum", as the JAX package degrades it. Unset or "auto", the body goes
+by backend: "kernel" (B1, and B2 for the sampled fold) for the planar
+backend, "einsum" (complex ``torch.einsum`` products) for the complex
+"torch" backend. On the card the kernel bodies launch B1 and B2; on the
+CPU the same bodies run, and the kernels' wrappers take their plain
+versions there.
 
 Conventions: one multiply-add = 2 FLOPs; counts follow the "4mul" complex
 product (4 real matmuls per complex matmul); elementwise twiddle, phase
@@ -20,6 +27,8 @@ and window multiplies are included (6 FLOPs per complex point).
 """
 
 from __future__ import annotations
+
+import os
 
 from ..ops.planar_backend import _DIRECT_MAX, _factor
 
@@ -29,12 +38,14 @@ __all__ = [
     "backward_batched_flops",
     "bwd_column_pass_flops",
     "bwd_fold_flops",
+    "colpass_mode",
     "column_pass_flops",
     "fft_flops",
     "forward_batched_flops",
     "resolve_colpass",
     "resolve_colpass_bwd",
     "resolve_fold_kernel",
+    "resolve_fold_mode",
     "sampled_facet_pass_flops",
 ]
 
@@ -65,18 +76,52 @@ def _body(core) -> str:
     return "kernel" if getattr(core, "backend", "") == "planar" else "einsum"
 
 
+def colpass_mode() -> str:
+    """The forward column-pass setting ``SWIFTLY_COLPASS``
+    (einsum|fft|pallas|auto, default auto), read at each call."""
+    mode = os.environ.get("SWIFTLY_COLPASS", "auto")
+    if mode not in ("einsum", "fft", "pallas", "auto"):
+        raise ValueError(
+            f"SWIFTLY_COLPASS must be einsum|fft|pallas|auto, got {mode!r}"
+        )
+    return mode
+
+
 def resolve_colpass(core, n_facets_in_program: int) -> str:
-    """The forward column-pass body: "kernel" (B1, ``reduce_f=True``) for
-    the planar backend, "einsum" for the complex backend.
-    `n_facets_in_program` is kept for the reference's signature; every
-    facet count takes the same body."""
-    return _body(core)
+    """The forward column-pass body: "kernel" (B1, ``reduce_f=True``),
+    "einsum" (the operator einsums) or "fft" (the per-facet FFT chain).
+    ``SWIFTLY_COLPASS=pallas`` is B1 on the planar backend and the einsum
+    body on the complex one; "auto" goes by backend. Every facet count
+    `n_facets_in_program` takes the same body (kept for the reference's
+    signature)."""
+    mode = colpass_mode()
+    return mode if mode in ("einsum", "fft") else _body(core)
 
 
 def resolve_colpass_bwd(core, n_facets_in_program: int) -> str:
-    """The backward column-pass body, by the forward's rule (B1 with
-    ``reduce_f=False``)."""
+    """The backward column-pass body: ``SWIFTLY_COLPASS_BWD`` if set
+    (einsum|fft|pallas; "pallas" as in `resolve_colpass`), else by
+    backend (B1 with ``reduce_f=False`` for the planar backend)."""
+    mode = os.environ.get("SWIFTLY_COLPASS_BWD", "")
+    if mode and mode not in ("einsum", "fft", "pallas"):
+        raise ValueError(
+            f"SWIFTLY_COLPASS_BWD must be einsum|fft|pallas, got {mode!r}"
+        )
+    if mode in ("einsum", "fft"):
+        return mode
     return _body(core)
+
+
+def resolve_fold_mode() -> str:
+    """The sampled backward's fold: ``SWIFTLY_FOLD`` = sampled | ct | fft
+    | auto (default auto, which is "sampled"), read when the backward is
+    made."""
+    mode = os.environ.get("SWIFTLY_FOLD", "auto")
+    if mode not in ("ct", "fft", "sampled", "auto"):
+        raise ValueError(
+            f"SWIFTLY_FOLD must be ct|fft|sampled|auto, got {mode!r}"
+        )
+    return "sampled" if mode == "auto" else mode
 
 
 def resolve_fold_kernel(core) -> str:

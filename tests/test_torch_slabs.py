@@ -212,7 +212,7 @@ def test_grouped_budget_accounting():
     """The slab sizer's cap, floor and monotonicity
     (tests/test_streamed.py:692), and its price of a second slab."""
     config, _, _, tasks = _port_setup("planar")
-    base = T.StreamedForward(config, tasks)._base
+    base = T.StreamedForward(config, tasks, residency="device")._base
     sizer = tstreamed.grouped_col_group_for_budget
     assert sizer(base, 1e15, 40, 5, 228, True, 1, 4) == 40
     assert sizer(base, 1.0, 40, 5, 228, True, 1, 4, warn=False) == 1
@@ -495,17 +495,20 @@ def test_cuda_slab_streams_match_resident(cuda_device):
                                           [fc.mask0, fc.mask1])) for fc in fcs]
     sparse = [(fc, T.make_sparse_facet(1024, fc, SOURCES, dtype=np.float64))
               for fc in fcs]
-    ref = T.StreamedForward(config, dense).all_subgrids(sgcs)
+    ref = T.StreamedForward(config, dense,
+                            residency="device").all_subgrids(sgcs)
     for tasks, fg in ((dense, 2), (dense, 1), (sparse, 3)):
-        runs = [T.StreamedForward(config, tasks, facet_group=fg, col_group=2)
+        runs = [T.StreamedForward(config, tasks, residency="device",
+                                  facet_group=fg, col_group=2)
                 for _ in range(2)]
         outs = [f.all_subgrids(sgcs) for f in runs]
         assert runs[0].last_plan["mode"] == "grouped"
         np.testing.assert_allclose(outs[0], ref, rtol=0, atol=GROUPED_ATOL)
         np.testing.assert_array_equal(outs[0], outs[1])
-    fwd = T.StreamedForward(config, sparse, facet_group=1)
-    whole = T.StreamedBackward(config, fcs)
-    slabs = [T.StreamedBackward(config, fcs, row_slab=r)
+    fwd = T.StreamedForward(config, sparse, residency="device",
+                            facet_group=1)
+    whole = T.StreamedBackward(config, fcs, residency="sampled")
+    slabs = [T.StreamedBackward(config, fcs, residency="sampled", row_slab=r)
              for r in ((0, 150), (150, 416))]
     T.feed_backward_passes(fwd, sgcs, [whole] + slabs)
     full = whole.finish_device()

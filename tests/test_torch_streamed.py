@@ -321,7 +321,7 @@ def test_host_helpers_match_reference():
 
 def test_col_group_budget_accounting():
     config, _, _, tasks = _port_setup("torch")
-    fwd = T.StreamedForward(config, tasks)
+    fwd = T.StreamedForward(config, tasks, residency="device")
     base = fwd._base
     assert tstreamed.col_group_for_budget(base, 1e15, 7) == 7
     assert tstreamed.col_group_for_budget(base, 1.0, 7) == 1
@@ -337,15 +337,27 @@ def test_col_group_budget_accounting():
             jstreamed.col_group_for_budget(jfwd._base, budget, 10**6))
 
 
-def test_left_out_paths_raise():
+def test_left_out_paths_raise(monkeypatch):
+    """The host and device residencies construct and run (a column each
+    way); what is still missing raises: the executors' ``spill=``, the
+    sampled-only entry points on the kept residencies, and ``row_slab``
+    with a fold other than the sampled one."""
     config, fcs, sgcs, tasks = _port_setup("planar")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        T.StreamedForward(config, tasks, residency="host")
     with pytest.raises(ValueError, match="StreamedBackward strategy"):
         T.StreamedForward(config, tasks, residency="sampled")
     for residency in ("host", "device"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            T.StreamedBackward(config, fcs, residency=residency)
+        fwd = T.StreamedForward(config, tasks, residency=residency)
+        items, sub = next(fwd.stream_columns(sgcs))
+        col = [sg for _, sg in items]
+        bwd = T.StreamedBackward(config, fcs, residency=residency)
+        bwd.add_subgrid_stack(col, sub)
+        with pytest.raises(ValueError, match="requires residency='sampled'"):
+            bwd.add_subgrid_group([col], torch.as_tensor(sub[None]))
+        with pytest.raises(ValueError, match="requires residency='sampled'"):
+            bwd.finish_device()
+        assert bwd.finish().shape == (len(fcs), 416, 416, 2)
+    with pytest.raises(ValueError, match="sampled-path"):
+        next(T.StreamedForward(config, tasks).stream_column_groups(sgcs))
     fwd = T.StreamedForward(config, tasks, residency="device")
     with pytest.raises(NotImplementedError, match="ROADMAP A6") as err:
         next(fwd.stream_column_groups(sgcs, spill=object()))
@@ -353,12 +365,19 @@ def test_left_out_paths_raise():
     # cache itself (utils/spill.py and CachedColumnFeed are ported)
     assert "through spill=" in str(err.value)
     assert "SpillCache" not in str(err.value)
+    for fold in ("ct", "fft"):
+        monkeypatch.setenv("SWIFTLY_FOLD", fold)
+        with pytest.raises(ValueError, match="sampled fold"):
+            T.StreamedBackward(config, fcs, residency="sampled",
+                               row_slab=(0, 10))
+    monkeypatch.delenv("SWIFTLY_FOLD")
     numpy_config = T.SwiftlyConfig(backend="numpy", **TEST_PARAMS)
     with pytest.raises(ValueError, match="device backend"):
         T.StreamedForward(numpy_config, tasks)
-    bwd = T.StreamedBackward(config, fcs)
-    with pytest.raises(RuntimeError, match="No subgrids"):
-        bwd.finish()
+    for residency in ("host", "sampled"):
+        bwd = T.StreamedBackward(config, fcs, residency=residency)
+        with pytest.raises(RuntimeError, match="No subgrids"):
+            bwd.finish()
 
 
 def test_streamed_modules_stand_alone_and_pick_plain_bodies_on_the_cpu():
