@@ -118,18 +118,43 @@ this checkout, and holds each kernel against its plain PyTorch version:
    first column group (``fold_group`` = 4 columns, full width)
    ``SWIFTLY_COLPASS=fft``, ``SWIFTLY_COLPASS_BWD=fft``,
    ``SWIFTLY_FOLD=fft`` and ``SWIFTLY_FOLD=ct`` against the default
-   bodies, each within 1e-5 (relative), with its seconds.
+   bodies, each within 1e-5 (relative), with its seconds;
+11. the partitioned sampled round trip at ``32k[1]-n16k-512`` as the JAX
+   package's ``roundtrip-streamed`` composes it, planar f32, from real
+   facet planes on the host (run after phase 10): the plan
+   (``plan.plan_backward_passes`` with the operator overrides, 3 facet
+   passes x 3 row slabs of 3755 rows, no multiple of the fold's row
+   block; ``plan.plan_backward_feed``, 3 passes a feed) on the card's
+   budget (``plan.hbm_budget_bytes``) with the margins the port derives
+   (``plan.plan_margins``); per feed chunk ``StreamedBackward(residency=
+   "sampled", fold_group=4, row_slab=...)`` over its facets, fed by
+   ``feed_backward_passes(..., spill=..., feed_index=k)`` from one
+   ``StreamedForward(residency="device")`` whose ``hbm_headroom`` is the
+   feed group's accumulators plus the reserve, then ``finish_device``:
+   (a) cache-fed from a fresh ``SpillCache()`` (default budget), a warm
+   and a timed run, the warm run's recording then feeding the
+   whole-facet backward (the unpartitioned reference); (b) replay-fed
+   (``spill=None``); (c) a cache about 1 GB under the stream with a
+   temporary disk tier, removed at the end. Gated on (a)'s two runs, (b)
+   and (c) giving the same bits part for part, the parts within 1e-6
+   (RMS over the largest value) of the unpartitioned reference, the
+   oracle facet RMS, 74 B1 forward launches in (a) and (c) and 3 x 74 in
+   (b), (a) recording once and replaying (n_feeds - 1) x n_groups
+   whole groups with no fallback, and (c) writing and reading its disk
+   tier; it prints each feed's seconds, the bytes and seconds recorded
+   and replayed, the peaks, and the 128k plan on this card (not run).
 
 The launch counters are set to 0 just before each 32k and 128k path runs
 and read just after it. Every phase that fails ends the run with a non-zero exit
 code. The last lines are the ``residency_32k`` JSON record of phase
-10, the ``vis`` JSON record of phase 8, the
+10, the ``spill_32k`` record of phase 11, the ``vis`` JSON record of
+phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
 visibility path's for B4 and ``grid``; ``paths`` holds each path's
-launches, the 128k one's and phase 10's (``residency``, its part (a), and
-``residency_bodies``, its part (c)) too, with the times at that path's
-shapes) and
+launches, the 128k one's, phase 10's (``residency``, its part (a), and
+``residency_bodies``, its part (c)) and phase 11's (``spill``, its timed
+run (a)) too, with the times at that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -147,7 +172,9 @@ prints one ``big`` JSON line; ``--serve-ab DIR --pairs N`` builds the
 kernels of the checkout DIR and of this one, then runs ``--serve-short``
 on each in turn, N times each in their own processes (parent, tree, tree,
 parent, ...), and prints the medians and spreads. ``--residency`` runs
-phase 2 and phase 10 alone and prints one ``residency_32k`` JSON line.
+phase 2 and phase 10 alone and prints one ``residency_32k`` JSON line;
+``--spill`` runs phase 2, phase 11 and phase 7 at phase 11's shapes and
+prints one ``spill_32k`` JSON line.
 """
 
 from __future__ import annotations
@@ -2116,6 +2143,392 @@ def _residency_line(res):
     return line
 
 
+# -- phase 11: the partitioned round trip over a recorded stream -----------
+
+# The plan's operator overrides: 3 facet passes x 3 output-row slabs, 3
+# passes a feed (3 feeds). At 3 facets a pass the fold's row block is 1408
+# rows, so 2 slabs of 5632 rows would be 4 blocks each; 3 slabs of 3755
+# rows are no multiple of it (the clamped last block runs).
+SPILL_FACET_PASSES = 3
+SPILL_ROW_SLABS = 3
+SPILL_FEED_GROUP = 3
+
+
+def _device_digest(torch, x, chunk=1 << 26):
+    """A digest of a tensor's bits computed where it lies: the sum of its
+    32-bit words and their index-weighted sum, each as wrapping 64-bit
+    integers. It tells two runs' outputs apart (any one changed word moves
+    the first sum); it is no cryptographic hash."""
+    w = x.contiguous().view(-1).view(torch.int32)
+    s1 = s2 = 0
+    for c0 in range(0, w.numel(), chunk):
+        c = w[c0:c0 + chunk].long()
+        idx = torch.arange(c0 + 1, c0 + 1 + c.numel(), dtype=torch.int64,
+                           device=c.device)
+        s1 += int(c.sum().item())
+        s2 += int((c * idx).sum().item())
+        del c, idx
+    return f"{s1 & (2**64 - 1):016x}{s2 & (2**64 - 1):016x}"
+
+
+class _RssPeak:
+    """The process's peak resident host memory inside a ``with`` block
+    (``/proc/self/statm`` read every 50 ms on a thread), GiB."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak = _rss_gib()
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.05):
+                self.peak = max(self.peak, _rss_gib())
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gib())
+
+
+def big_plan(torch, fold_group=4, device="cuda"):
+    """The 128k partitioned backward's plan, not run: the facet x row-slab
+    grid and the feed group on this card's budget (``hbm_budget_bytes``),
+    with the margins the port derives from the 128k geometry, beside the
+    stream's bytes and the spill cache's default budget."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import plan
+    from swiftly_tpu_torch.parallel import streamed as sm
+    from swiftly_tpu_torch.utils.spill import spill_budget_bytes
+
+    params = st.SWIFT_CONFIGS[BIG_CONFIG]
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **params)
+    fcs = st.make_full_facet_cover(cfg)
+    base = sm._StreamedBase(cfg, fcs, residency="device")
+    xA, yB = params["xA_size"], fcs[0].size
+    m = cfg.core.xM_yN_size
+    fwd_min, reserve = plan.plan_margins(base, xA, fold_group)
+    budget = plan.hbm_budget_bytes(device=device)
+    parts, resident = plan.plan_backward_passes(
+        len(fcs), yB, yB * yB * 8, m * yB * 8, fold_group, budget, fwd_min,
+        reserve)
+    q = plan.plan_backward_feed(parts, resident, budget, fwd_min, reserve)
+    n_side = -(-cfg.image_size // xA)
+    stream = n_side * n_side * xA * xA * 8
+    return {
+        "config": BIG_CONFIG, "budget_gb": None if budget is None
+        else budget / 1e9, "fwd_min_gb": fwd_min / 1e9,
+        "reserve_gb": reserve / 1e9, "parts": parts,
+        "n_passes": len(parts),
+        "n_facet_passes": len({p[:2] for p in parts}),
+        "n_row_slabs": len({p[2:] for p in parts}),
+        "resident_gb": resident / 1e9, "feed_group": q,
+        "n_feeds": -(-len(parts) // q), "stream_gb": stream / 1e9,
+        "spill_budget_gb": spill_budget_bytes() / 1e9,
+        "stream_fits_ram_budget": stream <= spill_budget_bytes(),
+    }
+
+
+def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
+               facet_passes=SPILL_FACET_PASSES, row_slabs=SPILL_ROW_SLABS,
+               feed_group=SPILL_FEED_GROUP, warm=True, phase6_digests=None):
+    """Phase 11: the partitioned sampled round trip at 32k as the JAX
+    package's ``roundtrip-streamed`` composes it (bench.py:700-960), planar
+    f32, from real facet planes on the host: the plan
+    (``plan_backward_passes`` with the operator overrides,
+    ``plan_backward_feed``), then per feed chunk ``StreamedBackward(
+    residency="sampled", row_slab=...)`` over the chunk's facets fed by
+    ``feed_backward_passes(..., spill=..., feed_index=k)`` from one
+    ``StreamedForward(residency="device")``. (a) cache-fed from a fresh
+    ``SpillCache()`` (its default budget), warm and timed; the warm run's
+    cache then feeds the whole-facet backward, the unpartitioned
+    reference; (b) replay-fed (``spill=None``); (c) a cache about 1 GB
+    under the stream with a temporary disk tier. Gated on bit-identity
+    across the runs, the unpartitioned reference, the oracle, and the
+    forwards and cache reads each run must take."""
+    import shutil
+    import tempfile
+
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import plan
+    from swiftly_tpu_torch.parallel import streamed as sm
+    from swiftly_tpu_torch.utils.spill import SpillCache
+
+    cuda = device == "cuda"
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    core = cfg.core
+    N = cfg.image_size
+    sources = sources_for(N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    F, yB, m, xA = len(fcs), fcs[0].size, core.xM_yN_size, sgcs[0].size
+    rss0 = _rss_gib()
+    t0 = time.perf_counter()
+    facets_in = [st.make_real_facet(N, fc, sources) for fc in fcs]
+    tasks = list(zip(fcs, facets_in))
+    out = {"config": config_name, "fold_group": fold_group,
+           "facet_setup_s": time.perf_counter() - t0}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    # the plan, as bench.py composes it
+    fwd_min, reserve = plan.plan_margins(
+        st.StreamedForward(cfg, tasks, residency="device"), xA, fold_group)
+    budget = plan.hbm_budget_bytes(device=device)
+    parts, resident = plan.plan_backward_passes(
+        F, yB, yB * yB * 8, m * yB * 8, fold_group, budget, fwd_min, reserve,
+        n_facet_env=facet_passes, n_row_env=row_slabs)
+    q = plan.plan_backward_feed(parts, resident, budget, fwd_min, reserve,
+                                feed_env=feed_group)
+    chunks = [parts[i:i + q] for i in range(0, len(parts), q)]
+    headroom = q * resident + reserve
+    F_sub = max(i1 - i0 for i0, i1, _, _ in parts)
+    block = sm._fold_row_block(F_sub, yB, 4)
+    heights = sorted({r1 - r0 for _, _, r0, r1 in parts})
+    out["plan"] = {
+        "budget_gb": None if budget is None else budget / 1e9,
+        "fwd_min_gb": fwd_min / 1e9, "reserve_gb": reserve / 1e9,
+        "parts": parts, "resident_gb": resident / 1e9, "feed_group": q,
+        "n_feeds": len(chunks), "hbm_headroom_gb": headroom / 1e9,
+        "slab_heights": heights, "fold_row_block": block}
+    log(f"{config_name} spill plan: {json.dumps(out['plan'])}")
+    require(len({p[:2] for p in parts}) == facet_passes
+            and len({p[2:] for p in parts}) == row_slabs,
+            f"spill: the plan is not {facet_passes} x {row_slabs}: {parts}")
+    require(all(h % block for h in heights),
+            f"spill: a slab height of {heights} is a multiple of the fold's "
+            f"row block {block}")
+
+    def run(spill, keep=None):
+        """One partitioned round trip; per feed its seconds (synchronised
+        at both ends of the feed and its finishes), groups and what the
+        forward did with the cache; each part's digest."""
+        fwd = st.StreamedForward(cfg, tasks, residency="device")
+        fwd.hbm_headroom = headroom
+        feeds, digests, plan_g = [], {}, None
+        for k, chunk in enumerate(chunks):
+            bwds = [st.StreamedBackward(cfg, fcs[i0:i1], residency="sampled",
+                                        fold_group=fold_group,
+                                        row_slab=(r0, r1))
+                    for i0, i1, r0, r1 in chunk]
+            timed = _TimedFeed(torch, fwd, []) if cuda else fwd
+            sync()
+            t = time.perf_counter()
+            n_groups = st.feed_backward_passes(timed, sgcs, bwds, spill=spill,
+                                               feed_index=k)
+            res = [b.finish_device() for b in bwds]
+            sync()
+            rec = {"seconds": time.perf_counter() - t, "groups": n_groups,
+                   "spill": fwd.last_spill,
+                   "generator_device_s": timed.forward_s() if cuda else None}
+            if fwd.last_plan is not None and plan_g is None:
+                plan_g = dict(fwd.last_plan)
+            for part, r in zip(chunk, res):
+                digests[part] = _device_digest(torch, r)
+                if keep is not None:
+                    keep(part, r)
+            del res, bwds
+            feeds.append(rec)
+        model = None
+        if plan_g is not None and plan_g.get("mode") == "resident":
+            flat, per_G = sm.resident_working_set(
+                fwd._base, fwd._facets_real, extra_out_stacks=int(
+                    spill is not None))
+            model = flat + plan_g["col_group"] * per_G + headroom
+        return {"feeds": feeds, "seconds": sum(f["seconds"] for f in feeds),
+                "digests": digests, "forward_plan": plan_g,
+                "modelled_peak_gb": None if model is None else model / 1e9,
+                "spill": None if spill is None else spill.stats()}
+
+    def b1_forward(counts):
+        return sum(v for key, v in counts["colpass"][1].items() if key[-1])
+
+    def launches(counts):
+        return {k: v[0] for k, v in counts.items()}
+
+    # (a) cache-fed from the default cache: warm, then the reference
+    a_warm = None
+    ref_host = None
+    if warm:
+        spill_w = SpillCache()
+        a_warm = run(spill_w)
+        # the unpartitioned reference (phase 6's composition) fed from the
+        # warm run's recording
+        whole = st.StreamedBackward(cfg, fcs, residency="sampled",
+                                    fold_group=fold_group)
+        st.feed_backward_passes(st.StreamedForward(cfg, tasks,
+                                                   residency="device"),
+                                sgcs, [whole], spill=spill_w)
+        ref_dev = whole.finish_device()
+        ref_host = ref_dev.cpu()
+        del ref_dev, whole
+        spill_w.reset()
+        del spill_w
+        gc_collect(torch)
+        log(f"{config_name} spill: warm run done ({a_warm['seconds']:.3f} s)")
+    if phase6_digests is not None and ref_host is not None:
+        out["reference_equal_phase6"] = [
+            hashlib.sha256(ref_host[i].numpy().tobytes()).hexdigest()
+            for i in range(F)] == list(phase6_digests)
+    acc = {"d2_ref": 0.0, "n": 0, "ref_scale": 0.0, "equal_ref": True,
+           "oracle_d2": [0.0] * F, "oracle_n": [0] * F}
+
+    def check(part, r):
+        """A part against the unpartitioned reference and the oracle."""
+        i0, i1, r0, r1 = part
+        if ref_host is not None:
+            ref = ref_host[i0:i1, r0:r1].to(r.device)
+            acc["equal_ref"] &= bool(torch.equal(r, ref))
+            acc["d2_ref"] += float(((r.double() - ref.double()) ** 2)
+                                   .sum().item()) / 2
+            acc["n"] += r.numel() // 2
+            acc["ref_scale"] = max(acc["ref_scale"], float(
+                (ref.double() ** 2).sum(-1).max().sqrt().item()))
+            del ref
+        for j, i in enumerate(range(i0, i1)):
+            orc = torch.as_tensor(facets_in[i][r0:r1], device=r.device,
+                                  dtype=torch.float64)
+            d2 = (r[j][..., 0].double() - orc) ** 2 + r[j][..., 1].double() ** 2
+            acc["oracle_d2"][i] += float(d2.sum().item())
+            acc["oracle_n"][i] += d2.numel()
+            del orc, d2
+
+    spill_a = SpillCache()
+    _reset_peak(torch)
+    reset_counts()
+    with _RssPeak() as rss_a:
+        a = run(spill_a, keep=check)
+    counts_a = read_counts()
+    a["peak_device_gib"] = _peak(torch) / 2**30 if cuda else None
+    a["host_peak_gib"] = rss_a.peak
+    a["host_peak_above_start_gib"] = rss_a.peak - rss0
+    a["launches"] = launches(counts_a)
+    a["b1_forward_launches"] = b1_forward(counts_a)
+    del ref_host
+    spill_a.reset()
+    del spill_a
+    gc_collect(torch)
+    f_rms = [(d2 / max(1, n)) ** 0.5 for d2, n in
+             zip(acc["oracle_d2"], acc["oracle_n"])]
+    a["max_facet_rms"] = max(f_rms)
+    if warm:
+        a["rel_rms_to_unpartitioned"] = (
+            (acc["d2_ref"] / max(1, acc["n"])) ** 0.5 / acc["ref_scale"])
+        a["bit_equal_unpartitioned"] = acc["equal_ref"]
+        a["bit_identical_to_warm_run"] = a["digests"] == a_warm["digests"]
+
+    # (b) replay-fed: a forward a feed
+    reset_counts()
+    with _RssPeak() as rss_b:
+        b = run(None)
+    counts_b = read_counts()
+    b["host_peak_gib"] = rss_b.peak
+    b["launches"] = launches(counts_b)
+    b["b1_forward_launches"] = b1_forward(counts_b)
+    gc_collect(torch)
+
+    # (c) RAM and disk: a budget about 1 GB under the stream
+    stream_bytes = a["spill"]["ram_bytes"] + a["spill"]["disk_bytes"]
+    tmp = tempfile.mkdtemp(prefix="swiftly_spill_smoke_")
+    try:
+        spill_c = SpillCache(budget_bytes=stream_bytes - 1e9, spill_dir=tmp)
+        reset_counts()
+        with _RssPeak() as rss_c:
+            c = run(spill_c)
+        counts_c = read_counts()
+        c["host_peak_gib"] = rss_c.peak
+        c["launches"] = launches(counts_c)
+        c["b1_forward_launches"] = b1_forward(counts_c)
+        spill_c.reset()
+        del spill_c
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc_collect(torch)
+
+    n_groups = a["feeds"][0]["groups"]
+    n_feeds = len(chunks)
+    n_cols = len({sg.off0 for sg in sgcs})
+    rec_a = a["feeds"][0]["spill"]
+    rep_a = [f["spill"] for f in a["feeds"][1:]]
+    a["recording"] = {
+        "forward_and_passes_s": a["feeds"][0]["seconds"],
+        "forward_device_s": a["feeds"][0]["generator_device_s"],
+        "bytes_gb": rec_a["bytes"] / 1e9, "land_s": rec_a["land_s"],
+        "blocked_s": rec_a["blocked_s"]}
+    a["replays"] = [{"feed_s": f["seconds"], "bytes_gb": r["bytes"] / 1e9,
+                     "read_s": r["read_s"], "blocked_s": r["blocked_s"],
+                     "generator_device_s": f["generator_device_s"]}
+                    for f, r in zip(a["feeds"][1:], rep_a)]
+    for run_rec in (a, b, c):
+        run_rec["digests_equal_a"] = run_rec["digests"] == a["digests"]
+    out.update(
+        stream_gb=stream_bytes / 1e9, n_groups=n_groups,
+        a=a, b=b, c=c, counts=counts_a,
+        warm_s=None if a_warm is None else a_warm["seconds"],
+        host_rss_gib_before=rss0)
+    log(f"{config_name} spill: (a) {a['seconds']:.3f} s (feeds "
+        f"{[round(f['seconds'], 3) for f in a['feeds']]}), (b) "
+        f"{b['seconds']:.3f} s, (c) {c['seconds']:.3f} s; stream "
+        f"{stream_bytes / 1e9:.3f} GB in {n_groups} groups; (c) "
+        f"{c['spill']['disk_bytes'] / 1e9:.3f} GB on disk; B1 forward "
+        f"launches {a['b1_forward_launches']} / {b['b1_forward_launches']} / "
+        f"{c['b1_forward_launches']}")
+    modes_a = [f["spill"]["mode"] for f in a["feeds"]]
+    require(all(np.isfinite(f_rms)), "spill: non-finite facet RMS")
+    require(a["max_facet_rms"] <= FACET_RMS,
+            f"spill: facet RMS {a['max_facet_rms']:.3e} over {FACET_RMS:.0e}")
+    require(not warm or a["rel_rms_to_unpartitioned"] <= FACET_RMS,
+            "spill: the partitioned facets differ from the unpartitioned by "
+            f"{a.get('rel_rms_to_unpartitioned')}")
+    require(not warm or a["bit_identical_to_warm_run"],
+            "spill: (a)'s timed and warm runs differ")
+    require(b["digests_equal_a"] and c["digests_equal_a"],
+            "spill: (a), (b) and (c) are not bit-identical")
+    require(modes_a == ["record"] + ["replay"] * (n_feeds - 1),
+            f"spill: (a)'s feeds ran {modes_a}")
+    require(a["spill"]["fills"] == 1 and not a["spill"]["evictions"]
+            and a["spill"]["complete"],
+            f"spill: (a)'s cache {a['spill']}")
+    require(a["spill"]["ram_reads"] + a["spill"]["disk_reads"]
+            == (n_feeds - 1) * n_groups,
+            f"spill: (a) read {a['spill']} for {n_feeds} feeds of "
+            f"{n_groups} groups")
+    require(c["spill"]["disk_bytes"] > 0 and c["spill"]["disk_reads"] > 0
+            and c["spill"]["complete"], f"spill: (c)'s cache {c['spill']}")
+    if cuda:
+        require(a["b1_forward_launches"] == n_cols
+                and c["b1_forward_launches"] == n_cols
+                and b["b1_forward_launches"] == n_feeds * n_cols,
+                f"spill: B1 forward launches (a) {a['b1_forward_launches']}, "
+                f"(b) {b['b1_forward_launches']}, (c) "
+                f"{c['b1_forward_launches']}")
+        missing = [k for k in ("colpass", "fold") if a["launches"][k] == 0]
+        require(not missing, f"spill: the path launched {missing} no time")
+    out["big_plan"] = big_plan(torch, fold_group, device)
+    log(f"{BIG_CONFIG} plan (not run): {json.dumps(out['big_plan'])}")
+    del facets_in, tasks
+    gc_collect(torch)
+    return out
+
+
+def _spill_line(res):
+    """Phase 11's JSON record without the per-shape launch counts and the
+    digests."""
+    line = {k: v for k, v in res.items() if k not in ("counts", "a", "b",
+                                                       "c")}
+    for k in ("a", "b", "c"):
+        line[k] = {kk: vv for kk, vv in res[k].items() if kk != "digests"}
+    return line
+
+
 # -- phase 9: the 128k streamed round trip ---------------------------------
 
 
@@ -3028,6 +3441,9 @@ def _args():
     p.add_argument("--residency", action="store_true",
                    help="phase 2, then phase 10 (the host and device "
                    "residencies at 32k) alone")
+    p.add_argument("--spill", action="store_true",
+                   help="phase 2, then phase 11 (the partitioned round trip "
+                   "over a recorded stream) and phase 7 at its shapes")
     p.add_argument("--serve-full", action="store_true",
                    help="phase 8 serves all its batches (default: the first "
                    f"{VIS_SERVED})")
@@ -3057,19 +3473,39 @@ def big_only_main(torch):
     for shape, seed, want in B2_DIGESTS:
         check_fold_digest(torch, shape, seed, want)
     big = big_main(torch)
+    log(json.dumps({"big": {"streamed_128k": _big_line(big),
+                            "kernels": _time_streamed_kernels(torch,
+                                                              big)}}))
+    return 0
+
+
+def _time_streamed_kernels(torch, result):
+    """Phase 7 for B3, B1 and B2 at the shapes one path's run gave them
+    (``result["counts"]``): per kernel its launches, its seconds at the
+    timed shapes and each shape's record."""
     checks = {"cmatmul": check_cmatmul, "colpass": check_colpass,
               "fold": check_fold}
     timed = {}
     for kname, check in checks.items():
-        launches, shapes = big["counts"][kname]
+        launches, shapes = result["counts"][kname]
+        if not launches:
+            continue
         recs, secs, _ = time_path(torch, check, _by_frequency(shapes))
         timed[kname] = {"launches": launches, "seconds": secs, "shapes": [
             {k: r.get(k) for k in ("shape", "launches", "ms", "plain_ms",
                                    "library_ms", "bound_ms", "bound_by",
                                    "tflops", "max_abs_err")}
             for r in recs]}
-    log(json.dumps({"big": {"streamed_128k": _big_line(big),
-                            "kernels": timed}}))
+    return timed
+
+
+def spill_only_main(torch):
+    """``--spill``: phase 11, then phase 7 for B1, B2 and B3 at its shapes;
+    one ``spill_32k`` JSON line."""
+    res = spill_main(torch)
+    line = _spill_line(res)
+    line["kernels"] = _time_streamed_kernels(torch, res)
+    log(json.dumps({"spill_32k": line}))
     return 0
 
 
@@ -3117,6 +3553,8 @@ def main():
         done("residency")
         log(json.dumps({"residency_32k": _residency_line(res)}))
         return 0
+    if args.spill:
+        return spill_only_main(torch)
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
@@ -3155,6 +3593,9 @@ def main():
     gc_collect(torch)
     residency = residency_main(torch)
     done("residency")
+    gc_collect(torch)
+    spill = spill_main(torch, phase6_digests=streamed["facet_digests"])
+    done("spill")
     gc_collect(torch)  # the earlier phases' device state
     vis = vis_main(torch, n_serve=None if args.serve_full else VIS_SERVED)
     done("vis")
@@ -3172,7 +3613,7 @@ def main():
     timed_shapes = {k: {} for k in checks}
     results = {"fused": fused, "streamed": streamed, "vis": vis,
                "128k": big, "residency": residency,
-               "residency_bodies": residency["bodies"]}
+               "residency_bodies": residency["bodies"], "spill": spill}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -3203,6 +3644,7 @@ def main():
         "bit_identical_to_warm_run")}}))
     log(json.dumps({"slabs_32k": slabs}))
     log(json.dumps({"residency_32k": _residency_line(residency)}))
+    log(json.dumps({"spill_32k": _spill_line(spill)}))
     log(json.dumps({"streamed_128k": _big_line(big)}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",

@@ -69,7 +69,13 @@ too, and the kernels' wrappers take their plain versions there.
 
 ``feed_backward_passes`` feeds one pass over the forward's column groups
 to several sampled backward passes (facet subsets, row slabs), on the
-device.
+device. With a spill cache (`utils.spill.SpillCache`) the first pass over
+the stream records it (``StreamedForward.stream_column_groups(spill=...)``:
+each group's stack copied to the host on a copy stream, off the
+consumer's path) and every later pass replays it from host RAM or disk,
+the next group's read and upload started before the current one is
+yielded: a partitioned backward (`plan.plan_backward_passes`) costs one
+forward plus cache feeds.
 
 The port runs eagerly: columns run in sequence (JAX's ``lax.map`` and
 ``lax.scan`` chunks), the column-pass operators are built once per
@@ -81,10 +87,10 @@ order, so reruns are bit-identical.
 `CachedColumnFeed` is the serving path's view of a recorded stream
 (`utils.spill.SpillCache`): one host row per lookup, version-gated.
 
-Not ported yet (ROADMAP A5/A6 and later steps): the executors' ``spill=``
-arguments (recording and replaying the stream), meshes, autosave, and the
-metrics/trace hooks. Each entry point to them raises
-``NotImplementedError``.
+Not ported yet (later steps of ROADMAP A): meshes (A8;
+``SwiftlyConfig(mesh=...)`` raises ``NotImplementedError``), autosave and
+the fault points, retries and degradation record on the record and
+replay paths (A7), and the metrics/trace hooks (A9).
 """
 
 from __future__ import annotations
@@ -134,6 +140,7 @@ __all__ = [
     "feed_backward_passes",
     "grouped_col_group_for_budget",
     "grouped_working_set",
+    "resident_working_set",
     "resolve_fold_mode",
     "sampled_row_indices",
 ]
@@ -1101,6 +1108,162 @@ class _HostPipe:
             self._land(item)
 
 
+# bytes of each of the two pinned buffers a spill copy is staged through
+_SPILL_STAGE_BYTES = 256 * 2**20
+
+
+class _PinnedStaging:
+    """Copies between device tensors and pageable host tensors through two
+    pinned chunk buffers of `_SPILL_STAGE_BYTES` on a copy stream of their
+    own, double-buffered: a chunk's device copy runs while the host copies
+    the other buffer. The calling thread blocks on the chunks' events, so
+    a caller runs it on a worker thread to keep it off the consumer's
+    path. The pinned memory stays two chunks whatever the stack's size."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._bufs = None
+        self._events = [None, None]  # the last device copy of each buffer
+
+    def _buffers(self, dtype, step):
+        if self._bufs is None or self._bufs[0].dtype != dtype:
+            self._bufs = [torch.empty(step, dtype=dtype, pin_memory=True)
+                          for _ in range(2)]
+        return self._bufs
+
+    @staticmethod
+    def _chunks(n, itemsize):
+        step = max(1, _SPILL_STAGE_BYTES // itemsize)
+        return step, [(c0, min(step, n - c0)) for c0 in range(0, n, step)]
+
+    def _reuse(self, i):
+        ev, self._events[i] = self._events[i], None
+        if ev is not None:
+            ev.synchronize()
+
+    def to_host(self, src, dst, ready):
+        """Device `src` into host `dst` (both contiguous, same shape),
+        after the event `ready` on the producer's stream."""
+        s, d = src.reshape(-1), dst.reshape(-1)
+        step, chunks = self._chunks(s.numel(), s.element_size())
+        bufs = self._buffers(s.dtype, step)
+        self.stream.wait_event(ready)
+        pending = None
+        for i, (c0, k) in enumerate(chunks):
+            st = bufs[i % 2][:k]
+            with torch.cuda.stream(self.stream):
+                st.copy_(s[c0:c0 + k], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+            if pending is not None:
+                self._land(*pending, d)
+            pending = (ev, st, c0, k)
+        if pending is not None:
+            self._land(*pending, d)
+
+    @staticmethod
+    def _land(ev, st, c0, k, d):
+        ev.synchronize()
+        d[c0:c0 + k].copy_(st)
+
+    def to_device(self, src):
+        """Host `src` as a new device tensor allocated on the copy stream;
+        returns it and the event that marks its last copy."""
+        s = src.reshape(-1)
+        with torch.cuda.stream(self.stream):
+            out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+        o = out.view(-1)
+        step, chunks = self._chunks(s.numel(), s.element_size())
+        bufs = self._buffers(s.dtype, step)
+        ev = None
+        for i, (c0, k) in enumerate(chunks):
+            self._reuse(i % 2)
+            st = bufs[i % 2][:k]
+            st.copy_(s[c0:c0 + k])
+            with torch.cuda.stream(self.stream):
+                o[c0:c0 + k].copy_(st, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+            self._events[i % 2] = ev
+        if ev is None:  # an empty tensor
+            ev = torch.cuda.Event()
+            ev.record(self.stream)
+        return out, ev
+
+
+class _StreamRecorder:
+    """Records a column-group stream into a spill cache, off the
+    consumer's path.
+
+    `put` hands a group's device stack to a worker thread, which copies it
+    into a new host array through `_PinnedStaging` (the copy stream waits
+    for the compute stream's event, so the copy starts as soon as the
+    stack is computed and runs beside the consumer's work and the next
+    group's) and puts it in the cache, in stream order. The worker holds
+    the stack until its copy has landed; `put` waits for the previous
+    group's recording before handing over the next, so at most one stack
+    is held back (the sizers price it: ``spill_out_stacks``). Entries are
+    ordinary host arrays, as ``get_row`` and the disk tier expect. After an
+    eviction (``gave_up``) nothing more is copied. On the CPU each group is
+    copied and put inline."""
+
+    def __init__(self, spill, device):
+        self._spill = spill
+        self._cuda = device.type == "cuda"
+        self._fut = None
+        self._stats = {"mode": "record", "groups": 0, "bytes": 0,
+                       "land_s": 0.0, "blocked_s": 0.0}
+        self._staging = _PinnedStaging(device) if self._cuda else None
+        self._pool = (concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="swiftly-spill-record")
+            if self._cuda else None)
+
+    def put(self, meta, out_g):
+        if self._spill.gave_up:
+            return
+        self._stats["groups"] += 1
+        self._stats["bytes"] += out_g.numel() * out_g.element_size()
+        if not self._cuda:
+            t0 = time.perf_counter()
+            self._spill.put(meta, out_g.detach().numpy().copy())
+            self._stats["land_s"] += time.perf_counter() - t0
+            return
+        self._wait()
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(out_g.device))
+        self._fut = self._pool.submit(self._record, meta, out_g, ready)
+
+    def _wait(self):
+        if self._fut is not None:
+            t0 = time.perf_counter()
+            fut, self._fut = self._fut, None
+            fut.result()
+            self._stats["blocked_s"] += time.perf_counter() - t0
+
+    def _record(self, meta, out_g, ready):
+        t0 = time.perf_counter()
+        host = torch.empty(out_g.shape, dtype=out_g.dtype)
+        self._staging.to_host(out_g, host, ready)
+        del out_g
+        if not self._spill.gave_up:
+            self._spill.put(meta, host.numpy())
+        self._stats["land_s"] += time.perf_counter() - t0
+
+    def close(self, wait=True):
+        """Wait for the last recording (raising the worker's error, if
+        any); with ``wait=False`` (an abandoned stream) only stop the
+        worker."""
+        if self._pool is None:
+            return
+        if wait:
+            self._wait()
+        self._pool.shutdown(wait=True, cancel_futures=not wait)
+
+    def stats(self):
+        return dict(self._stats)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -1203,6 +1366,12 @@ class StreamedForward:
         # backward's accumulator): subtracted from the budget the
         # column-group sizer sees
         self.hbm_headroom = 0
+        # extra finished [G, S, xA, xA] stacks the sizers must price: a
+        # recording stream holds one back until its copy to the host lands
+        self.spill_out_stacks = 0
+        # the last stream_column_groups(spill=...) call: what it did with
+        # the cache, its groups and bytes, and its host seconds
+        self.last_spill = None
 
     # -- sparse synthesis --------------------------------------------------
 
@@ -1275,20 +1444,21 @@ class StreamedForward:
     def _hbm_budget(self):
         """Device bytes this executor may use (None = unlimited: the CPU).
 
-        ``torch.cuda.mem_get_info`` 's free bytes, plus what PyTorch's
-        allocator holds cached but unused, plus the resident facets once
-        uploaded (the sizer prices them itself), less ``hbm_headroom``.
+        Through the one parser `plan.hbm_budget_bytes`, with the executors'
+        semantics (``honor_env_on_cpu=False``): ``SWIFTLY_HBM_BUDGET`` on
+        the card if set, else ``torch.cuda.mem_get_info`` 's free bytes,
+        plus what PyTorch's allocator holds cached but unused, plus the
+        resident facets once uploaded (the sizer prices them itself); less
+        ``hbm_headroom``.
         """
-        dev = self.core.device
-        if dev.type != "cuda":
-            return None
-        free, _ = torch.cuda.mem_get_info(dev)
-        cached = (torch.cuda.memory_reserved(dev)
-                  - torch.cuda.memory_allocated(dev))
+        from ..plan.model import hbm_budget_bytes
+
         held = 0
         if self._dev_facets is not None:
             held = sum(t.numel() * t.element_size() for t in self._dev_facets)
-        return free + cached + held - self.hbm_headroom
+        return hbm_budget_bytes(headroom=self.hbm_headroom,
+                                device=self.core.device,
+                                honor_env_on_cpu=False, held=held)
 
     def _facet_stack_fits(self):
         """Whether the whole facet stack can stay resident with room for
@@ -1305,7 +1475,8 @@ class StreamedForward:
         if budget is None:
             return n_cols
         return col_group_for_budget(self._base, budget, n_cols,
-                                    real=self._facets_real)
+                                    real=self._facets_real,
+                                    extra_out_stacks=self.spill_out_stacks)
 
     # -- streaming ---------------------------------------------------------
 
@@ -1419,7 +1590,8 @@ class StreamedForward:
         else:
             G = grouped_col_group_for_budget(
                 base, budget, len(col_offs0), S, subgrid_size,
-                self._facets_real, Fg, 1, slab_depth=depth)
+                self._facets_real, Fg, 1, slab_depth=depth,
+                extra_out_stacks=self.spill_out_stacks)
         G = min(G, len(col_offs0))
         n_groups = -(-len(col_offs0) // G)
         use_prefetch = (
@@ -1664,24 +1836,160 @@ class StreamedForward:
         consumers that take a whole group at once
         (``StreamedBackward.add_subgrid_group``).
 
-        :param spill: a spill cache to record the stream into and replay
-            it from; recording and replaying through `spill=` is not
-            ported yet (ROADMAP A6), so it must be None
+        With `spill` (a `utils.spill.SpillCache`) the stream is recorded:
+        the first call runs one forward pass and copies each group's stack
+        to the host on a copy stream while the consumer and the next group
+        compute (`_StreamRecorder`); every later call with a complete cache
+        yields the same stream, bit for bit, from host RAM or disk, with
+        the next group's read and upload started before the current group
+        is yielded (`_replay_spilled_groups`), and no forward. A partitioned
+        backward of P passes thus costs one forward and P cache feeds. A
+        fill over the cache's budget with no disk gives up, and every later
+        call runs the forward without recording; a cache read that fails
+        mid-replay (``OSError``) marks the cache given up and runs the
+        forward for the rest of the stream, from exactly that group. A
+        complete cache recorded for another cover raises ``ValueError``.
+        ``last_spill`` says what the call did.
         """
         if self._base.residency != "device":
             raise ValueError(
                 "stream_column_groups is a sampled-path (residency="
                 "'device') API"
             )
-        if spill is not None:
-            raise NotImplementedError(
-                "recording and replaying the column stream through spill= "
-                "is not ported yet (ROADMAP A6); pass spill=None"
-            )
         subgrid_configs = list(subgrid_configs)
         groups = _group_full_columns(subgrid_configs)
         size = subgrid_configs[0].size
-        yield from self._sampled_generator(groups, size, whole_groups=True)
+        spill_tag = (
+            len(subgrid_configs), size,
+            (subgrid_configs[0].off0, subgrid_configs[0].off1),
+            (subgrid_configs[-1].off0, subgrid_configs[-1].off1),
+        )
+        if spill is not None and spill.complete:
+            if spill.tag != spill_tag:
+                raise ValueError(
+                    f"spill cache holds a different subgrid stream "
+                    f"(tag {spill.tag} != {spill_tag}); reset() it or "
+                    "pass the cover it was recorded for"
+                )
+            n_yielded = 0
+            try:
+                for item in self._replay_spilled_groups(spill):
+                    yield item
+                    n_yielded += 1
+                return
+            except OSError as exc:
+                # a cached group could not be read: run the forward for
+                # the rest of this pass, from exactly that group (groups
+                # stream in a fixed order); slower, never wrong
+                logger.warning(
+                    "spill cache read failed at group %d (%s: %s); "
+                    "running the forward for the rest of this pass",
+                    n_yielded, type(exc).__name__, exc,
+                )
+                spill.gave_up = True
+                spill.complete = False
+                self.last_spill = dict(self.last_spill or {},
+                                       mode="replay-fallback",
+                                       fallback_from_group=n_yielded)
+                gen = self._sampled_generator(groups, size, whole_groups=True)
+                for k, item in enumerate(gen):
+                    if k >= n_yielded:
+                        yield item
+                return
+        if spill is not None and spill.gave_up:
+            # an earlier fill overflowed the budget: recording again would
+            # overflow again, so run the forward without the copies
+            spill = None
+            self.last_spill = {"mode": "forward-gave-up"}
+        elif spill is None:
+            self.last_spill = None
+        if spill is None:
+            yield from self._sampled_generator(groups, size,
+                                               whole_groups=True)
+            return
+        # the sizers price the stack held back until its copy lands
+        self.spill_out_stacks = 1
+        recorder = _StreamRecorder(spill, self.core.device)
+        try:
+            spill.begin_fill(tag=spill_tag)
+            for per_col, out_g in self._sampled_generator(groups, size,
+                                                          whole_groups=True):
+                recorder.put(per_col, out_g)
+                yield per_col, out_g
+            recorder.close()
+            spill.end_fill()
+        finally:
+            self.spill_out_stacks = 0
+            recorder.close(wait=False)
+            self.last_spill = recorder.stats()
+
+    def cached_feed(self, spill):
+        """A `CachedColumnFeed` over a stream this forward recorded (one
+        complete ``stream_column_groups(spill=...)`` pass): the serving
+        view of the cache a partitioned backward reads in order."""
+        return CachedColumnFeed(spill)
+
+    def _replay_spilled_groups(self, spill):
+        """Yield a complete cache's stream, uploaded to the device.
+
+        Group k + 1's host read and upload start before group k is
+        yielded: a background thread (``SWIFTLY_SPILL_PREFETCH=0`` turns
+        it off: the reads run inline) reads the entry (RAM, or the disk
+        tier) and uploads it through `_PinnedStaging` on a copy stream into
+        a tensor allocated there; the consumer's stream waits for the
+        upload's event only when the group is yielded, and
+        ``record_stream`` keeps the tensor's memory from being reused before
+        the consumer's work on it has run. A read that fails raises when
+        its group is due, after the previous group was yielded, so the
+        caller's fallback resumes at exactly that group. On the CPU each
+        group is a copy of its entry."""
+        dev = self.core.device
+        cuda = dev.type == "cuda"
+        n = len(spill)
+        use_thread = (os.environ.get("SWIFTLY_SPILL_PREFETCH", "1") != "0"
+                      and n > 1)
+        staging = _PinnedStaging(dev) if cuda else None
+        stats = self.last_spill = {
+            "mode": "replay", "groups": 0, "bytes": 0, "read_s": 0.0,
+            "blocked_s": 0.0, "prefetch_thread": use_thread}
+
+        def prepare(k):
+            """Entry k on the device (a private host copy on the CPU), and
+            the event its upload records."""
+            t0 = time.perf_counter()
+            host = spill.get(k)
+            if cuda:
+                out, ev = staging.to_device(
+                    torch.from_numpy(np.ascontiguousarray(host)))
+            else:
+                out, ev = torch.from_numpy(np.array(host)), None
+            stats["read_s"] += time.perf_counter() - t0
+            stats["bytes"] += out.numel() * out.element_size()
+            return out, ev
+
+        ex = (concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="swiftly-spill-read")
+            if use_thread else None)
+        try:
+            fut = ex.submit(prepare, 0) if ex is not None else None
+            for k in range(n):
+                t0 = time.perf_counter()
+                if fut is not None:
+                    out, ev = fut.result()
+                    fut = ex.submit(prepare, k + 1) if k + 1 < n else None
+                else:
+                    out, ev = prepare(k)
+                if ev is not None:
+                    stream = torch.cuda.current_stream(dev)
+                    stream.wait_event(ev)
+                    out.record_stream(stream)
+                stats["blocked_s"] += time.perf_counter() - t0
+                stats["groups"] += 1
+                yield spill.meta(k), out
+                del out
+        finally:
+            if ex is not None:
+                ex.shutdown(wait=True, cancel_futures=True)
 
     def stream_columns(self, subgrid_configs, device_arrays=False):
         """Yield (col_items, subgrids) per column: `col_items` is the
@@ -1736,6 +2044,23 @@ def col_group_for_budget(base, budget, n_cols, real=False,
     reserve for tables and fragmentation. The reserve is the reference's
     value; it was not calibrated on the port's device.
     """
+    flat, col_b = resident_working_set(base, real, extra_out_stacks)
+    facets_b = facet_stack_bytes(base, real)
+    headroom = budget - flat
+    if headroom <= col_b:
+        logger.warning(
+            "device memory budget %.2f GiB cannot fit the resident facet "
+            "stack (%.2f GiB) plus one column group (%.2f GiB); proceeding "
+            "with G=1 - expect an out-of-memory error",
+            budget / 2**30, facets_b / 2**30, col_b / 2**30,
+        )
+    G = int(headroom // col_b)
+    return max(1, min(n_cols, G))
+
+
+def resident_working_set(base, real=False, extra_out_stacks=0):
+    """(flat bytes, bytes per unit G) of the facets-resident stream's
+    device working set, as ``col_group_for_budget`` prices it."""
     core = base.core
     dsize = _np_dtype(core).itemsize * (2 if _planar(core) else 1)
     yB = base.stack.size
@@ -1760,16 +2085,7 @@ def col_group_for_budget(base, budget, n_cols, real=False,
             F * m * core.yN_size + 2 * Sb * F * m * m + S * xM * xM
         ) * dsize
     col_b = (3 * F * m * yB + (2 + extra_out_stacks) * S * xA * xA) * dsize
-    headroom = budget - facets_b - reserve - flat_col
-    if headroom <= col_b:
-        logger.warning(
-            "device memory budget %.2f GiB cannot fit the resident facet "
-            "stack (%.2f GiB) plus one column group (%.2f GiB); proceeding "
-            "with G=1 - expect an out-of-memory error",
-            budget / 2**30, facets_b / 2**30, col_b / 2**30,
-        )
-    G = int(headroom // col_b)
-    return max(1, min(n_cols, G))
+    return facets_b + reserve + flat_col, col_b
 
 
 def grouped_working_set(base, S, subgrid_size, real, facet_group, chunk,
@@ -1959,13 +2275,18 @@ def feed_backward_passes(forward, subgrid_configs, backwards, spill=None,
 
     Each column group of ``forward.stream_column_groups`` is folded, on
     the device, into every backward in `backwards` before the stream
-    advances.
+    advances: a facet x row-slab partitioned backward
+    (`plan.plan_backward_passes`) feeds its passes in chunks of
+    `plan.plan_backward_feed`'s feed group, one call per chunk, and with
+    a spill cache the stream is computed once and replayed for the
+    other chunks.
 
     :param forward: a `StreamedForward`
     :param subgrid_configs: the cover every pass consumes
     :param backwards: the `StreamedBackward` passes sharing this feed
-    :param spill: a spill cache to record and replay the stream through;
-        not ported yet (ROADMAP A6), must be None
+    :param spill: the shared `utils.spill.SpillCache`: the schedule's
+        first feed records the stream into it, later feeds replay it
+        (``StreamedForward.stream_column_groups``)
     :param progress: optional callable(n_subgrids_folded)
     :param feed_index: this feed's position in a schedule (kept for the
         reference's signature; the metrics it labels are ROADMAP A9)
@@ -2193,7 +2514,10 @@ class StreamedBackward:
 
     def add_subgrid_group(self, col_sg_lists, subgrids_group):
         """("sampled") fold a whole forward column group: its column
-        passes and one fold per ``fold_group`` columns.
+        passes and one fold per ``fold_group`` columns, counted over the
+        whole feed (a group's last columns short of a fold wait for the
+        next group's, or for ``finish_device``), so the result does not
+        depend on the forward's column grouping.
 
         :param col_sg_lists: per-column lists of SubgridConfigs (one shared
             off0 each). A column may hold fewer configs than the group's S
@@ -2225,20 +2549,34 @@ class StreamedBackward:
             pairs = [(sg.off0, sg.off1) for sg in col]
             pairs += [(off0, 0)] * (S - len(pairs))  # zero-pad rows
             sg_offs.append(pairs)
-        # pending per-column rows first, so folds follow the feed order
-        self._flush_folds()
         sg_offs = torch.as_tensor(np.asarray(sg_offs, np.int64),
                                   device=core.device)
         mode = resolve_colpass_bwd(core, len(base.stack))
         cap = self._fold_group
-        for j in range(0, len(offs), cap):
+        m = core.xM_yN_size
+        j = 0
+        while j < len(offs):
+            # a fold takes `cap` columns in feed order: the pending columns
+            # (a previous group's or stack's remainder) topped up from this
+            # group, whose own remainder waits for the next; so the folds,
+            # and the bits, do not depend on how the stream was grouped
+            g = min(cap - len(self._pending_rows), len(offs) - j)
             rows_cat = _column_pass_bwd_group(
                 core, yB, mode, self._operators(mode),
-                subgrids_group[j:j + cap], sg_offs[j:j + cap], base._foffs0,
+                subgrids_group[j:j + g], sg_offs[j:j + g], base._foffs0,
                 base._foffs1, base._masks1_dev,
             )  # [F, g*m, yB(,2)]
-            self._fold_rows(offs[j:j + cap], rows_cat)
+            if g == cap:
+                self._fold_rows(offs[j:j + g], rows_cat)
+            else:
+                self._rows_inflight.admit([rows_cat])
+                self._pending_rows.extend(
+                    (offs[j + c], rows_cat[:, c * m:(c + 1) * m])
+                    for c in range(g))
+                if len(self._pending_rows) >= cap:
+                    self._flush_folds()
             del rows_cat
+            j += g
         for col in col_sg_lists:
             self.processed.extend((sg.off0, sg.off1) for sg in col)
 

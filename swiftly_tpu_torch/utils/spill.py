@@ -4,15 +4,17 @@ an optional disk tier.
 The port of the JAX package's ``swiftly_tpu/utils/spill.py``
 `SpillCache`: a forward pass's column-group subgrid stacks are recorded
 once (``begin_fill`` / ``put`` / ``end_fill``) and read back by consumers,
-either whole (``get``) or one subgrid at a time (``get_row``, the serving
-path's `parallel.streamed.CachedColumnFeed`).
+either whole (``get``: the streamed executors' replay,
+``StreamedForward.stream_column_groups(spill=...)``) or one subgrid at a
+time (``get_row``: the serving path's `parallel.streamed.CachedColumnFeed`).
 
 Storage is a host-RAM ring with optional disk backing:
 
-* entries up to ``budget_bytes`` (default `DEFAULT_BUDGET_BYTES`) stay in
-  RAM;
-* past the budget, entries spill to ``spill_dir`` as ``.npy`` memmaps,
-  written in bounded chunks, atomically (tmp sibling + rename);
+* entries up to ``budget_bytes`` (default `spill_budget_bytes`:
+  ``SWIFTLY_SPILL_BUDGET_GB``, else half of ``MemAvailable``) stay in RAM;
+* past the budget, entries spill to ``spill_dir`` (default
+  ``SWIFTLY_SPILL_DIR``) as ``.npy`` memmaps, written in bounded chunks,
+  atomically (tmp sibling + rename);
 * with no disk dir, over-budget entries are EVICTED: the fill is marked
   incomplete (``gave_up``) and consumers fall back to computing — a
   capacity miss degrades to the old cost model, never to a wrong answer.
@@ -21,14 +23,13 @@ The cache stores plain float arrays, so a row read back is bit-identical to
 the row recorded.
 
 Not ported yet: the ``resilience`` hooks of the reference (fault points,
-transient-retry of disk reads and writes, the degradation record; ROADMAP
-A7), its ``obs.metrics`` / ``trace`` instrumentation (A9), ``patch_entry``
-for incremental facet updates with the reader–writer patch gate it needs
+transient-retry of disk reads and writes, the degradation record, here and
+on the streamed executors' record and replay paths; ROADMAP A7), its
+``obs.metrics`` / ``trace`` instrumentation (A9), ``patch_entry`` for
+incremental facet updates with the reader–writer patch gate it needs
 (``begin_patch`` / ``end_patch``, ``StreamMidPatch``; A11),
 ``export_manifest`` for process-fleet readers (A12) and the compiled
-plan's ``policy`` stamp (A10). The streamed executors' ``spill=``
-arguments still raise (A5, A6): the serving feed is this module's
-consumer.
+plan's ``policy`` stamp (A10).
 """
 
 from __future__ import annotations
@@ -42,16 +43,33 @@ import threading
 
 import numpy as np
 
-__all__ = ["DEFAULT_BUDGET_BYTES", "SpillCache"]
+__all__ = ["SpillCache", "spill_budget_bytes"]
 
 logger = logging.getLogger(__name__)
-
-# host-RAM budget for recorded entries when the caller names none
-DEFAULT_BUDGET_BYTES = 8 * 2**30
 
 # chunk size for disk-backed writes: bounds the per-write dirty-page
 # burst while keeping the stream sequential (memmap-friendly)
 _DISK_CHUNK_BYTES = 256e6
+
+
+def spill_budget_bytes():
+    """Host-RAM byte budget for recorded stream entries.
+
+    ``SWIFTLY_SPILL_BUDGET_GB`` (GiB) when set; else half of the kernel's
+    ``MemAvailable`` at call time (the stream shares the host with the
+    facet data and staging buffers); else 8 GiB.
+    """
+    env = os.environ.get("SWIFTLY_SPILL_BUDGET_GB")
+    if env:
+        return float(env) * 2**30
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024 / 2
+    except OSError:  # pragma: no cover - no /proc
+        pass
+    return 8 * 2**30  # pragma: no cover - /proc always present on Linux
 
 
 class SpillCache:
@@ -63,14 +81,21 @@ class SpillCache:
     ``get(k)``, or read single subgrids with ``get_row``. ``reset()``
     returns to empty (deleting disk files).
 
-    :param budget_bytes: host-RAM budget in bytes
-    :param spill_dir: directory for over-budget entries; None disables
-        disk backing (over-budget entries are evicted and the fill gives
-        up)
+    :param budget_bytes: host-RAM budget in bytes (default
+        `spill_budget_bytes`)
+    :param spill_dir: directory for over-budget entries; default
+        ``SWIFTLY_SPILL_DIR``; None (and the variable unset or empty)
+        disables disk backing: over-budget entries are evicted and the
+        fill gives up
     """
 
-    def __init__(self, budget_bytes=DEFAULT_BUDGET_BYTES, spill_dir=None):
-        self.budget_bytes = float(budget_bytes)
+    def __init__(self, budget_bytes=None, spill_dir=None):
+        self.budget_bytes = (
+            spill_budget_bytes() if budget_bytes is None
+            else float(budget_bytes)
+        )
+        if spill_dir is None:
+            spill_dir = os.environ.get("SWIFTLY_SPILL_DIR") or None
         self.spill_dir = spill_dir
         self._own_dir = None  # created lazily under spill_dir
         self._entries = []  # ("ram", ndarray) | ("disk", path)

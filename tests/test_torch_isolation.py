@@ -41,7 +41,9 @@ def test_port_imports_with_jax_blocked():
         "import sys; sys.modules['jax'] = None; sys.modules['swiftly_tpu'] = None; "
         "import swiftly_tpu_torch, swiftly_tpu_torch.api, "
         "swiftly_tpu_torch.utils.flops, swiftly_tpu_torch.utils.spill, "
-        "swiftly_tpu_torch.serve, swiftly_tpu_torch.vis; "
+        "swiftly_tpu_torch.serve, swiftly_tpu_torch.vis, "
+        "swiftly_tpu_torch.plan, swiftly_tpu_torch.plan.model, "
+        "swiftly_tpu_torch.plan.compiler; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swiftly_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)"
     )

@@ -37,6 +37,7 @@ import swiftly_tpu as J
 import swiftly_tpu_torch as T
 from swiftly_tpu.parallel import streamed as jstreamed
 from swiftly_tpu_torch.parallel import streamed as tstreamed
+from swiftly_tpu_torch.utils.spill import SpillCache
 
 TEST_PARAMS = {
     "W": 13.5625,
@@ -339,9 +340,10 @@ def test_col_group_budget_accounting():
 
 def test_left_out_paths_raise(monkeypatch):
     """The host and device residencies construct and run (a column each
-    way); what is still missing raises: the executors' ``spill=``, the
-    sampled-only entry points on the kept residencies, and ``row_slab``
-    with a fold other than the sampled one."""
+    way), and ``spill=`` records a stream that a later call replays; what
+    is still missing or refused raises: the sampled-only entry points on
+    the kept residencies, and ``row_slab`` with a fold other than the
+    sampled one."""
     config, fcs, sgcs, tasks = _port_setup("planar")
     with pytest.raises(ValueError, match="StreamedBackward strategy"):
         T.StreamedForward(config, tasks, residency="sampled")
@@ -358,13 +360,16 @@ def test_left_out_paths_raise(monkeypatch):
         assert bwd.finish().shape == (len(fcs), 416, 416, 2)
     with pytest.raises(ValueError, match="sampled-path"):
         next(T.StreamedForward(config, tasks).stream_column_groups(sgcs))
+    # spill= records the stream and a later call replays it, bit for bit
     fwd = T.StreamedForward(config, tasks, residency="device")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6") as err:
-        next(fwd.stream_column_groups(sgcs, spill=object()))
-    # what is missing is recording and replaying through spill=, not the
-    # cache itself (utils/spill.py and CachedColumnFeed are ported)
-    assert "through spill=" in str(err.value)
-    assert "SpillCache" not in str(err.value)
+    spill = SpillCache(budget_bytes=2**30)
+    recorded = [g.clone() for _, g in
+                fwd.stream_column_groups(sgcs, spill=spill)]
+    assert spill.complete and fwd.last_spill["mode"] == "record"
+    replayed = [g for _, g in fwd.stream_column_groups(sgcs, spill=spill)]
+    assert fwd.last_spill["mode"] == "replay"
+    assert len(replayed) == len(recorded)
+    assert all(torch.equal(a, b) for a, b in zip(recorded, replayed))
     for fold in ("ct", "fft"):
         monkeypatch.setenv("SWIFTLY_FOLD", fold)
         with pytest.raises(ValueError, match="sampled fold"):

@@ -41,7 +41,8 @@ from swiftly_tpu.utils.spill import SpillCache as JSpill
 from swiftly_tpu_torch import serve as tserve
 from swiftly_tpu_torch import vis as tvis
 from swiftly_tpu_torch.parallel.streamed import CachedColumnFeed
-from swiftly_tpu_torch.utils.spill import DEFAULT_BUDGET_BYTES, SpillCache
+from swiftly_tpu_torch.utils import spill as spill_module
+from swiftly_tpu_torch.utils.spill import SpillCache
 
 TEST_PARAMS = {
     "W": 8.0,
@@ -589,14 +590,27 @@ def test_spill_cache_round_trips_rows_exactly(disk, tmp_path):
     assert not list(tmp_path.glob("swiftly_spill_*/*.npy"))
 
 
-def test_spill_cache_defaults_read_no_environment(monkeypatch):
-    """The budget and the disk tier come from the arguments alone: the
-    reference's environment variables are not read."""
-    monkeypatch.setenv("SWIFTLY_SPILL_BUDGET_GB", "0")
-    monkeypatch.setenv("SWIFTLY_SPILL_DIR", "/nonexistent")
+def test_spill_cache_defaults_read_no_environment(monkeypatch, tmp_path):
+    """The budget and the disk tier follow the JAX package's environment
+    contract (swiftly_tpu/utils/spill.py:80-123): ``SWIFTLY_SPILL_BUDGET_GB``
+    (GiB; unset, half of ``MemAvailable``) and ``SWIFTLY_SPILL_DIR``
+    (unset, no disk tier); arguments win over both."""
+    from swiftly_tpu.utils.spill import SpillCache as JSpill
+
+    monkeypatch.setenv("SWIFTLY_SPILL_BUDGET_GB", "0.5")
+    monkeypatch.setenv("SWIFTLY_SPILL_DIR", str(tmp_path))
     spill = SpillCache()
-    assert spill.budget_bytes == DEFAULT_BUDGET_BYTES
+    assert spill.budget_bytes == 2**29 == JSpill().budget_bytes
+    assert spill.spill_dir == str(tmp_path) == JSpill().spill_dir
+    assert spill.stats()["disk_backed"]
+    assert SpillCache(budget_bytes=7, spill_dir=None).budget_bytes == 7.0
+    monkeypatch.delenv("SWIFTLY_SPILL_BUDGET_GB")
+    monkeypatch.delenv("SWIFTLY_SPILL_DIR")
+    spill = SpillCache()
     assert spill.spill_dir is None and not spill.stats()["disk_backed"]
+    # the default budget is the parser's (MemAvailable / 2 here)
+    monkeypatch.setattr(spill_module, "spill_budget_bytes", lambda: 123.0)
+    assert SpillCache().budget_bytes == 123.0
 
 
 def test_spill_cache_evicts_without_a_disk():
