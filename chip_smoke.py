@@ -76,7 +76,7 @@ this checkout, and holds each kernel against its plain PyTorch version:
    facets of the grid-corrected, band-limited sky model, a cache feed
    (``SpillCache`` / ``CachedColumnFeed``) seeded with the hottest
    column's rows, 2^20 zipf-over-columns samples with a 10% uniform tail
-   cut into 16 batches, of which the first 8 (``--serve-full``: all 16)
+   cut into 16 batches, of which the first 5 (``--serve-full``: all 16)
    are served through ``VisibilityService`` (pumped dry after every
    second, the feed force-evicted after the fourth), every served
    sample gridded by a version-pinned ``VisGridder`` and ingested by a
@@ -141,20 +141,49 @@ this checkout, and holds each kernel against its plain PyTorch version:
    oracle facet RMS, 74 B1 forward launches in (a) and (c) and 3 x 74 in
    (b), (a) recording once and replaying (n_feeds - 1) x n_groups
    whole groups with no fallback, and (c) writing and reading its disk
-   tier; it prints each feed's seconds, the bytes and seconds recorded
-   and replayed, the peaks, and the 128k plan on this card (not run).
+   tier; then (a)'s second feed once more from its recording with one
+   transient ``spill.read`` fault injected (``resilience.FaultPlan``),
+   gated on one retry (the ``retry.*`` counters, metrics on) and the same
+   bits; it prints each feed's seconds, the bytes and seconds recorded
+   and replayed, the peaks, and the 128k plan on this card (not run);
+12. telemetry, and a kill and resume of the streamed round trip at
+   ``32k[1]-n16k-512``, planar f32 (run after phase 6):
+   ``StreamedForward(residency="device", col_group=10)`` into
+   ``StreamedBackward(residency="sampled", fold_group=4)``, once
+   unobserved (the new grouping's warm-up, its wall printed), then (a)
+   with ``obs.metrics``, ``obs.trace`` and ``obs.recorder`` on, gated on
+   phase 6's facet SHA-256, a wall within 5% of phase 6's timed run, the
+   stage vocabulary with FLOPs and the export's MFU against
+   ``utils.peak_tflops``, a Chrome trace whose spans nest, and the HBM
+   gauge equal to ``torch.cuda.max_memory_allocated``; (b) with
+   ``SWIFTLY_CKPT_KEEP=1``, an autosave after group 3 (30 columns, 2 of
+   them pending a fold) and a ``FaultPlan`` killing the 4th ``bwd.feed``
+   (``WorkerKilled``), then a fresh forward and backward restored from the
+   snapshot feeding the 44 columns left, gated on phase 6's facet SHA-256,
+   2 pending columns in the snapshot, the recorder's post-mortem naming
+   the kill, 44 B1 forward launches, and the device memory back to its
+   start after the kill; it prints the snapshot's GB, its save and
+   restore seconds, the peak across the kill and the resume and the
+   launches, and deletes the snapshot.
+
+At phases 6, 10 (b), 11 (a) and 9 the streamed forward's sizer model
+(``parallel.streamed.stream_peak_bytes`` beside the backwards'
+``device_bytes``) is printed beside the measured device peak
+(``torch.cuda.max_memory_allocated``) and gated to lie within 1.0 and
+1.3 times it (``SIZER_BAND``).
 
 The launch counters are set to 0 just before each 32k and 128k path runs
 and read just after it. Every phase that fails ends the run with a non-zero exit
 code. The last lines are the ``residency_32k`` JSON record of phase
-10, the ``spill_32k`` record of phase 11, the ``vis`` JSON record of
-phase 8, the
+10, the ``spill_32k`` record of phase 11, the ``resume_32k`` record of
+phase 12, the ``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
 visibility path's for B4 and ``grid``; ``paths`` holds each path's
 launches, the 128k one's, phase 10's (``residency``, its part (a), and
-``residency_bodies``, its part (c)) and phase 11's (``spill``, its timed
-run (a)) too, with the times at that path's shapes) and
+``residency_bodies``, its part (c)), phase 11's (``spill``, its timed
+run (a)) and phase 12's (``resume``, its observed run (a)) too, with the
+times at that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -174,7 +203,9 @@ on each in turn, N times each in their own processes (parent, tree, tree,
 parent, ...), and prints the medians and spreads. ``--residency`` runs
 phase 2 and phase 10 alone and prints one ``residency_32k`` JSON line;
 ``--spill`` runs phase 2, phase 11 and phase 7 at phase 11's shapes and
-prints one ``spill_32k`` JSON line.
+prints one ``spill_32k`` JSON line; ``--resume`` runs phase 2, phase 6's
+warm and timed round trips (unprofiled) and phase 12, and prints one
+``resume_32k`` JSON line.
 """
 
 from __future__ import annotations
@@ -336,8 +367,8 @@ GRID_WRAPPED = [(300, 8, 61), (200, 4, 70), (200, 6, 70), (3300, 8, 448)]
 VIS_SAMPLES = 2**20
 VIS_BATCHES = 16
 # batches phase 8 serves by default (--serve-full: all VIS_BATCHES), to keep
-# the whole script within half its time limit beside phase 9
-VIS_SERVED = 8
+# the whole script inside its time limit beside phases 9 and 12
+VIS_SERVED = 5
 VIS_SEED = 1234
 VIS_ZIPF_S = 1.1
 VIS_MAX_DEPTH = 65536
@@ -1438,11 +1469,12 @@ def roundtrip_streamed_small(torch, device="cuda"):
 
 
 def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
-                  warm=True, fold_group=4):
+                  warm=True, fold_group=4, profile=True):
     """The main path of the streamed slice: StreamedForward (facets
     resident) fed into a sampled StreamedBackward by feed_backward_passes,
     planar, from real facet planes on the host."""
     import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.parallel import streamed as sm
     from swiftly_tpu_torch.utils.flops import (
         bwd_column_pass_flops, bwd_fold_flops, column_pass_flops,
         sampled_facet_pass_flops)
@@ -1472,6 +1504,9 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
     item = torch.empty((), dtype=dtype).element_size()
     acc_bytes = F * yB * yB * 2 * item
     row_bytes = F * m * yB * 2 * item
+    S = n // len({sg.off0 for sg in sgcs})
+    xA = sgcs[0].size
+    models = []
 
     def round_trip():
         """One round trip through the public entry points, in a window
@@ -1489,6 +1524,9 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
         facets = bwd.finish_device()
         torch.cuda.synchronize()
         feed.plan = fwd.last_plan
+        models.append(sm.stream_peak_bytes(
+            fwd, n // S, S, xA, *_consumers([bwd], S, xA),
+            held=len(idxs) * xA * xA * 2 * item))
         return facets, feed, time.perf_counter() - t0
 
     def one_run():
@@ -1507,14 +1545,11 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
         warm_digests = out_w[-1]
         del out_w
         log(f"{config_name} streamed: warm run done")
-    if device == "cuda":
-        torch.cuda.reset_peak_memory_stats()
+    before = _reset_peak(torch)
     reset_counts()
     facets, samples, t_fwd, t_bwd, plan, n_groups, digests = one_run()
     counts = read_counts()
-    S = n // len({sg.off0 for sg in sgcs})
     n_cols = n // S
-    xA = sgcs[0].size
     fwd_flops = (sampled_facet_pass_flops(core, F, yB, n_cols * m, True)
                  + n_cols * column_pass_flops(core, F, S, xA, plan["colpass"]))
     bwd_flops = (n_cols * bwd_column_pass_flops(core, F, S, yB, xA,
@@ -1534,6 +1569,8 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
     }
     if device == "cuda":
         out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["sizer"] = _sizer_record(f"{config_name} streamed",
+                                     models[-1] + before, _peak(torch))
     log(f"{config_name} streamed timed run: forward {t_fwd:.3f} s, backward "
         f"{t_bwd:.3f} s, G {plan['col_group']} ({n_groups} groups), "
         f"launches {out['launches']}")
@@ -1581,7 +1618,7 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
                      if not key[-1])
         require(fwd_b1 > 0 and bwd_b1 > 0,
                 f"B1 ran {fwd_b1} forward and {bwd_b1} backward launches")
-    if device == "cuda":
+    if device == "cuda" and profile:
         out.update(streamed_stages(torch, cfg, fcs, facets_in))
         out.update(profile_streamed(torch, round_trip))
     return out
@@ -1836,8 +1873,35 @@ def _modelled_bytes(fwd, sgcs):
     S = len(sgcs) // len({sg.off0 for sg in sgcs})  # a full cover
     flat, per_G = sm.grouped_working_set(
         fwd._base, S, sgcs[0].size, fwd._facets_real, plan["facet_group"], 1,
-        plan["slab_depth"])
+        1 if fwd._facets_sparse else plan["slab_depth"])
     return flat + plan["col_group"] * per_G
+
+
+# the band each sizer's modelled peak must lie in, as a multiple of the
+# device peak measured beside it (torch.cuda.max_memory_allocated)
+SIZER_BAND = (1.0, 1.3)
+
+
+def _sizer_record(tag, model, peak):
+    """The sizer's modelled peak beside the measured one, gated on
+    `SIZER_BAND` on the card."""
+    rec = {"modelled_peak_gb": model / 1e9, "peak_gb": peak / 1e9,
+           "model_over_peak": model / peak if peak else None}
+    log(f"{tag}: the sizer's modelled peak {model / 1e9:.3f} GB beside the "
+        f"measured {peak / 1e9:.3f} GB (x{rec['model_over_peak'] or 0:.4f})")
+    if peak:
+        require(SIZER_BAND[0] <= rec["model_over_peak"] <= SIZER_BAND[1],
+                f"{tag}: the sizer's model is {rec['model_over_peak']:.4f} "
+                f"times the measured peak, outside {SIZER_BAND}")
+    return rec
+
+
+def _consumers(backwards, S, xA):
+    """(resting, active) of the backwards one feed serves together: their
+    resting bytes summed, and one of them at work."""
+    pairs = [b.device_bytes(S, xA) for b in backwards]
+    resting = sum(r for r, _ in pairs)
+    return resting, resting + max(a - r for r, a in pairs)
 
 
 # -- phase 10: the host and device residencies at 32k ----------------------
@@ -2034,11 +2098,19 @@ def residency_main(torch, config_name=MAIN_CONFIG, fold_group=4,
     _release_pinned(torch)
 
     # (b) a resident forward feeding the host backward once
+    from swiftly_tpu_torch.parallel import streamed as sm
+
     fwd = st.StreamedForward(cfg, tasks, residency="device")
     bwd = st.StreamedBackward(cfg, fcs, col_block=col_block,
                               residency="host")
+    before_b = _reset_peak(torch)
     samples_b, stream_b = feed(fwd, bwd)
     plan_b = fwd.last_plan
+    S, xA = len(sgcs) // len({sg.off0 for sg in sgcs}), sgcs[0].size
+    model_b = sm.stream_peak_bytes(
+        fwd, len(sgcs) // S, S, xA, *_consumers([bwd], S, xA),
+        held=len(idxs) * xA * xA * 8) + before_b
+    peak_b = _peak(torch)
     del fwd
     t = time.perf_counter()
     facets_b = bwd.finish()
@@ -2054,6 +2126,9 @@ def residency_main(torch, config_name=MAIN_CONFIG, fold_group=4,
              "host_forward_max_rel_to_resident": diff / sub_scale,
              "facets_rel_rms_to_a": _host_facets_rel_rms(torch, facets_b,
                                                          facets_a, device)}
+    if device == "cuda":
+        rec_b["sizer"] = _sizer_record(f"{config_name} residency (b)",
+                                       model_b, peak_b)
     del facets_a, facets_b, samples_a, samples_b
     out["host_backward"] = rec_b
     log(f"{config_name} residency (b) resident forward -> host backward: " +
@@ -2268,6 +2343,8 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
     fcs = st.make_full_facet_cover(cfg)
     sgcs = st.make_full_subgrid_cover(cfg)
     F, yB, m, xA = len(fcs), fcs[0].size, core.xM_yN_size, sgcs[0].size
+    n_cols = len({sg.off0 for sg in sgcs})
+    S = len(sgcs) // n_cols
     rss0 = _rss_gib()
     t0 = time.perf_counter()
     facets_in = [st.make_real_facet(N, fc, sources) for fc in fcs]
@@ -2307,14 +2384,17 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
             f"spill: a slab height of {heights} is a multiple of the fold's "
             f"row block {block}")
 
-    def run(spill, keep=None):
-        """One partitioned round trip; per feed its seconds (synchronised
-        at both ends of the feed and its finishes), groups and what the
-        forward did with the cache; each part's digest."""
+    def run(spill, keep=None, only=None):
+        """One partitioned round trip (`only`: those feeds alone); per feed
+        its seconds (synchronised at both ends of the feed and its
+        finishes), groups and what the forward did with the cache; each
+        part's digest."""
         fwd = st.StreamedForward(cfg, tasks, residency="device")
         fwd.hbm_headroom = headroom
         feeds, digests, plan_g = [], {}, None
         for k, chunk in enumerate(chunks):
+            if only is not None and k not in only:
+                continue
             bwds = [st.StreamedBackward(cfg, fcs[i0:i1], residency="sampled",
                                         fold_group=fold_group,
                                         row_slab=(r0, r1))
@@ -2335,17 +2415,22 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
                 digests[part] = _device_digest(torch, r)
                 if keep is not None:
                     keep(part, r)
+            # this feed's modelled peak: the forward's stream beside the
+            # chunk's backwards, or, replayed, a group in their hands
+            # beside the next one uploaded
+            resting, active = _consumers(bwds, S, xA)
+            if rec["spill"] and rec["spill"].get("mode") == "replay":
+                group_b = len(spill.meta(0)) * S * xA * xA * 8
+                rec["model"] = 2 * group_b + active + sm._RESERVE_BYTES
+            else:
+                rec["model"] = sm.stream_peak_bytes(fwd, n_cols, S, xA,
+                                                    resting, active)
             del res, bwds
             feeds.append(rec)
-        model = None
-        if plan_g is not None and plan_g.get("mode") == "resident":
-            flat, per_G = sm.resident_working_set(
-                fwd._base, fwd._facets_real, extra_out_stacks=int(
-                    spill is not None))
-            model = flat + plan_g["col_group"] * per_G + headroom
+        model = max(f["model"] for f in feeds)
         return {"feeds": feeds, "seconds": sum(f["seconds"] for f in feeds),
                 "digests": digests, "forward_plan": plan_g,
-                "modelled_peak_gb": None if model is None else model / 1e9,
+                "model": model,
                 "spill": None if spill is None else spill.stats()}
 
     def b1_forward(counts):
@@ -2402,17 +2487,22 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
             del orc, d2
 
     spill_a = SpillCache()
-    _reset_peak(torch)
+    before_a = _reset_peak(torch)
     reset_counts()
     with _RssPeak() as rss_a:
         a = run(spill_a, keep=check)
     counts_a = read_counts()
     a["peak_device_gib"] = _peak(torch) / 2**30 if cuda else None
+    if cuda:
+        a["sizer"] = _sizer_record(f"{config_name} spill (a)",
+                                   a["model"] + before_a, _peak(torch))
     a["host_peak_gib"] = rss_a.peak
     a["host_peak_above_start_gib"] = rss_a.peak - rss0
     a["launches"] = launches(counts_a)
     a["b1_forward_launches"] = b1_forward(counts_a)
     del ref_host
+    a["retry"] = _replay_with_read_fault(torch, run, spill_a, a["digests"],
+                                         device)
     spill_a.reset()
     del spill_a
     gc_collect(torch)
@@ -2519,6 +2609,42 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
     return out
 
 
+def _replay_with_read_fault(torch, run, spill, digests, device):
+    """Phase 11's feed 1 once more from the recording, with one transient
+    ``spill.read`` fault injected and the metrics on: the read must be
+    retried once (``retry.*`` counters) to the recorded parts' bits."""
+    from swiftly_tpu_torch.obs import metrics
+    from swiftly_tpu_torch.resilience import FaultPlan, faults
+
+    metrics.disable()
+    metrics.reset()
+    metrics.enable(device=device)
+    plan = FaultPlan([{"site": "spill.read", "kind": "ioerror", "at": 0}])
+    try:
+        with faults.active(plan):
+            r = run(spill, only=[1])
+        counters = {k: v for k, v in metrics.export()["counters"].items()
+                    if k.startswith("retry.")}
+    finally:
+        metrics.disable()
+        metrics.reset()
+    out = {"seconds": r["seconds"], "mode": r["feeds"][0]["spill"]["mode"],
+           "parts": len(r["digests"]), "counters": counters,
+           "injected": plan.stats()["by_site"],
+           "digests_equal": all(r["digests"][p] == digests[p]
+                                for p in r["digests"])}
+    log(f"spill: a replay feed with one injected spill.read fault: "
+        f"{json.dumps(out)}")
+    require(out["mode"] == "replay" and out["parts"] > 0
+            and out["digests_equal"],
+            f"spill: the retried replay feed differs: {out}")
+    require(counters.get("retry.attempts") == 1
+            and counters.get("retry.attempts.spill.read") == 1
+            and counters.get("retry.recovered") == 1,
+            f"spill: retry counters {counters}")
+    return out
+
+
 def _spill_line(res):
     """Phase 11's JSON record without the per-shape launch counts and the
     digests."""
@@ -2527,6 +2653,295 @@ def _spill_line(res):
     for k in ("a", "b", "c"):
         line[k] = {kk: vv for kk, vv in res[k].items() if kk != "digests"}
     return line
+
+
+# -- phase 12: telemetry, and a kill and resume of the 32k round trip ------
+
+RESUME_COL_GROUP = 10
+RESUME_SAVE_GROUPS = 3  # the autosave fires once, after this many groups
+RESUME_KILL_FEED = 3  # the 0-based bwd.feed call that is killed
+RESUME_WALL_TOL = 0.05
+STAGES_WITH_FLOPS = ("fwd.sampled_facet_pass", "fwd.column_pass",
+                     "bwd.column_pass", "bwd.sampled_fold")
+STAGES_EXPECTED = STAGES_WITH_FLOPS + ("fwd.facet_upload", "fwd.drain",
+                                       "bwd.finish", "bwd.drain")
+
+
+def _spans_nest(events):
+    """Problems with a Chrome trace's span tree: every ``X`` span's parent
+    exists, and a parent on the same thread covers its child's interval
+    (to the export's microsecond rounding)."""
+    spans = {e["args"]["span_id"]: e for e in events
+             if e.get("ph") == "X" and "span_id" in e.get("args", {})}
+    problems = []
+    for e in spans.values():
+        pid = e["args"]["parent_id"]
+        if not pid:
+            continue
+        par = spans.get(pid)
+        if par is None:
+            problems.append(f"{e['name']}: parent {pid} missing")
+        elif par["tid"] == e["tid"] and not (
+                par["ts"] - 1e-3 <= e["ts"]
+                and e["ts"] + e["dur"] <= par["ts"] + par["dur"] + 2e-3):
+            problems.append(f"{e['name']} outside its parent {par['name']}")
+    return problems, len(spans)
+
+
+def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
+                col_group=RESUME_COL_GROUP, save_groups=RESUME_SAVE_GROUPS,
+                kill_feed=RESUME_KILL_FEED, device="cuda"):
+    """Phase 12 (module docstring): the streamed round trip with
+    ``StreamedForward(residency="device", col_group=...)`` into
+    ``StreamedBackward(residency="sampled", fold_group=...)``: (a) with
+    metrics, trace and recorder on, against phase 6's bits and wall time
+    (`phase6`: its ``facet_digests`` and ``roundtrip_s``; None: an
+    unobserved run here is the reference); (b) killed at the
+    `kill_feed`-th ``bwd.feed`` after one autosave at `save_groups`
+    groups, then resumed by a fresh forward and backward from the
+    snapshot, against the same bits."""
+    import os
+    import shutil
+    import tempfile
+
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.obs import metrics, recorder, trace
+    from swiftly_tpu_torch.resilience import FaultPlan, WorkerKilled, faults
+    from swiftly_tpu_torch.utils import checkpoint, peak_tflops
+
+    cuda = device == "cuda"
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    F = len(fcs)
+    S = len(sgcs) // len({sg.off0 for sg in sgcs})
+    n_cols = len(sgcs) // S
+    idxs = list(range(0, len(sgcs), max(1, len(sgcs) // MIN_SUBGRID_SAMPLES)))
+    t0 = time.perf_counter()
+    tasks = list(zip(fcs, [st.make_real_facet(N, fc, sources_for(N))
+                           for fc in fcs]))
+    out = {"config": config_name, "col_group": col_group,
+           "fold_group": fold_group, "facet_setup_s": time.perf_counter() - t0}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def executors():
+        fwd = st.StreamedForward(cfg, tasks, residency="device",
+                                 col_group=col_group)
+        bwd = st.StreamedBackward(cfg, fcs, residency="sampled",
+                                  fold_group=fold_group)
+        return fwd, bwd
+
+    def digests(facets):
+        return [hashlib.sha256(facets[i].cpu().numpy().tobytes()).hexdigest()
+                for i in range(F)]
+
+    def round_trip(fwd, bwd, cover):
+        """The feed and the finish in a window synchronised at both ends,
+        as phase 6 times it."""
+        feed = _TimedFeed(torch, fwd, idxs) if cuda else fwd
+        sync()
+        t = time.perf_counter()
+        st.feed_backward_passes(feed, cover, [bwd])
+        facets = bwd.finish_device()
+        sync()
+        return facets, time.perf_counter() - t
+
+    # the same configuration unobserved first: the first run at a new
+    # column grouping runs ~10% slower (at 32k on an H100 80GB HBM3 at 700
+    # W: 11.0 s, then 9.9 s), so it warms this grouping up for the observed
+    # run, and its wall is printed beside it
+    facets, plain_s = round_trip(*executors(), sgcs)
+    if phase6 is None:
+        phase6 = {"facet_digests": digests(facets), "roundtrip_s": plain_s}
+    del facets
+    gc_collect(torch)
+
+    tmp = tempfile.mkdtemp(prefix="swiftly_resume_smoke_")
+    keep_env = os.environ.get("SWIFTLY_CKPT_KEEP")
+    os.environ["SWIFTLY_CKPT_KEEP"] = "1"
+    try:
+        # (a) observability on
+        trace_path = os.path.join(tmp, "trace.json")
+        for mod in (metrics, trace, recorder):
+            mod.disable()
+            mod.reset()
+        metrics.enable(device=device)
+        trace.enable(trace_path, device=device)
+        recorder.enable()
+        _reset_peak(torch)
+        reset_counts()
+        facets, wall = round_trip(*executors(), sgcs)
+        out["counts"] = read_counts()
+        dig_a = digests(facets)
+        del facets
+        exp = metrics.export()
+        peak_a = _peak(torch)
+        trace.save(trace_path)
+        with open(trace_path) as fh:
+            events = json.load(fh)["traceEvents"]
+        nest, n_spans = _spans_nest(events)
+        trace.disable()
+        trace.reset()
+        stages = exp["stages"]
+        a = {
+            "roundtrip_s": wall, "phase6_roundtrip_s": phase6["roundtrip_s"],
+            "wall_ratio": wall / phase6["roundtrip_s"],
+            "unobserved_roundtrip_s": plain_s,
+            "wall_ratio_to_unobserved": wall / plain_s,
+            "bits_equal_phase6": dig_a == phase6["facet_digests"],
+            # the analytic FLOPs over the synchronised wall: the stages'
+            # host walls time launches, not the device
+            "wall_tflops": exp["total"]["flops"] / wall / 1e12,
+            "stages": {k: {kk: v.get(kk) for kk in (
+                "count", "total_s", "flops", "tflops", "mfu_pct")}
+                for k, v in stages.items()},
+            "total": exp["total"], "peak_tflops": peak_tflops(),
+            "counters": {k: v for k, v in exp["counters"].items()},
+            "trace_spans": n_spans, "trace_problems": nest[:5],
+            "hbm_gauge_peak": exp["gauges_max"].get("hbm.peak_bytes"),
+            "max_memory_allocated": peak_a,
+        }
+        out["a"] = a
+        log(f"{config_name} resume (a): observed round trip {wall:.3f} s "
+            f"(phase 6 {phase6['roundtrip_s']:.3f} s, ratio "
+            f"{a['wall_ratio']:.4f}; unobserved at col_group {col_group} "
+            f"{plain_s:.3f} s), {a['wall_tflops']:.2f} TFLOP/s over the "
+            f"wall, bits equal phase 6: "
+            f"{a['bits_equal_phase6']}, {n_spans} spans, HBM gauge "
+            f"{a['hbm_gauge_peak']} vs {peak_a}; total "
+            f"{json.dumps(exp['total'])}")
+        log("  stages: " + json.dumps(a["stages"]))
+        missing = [k for k in STAGES_EXPECTED if k not in stages]
+        require(a["bits_equal_phase6"], "resume (a): the observed round "
+                "trip's facets differ from phase 6's")
+        require(not missing, f"resume (a): stages {missing} missing")
+        require(all(stages[k].get("flops", 0) > 0 for k in STAGES_WITH_FLOPS),
+                "resume (a): a compute stage carries no FLOPs")
+        require(exp["counters"].get("fwd.subgrids") == len(sgcs)
+                and exp["counters"].get("bwd.subgrids_folded") == len(sgcs),
+                f"resume (a): counters {exp['counters']}")
+        require(not nest and n_spans > 0,
+                f"resume (a): the trace's spans do not nest: {nest[:5]}")
+        if cuda:
+            require(abs(a["wall_ratio"] - 1) <= RESUME_WALL_TOL,
+                    f"resume (a): wall {wall:.3f} s against phase 6's "
+                    f"{phase6['roundtrip_s']:.3f} s")
+            require(a["peak_tflops"] and "mfu_pct" in exp["total"],
+                    f"resume (a): no MFU ({exp['total']})")
+            require(a["hbm_gauge_peak"] == peak_a,
+                    f"resume (a): HBM gauge {a['hbm_gauge_peak']} != "
+                    f"max_memory_allocated {peak_a}")
+        gc_collect(torch)
+
+        # (b) kill after one autosave, then resume
+        ck = os.path.join(tmp, "bwd.npz")
+        metrics.reset()
+        recorder.reset()
+        base_alloc = torch.cuda.memory_allocated() if cuda else 0
+        _reset_peak(torch)
+        plan = FaultPlan([{"site": "bwd.feed", "kind": "kill",
+                           "at": kill_feed}])
+
+        def killed_run():
+            fwd, bwd = executors()
+            bwd.enable_autosave(ck, every_subgrids=save_groups * col_group * S)
+            t = time.perf_counter()
+            try:
+                with faults.active(plan):
+                    st.feed_backward_passes(fwd, sgcs, [bwd])
+            except WorkerKilled as exc:
+                return str(exc), time.perf_counter() - t
+            raise AssertionError("the planned kill did not fire")
+
+        kill_msg, killed_s = killed_run()
+        pm = recorder.post_mortem("WorkerKilled", reason=kill_msg)
+        gc_collect(torch)
+        after_kill = torch.cuda.memory_allocated() if cuda else 0
+        saves = metrics.export()["stages"].get("ckpt.save", {})
+        snap_bytes = os.path.getsize(ck)
+        gens = checkpoint.checkpoint_generations(ck)
+        reset_counts()
+        fwd, bwd = executors()
+        sync()
+        t = time.perf_counter()
+        processed = set(checkpoint.restore_streamed_backward_state(ck, bwd))
+        sync()
+        restore_s = time.perf_counter() - t
+        pending = [o for o, _ in bwd._pending_rows]
+        rest = [sg for sg in sgcs if (sg.off0, sg.off1) not in processed]
+        counts_before = read_counts()
+        reset_counts()
+        facets, resumed_s = round_trip(fwd, bwd, rest)
+        counts = read_counts()
+        dig_b = digests(facets)
+        del facets, fwd, bwd
+        peak_b = _peak(torch)
+        b1_fwd = sum(v for key, v in counts["colpass"][1].items() if key[-1])
+        rest_cols = len({sg.off0 for sg in rest})
+        b = {
+            "kill": kill_msg, "killed_run_s": killed_s,
+            "snapshot_gb": snap_bytes / 1e9, "generations": len(gens),
+            "save_s": saves.get("total_s"), "saves": saves.get("count"),
+            "restore_s": restore_s, "processed": len(processed),
+            "pending_columns": len(pending), "resumed_columns": rest_cols,
+            "resumed_s": resumed_s, "peak_device_gib": peak_b / 2**30,
+            "allocated_before_gib": base_alloc / 2**30,
+            "allocated_after_kill_gib": after_kill / 2**30,
+            "b1_forward_launches": b1_fwd,
+            "launches": {k: v[0] for k, v in counts.items()},
+            "restore_launches": {k: v[0] for k, v in counts_before.items()},
+            "bits_equal_phase6": dig_b == phase6["facet_digests"],
+            "post_mortem": {k: pm[k] for k in ("trigger", "reason",
+                                               "n_events", "by_kind")},
+        }
+        out["b"] = b
+        log(f"{config_name} resume (b): {json.dumps(b)}")
+        named = any(e["kind"] == "fault" and "bwd.feed" in e["name"]
+                    and "kill" in str(e["detail"]) for e in pm["events"])
+        want_cols = n_cols - save_groups * col_group
+        want_pending = (save_groups * col_group) % fold_group
+        require(b["bits_equal_phase6"], "resume (b): the resumed facets "
+                "differ from phase 6's")
+        require(b["saves"] == 1 and len(gens) == 1,
+                f"resume (b): {b['saves']} autosaves, generations {gens}")
+        require(len(processed) == save_groups * col_group * S,
+                f"resume (b): the snapshot holds {len(processed)} subgrids")
+        require(len(pending) == want_pending,
+                f"resume (b): {len(pending)} pending columns, not "
+                f"{want_pending}")
+        require(rest_cols == want_cols, f"resume (b): {rest_cols} columns "
+                f"left, not {want_cols}")
+        require(named, "resume (b): the post-mortem does not name the kill")
+        if cuda:
+            require(b1_fwd == want_cols, f"resume (b): the resumed forward "
+                    f"launched B1 {b1_fwd} times, not {want_cols}")
+            require(after_kill <= base_alloc + 64 * 2**20,
+                    f"resume (b): {after_kill / 2**30:.3f} GiB still allocated"
+                    f" after the kill ({base_alloc / 2**30:.3f} before)")
+    finally:
+        faults.uninstall()
+        for mod in (metrics, trace, recorder):
+            mod.disable()
+            mod.reset()
+        if keep_env is None:
+            os.environ.pop("SWIFTLY_CKPT_KEEP", None)
+        else:
+            os.environ["SWIFTLY_CKPT_KEEP"] = keep_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["snapshot_files_left"] = os.path.exists(tmp)
+    require(not out["snapshot_files_left"], "resume: files left behind")
+    gc_collect(torch)
+    return out
+
+
+def _resume_line(res):
+    """Phase 12's JSON record without the per-shape launch counts."""
+    return {k: v for k, v in res.items() if k != "counts"}
 
 
 # -- phase 9: the 128k streamed round trip ---------------------------------
@@ -2596,6 +3011,13 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
     plan = fwd.last_plan
     t_fwd = feed.forward_s()
     peak = _peak(torch)
+    from swiftly_tpu_torch.parallel import streamed as sm
+
+    n_cols = len({sg.off0 for sg in sgcs})
+    S = n // n_cols
+    model = sm.stream_peak_bytes(fwd, n_cols, S, xA,
+                                 *_consumers([bwd], S, xA),
+                                 held=sample_bytes) + before
     out = {"config": config_name, "dtype": "float32", "subgrids": n,
            "facets": F, "facet_size": yB, "last_plan": plan,
            "n_groups": feed.n_groups, "fold_group": fold_group,
@@ -2606,7 +3028,8 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
            "allocated_before_gb": before / 1e9,
            "forward_modelled_gb": _modelled_bytes(fwd, sgcs) / 1e9,
            "launches": {k: v[0] for k, v in counts.items()},
-           "counts": counts, "facet_setup_s": setup_s}
+           "counts": counts, "facet_setup_s": setup_s,
+           "sizer": _sizer_record(f"{config_name} streamed", model, peak)}
     log(f"{config_name} streamed round trip: forward {t_fwd:.3f} s, backward "
         f"{total - t_fwd:.3f} s, plan {json.dumps(plan)}, {feed.n_groups} "
         f"groups, peak {peak / 2**30:.2f} GiB, launches {out['launches']}")
@@ -3444,6 +3867,9 @@ def _args():
     p.add_argument("--spill", action="store_true",
                    help="phase 2, then phase 11 (the partitioned round trip "
                    "over a recorded stream) and phase 7 at its shapes")
+    p.add_argument("--resume", action="store_true",
+                   help="phase 2, then phase 6's round trip (warm and timed, "
+                   "unprofiled) and phase 12 (telemetry, kill and resume)")
     p.add_argument("--serve-full", action="store_true",
                    help="phase 8 serves all its batches (default: the first "
                    f"{VIS_SERVED})")
@@ -3555,6 +3981,13 @@ def main():
         return 0
     if args.spill:
         return spill_only_main(torch)
+    if args.resume:
+        streamed = streamed_main(torch, profile=False)
+        done("streamed")
+        res = resume_main(torch, phase6=streamed)
+        done("resume")
+        log(json.dumps({"resume_32k": _resume_line(res)}))
+        return 0
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
@@ -3588,6 +4021,9 @@ def main():
     streamed = streamed_main(torch)
     done("streamed")
     gc_collect(torch)
+    resume = resume_main(torch, phase6=streamed)
+    done("resume")
+    gc_collect(torch)
     slabs = slabs_main(torch)
     done("slabs")
     gc_collect(torch)
@@ -3613,7 +4049,8 @@ def main():
     timed_shapes = {k: {} for k in checks}
     results = {"fused": fused, "streamed": streamed, "vis": vis,
                "128k": big, "residency": residency,
-               "residency_bodies": residency["bodies"], "spill": spill}
+               "residency_bodies": residency["bodies"], "spill": spill,
+               "resume": resume}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -3645,6 +4082,7 @@ def main():
     log(json.dumps({"slabs_32k": slabs}))
     log(json.dumps({"residency_32k": _residency_line(residency)}))
     log(json.dumps({"spill_32k": _spill_line(spill)}))
+    log(json.dumps({"resume_32k": _resume_line(resume)}))
     log(json.dumps({"streamed_128k": _big_line(big)}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",

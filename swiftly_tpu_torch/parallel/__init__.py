@@ -2,9 +2,15 @@
 whole-cover path and the streamed (facets-resident / sampled) path."""
 
 from . import batched, streamed
-from .streamed import StreamedBackward, StreamedForward, feed_backward_passes
+from .streamed import (
+    CachedColumnFeed,
+    StreamedBackward,
+    StreamedForward,
+    feed_backward_passes,
+)
 
 __all__ = [
+    "CachedColumnFeed",
     "StreamedBackward",
     "StreamedForward",
     "batched",

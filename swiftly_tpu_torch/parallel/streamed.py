@@ -87,10 +87,29 @@ order, so reruns are bit-identical.
 `CachedColumnFeed` is the serving path's view of a recorded stream
 (`utils.spill.SpillCache`): one host row per lookup, version-gated.
 
-Not ported yet (later steps of ROADMAP A): meshes (A8;
-``SwiftlyConfig(mesh=...)`` raises ``NotImplementedError``), autosave and
-the fault points, retries and degradation record on the record and
-replay paths (A7), and the metrics/trace hooks (A9).
+Telemetry and resilience, in the JAX package's vocabulary (`obs`,
+`resilience`): the executors' steps are ``metrics.stage`` sites
+(``fwd.facet_upload``, ``fwd.sampled_facet_pass``, ``fwd.column_pass``,
+``fwd.slab_*``, ``fwd.facet_pass``, ``fwd.drain``, ``bwd.column_pass``,
+``bwd.sampled_fold`` / ``bwd.fft_fold`` / ``bwd.ct_fold``,
+``bwd.facet_pass``, ``bwd.finish``, ``bwd.drain``, ``spill.*``), the
+compute stages with their analytic FLOPs (`utils.flops`); a ``*.drain``
+stage is a wait on an in-flight queue's CUDA event, the only place where
+the host learns of the device's progress (the stages add no
+synchronisation). Counters: ``fwd.subgrids``, ``fwd.passes``,
+``bwd.subgrids_folded``, ``bwd.feed_groups``, ``bwd.feed_passes``,
+``spill.*``; the gauge ``fwd.plan``. Fault sites: ``transfer.d2h`` /
+``transfer.h2d`` (the recording's and the replay's copies, retried on a
+transient error) and ``bwd.feed``; a replay whose cache read stays failed
+falls back to the forward (degradation record ``spill.replay_fallback``).
+A fault or `resilience.WorkerKilled` raised on a worker thread reaches
+the consumer when its group is handed over, and the threads are joined
+and the pinned chunks released on the way out. `StreamedBackward`
+snapshots itself (`utils.checkpoint`) through ``enable_autosave``, at
+group boundaries.
+
+Not ported yet: meshes (ROADMAP A8; ``SwiftlyConfig(mesh=...)`` raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -105,6 +124,8 @@ import time
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from ..ops import kernels
 from ..ops import planar_backend as plk
 from ..ops.core import (
@@ -115,6 +136,10 @@ from ..ops.core import (
     prepare_facet_math,
     scaled_offset,
 )
+from ..resilience import degrade as _degrade
+from ..resilience.faults import fault_point
+from ..resilience.retry import retry_transient
+from ..utils import flops as _flops
 from ..utils.flops import (
     resolve_colpass,
     resolve_colpass_bwd,
@@ -143,6 +168,7 @@ __all__ = [
     "resident_working_set",
     "resolve_fold_mode",
     "sampled_row_indices",
+    "stream_peak_bytes",
 ]
 
 _NP_DTYPES = {
@@ -212,6 +238,22 @@ def _identity(core, n):
     if _planar(core):
         return torch.stack([eye, torch.zeros_like(eye)], dim=-1)
     return eye.to(core.dtype)
+
+
+def _admit(queue, arrays, stage):
+    """``queue.admit(arrays)``, timed as the ``*.drain`` stage `stage`
+    when the admission waits on an older entry's event (the queue is
+    full): the executors' only waits on the device."""
+    if len(queue) + len(arrays) > queue.depth:
+        with _metrics.stage(stage):
+            queue.admit(arrays)
+    else:
+        queue.admit(arrays)
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
+
 
 
 # ---------------------------------------------------------------------------
@@ -1191,6 +1233,13 @@ class _PinnedStaging:
             ev.record(self.stream)
         return out, ev
 
+    def close(self):
+        """Drain the copy stream and release the pinned chunks (after a
+        kill or a fault, before the staging is dropped)."""
+        self.stream.synchronize()
+        self._bufs = None
+        self._events = [None, None]
+
 
 class _StreamRecorder:
     """Records a column-group stream into a spill cache, off the
@@ -1206,12 +1255,19 @@ class _StreamRecorder:
     is held back (the sizers price it: ``spill_out_stacks``). Entries are
     ordinary host arrays, as ``get_row`` and the disk tier expect. After an
     eviction (``gave_up``) nothing more is copied. On the CPU each group is
-    copied and put inline."""
+    copied and put inline.
+
+    The copy is the fault site ``transfer.d2h``, retried on a transient
+    error (``spill.write`` stage, ``spill.writes`` / ``spill.bytes_written``
+    counters). An error or `resilience.WorkerKilled` raised on the worker
+    reaches the consumer at the next `put` or at `close`; `close` joins the
+    worker and releases the pinned chunks either way."""
 
     def __init__(self, spill, device):
         self._spill = spill
         self._cuda = device.type == "cuda"
         self._fut = None
+        self._tctx = _trace.current()
         self._stats = {"mode": "record", "groups": 0, "bytes": 0,
                        "land_s": 0.0, "blocked_s": 0.0}
         self._staging = _PinnedStaging(device) if self._cuda else None
@@ -1226,7 +1282,15 @@ class _StreamRecorder:
         self._stats["bytes"] += out_g.numel() * out_g.element_size()
         if not self._cuda:
             t0 = time.perf_counter()
-            self._spill.put(meta, out_g.detach().numpy().copy())
+
+            def pull():
+                fault_point("transfer.d2h")
+                with _metrics.stage("spill.write") as st:
+                    host = out_g.detach().numpy().copy()
+                    st.bytes_moved = host.nbytes
+                return host
+
+            self._store(meta, retry_transient(pull, site="transfer.d2h"))
             self._stats["land_s"] += time.perf_counter() - t0
             return
         self._wait()
@@ -1241,24 +1305,41 @@ class _StreamRecorder:
             fut.result()
             self._stats["blocked_s"] += time.perf_counter() - t0
 
+    def _store(self, meta, host):
+        if not self._spill.gave_up and self._spill.put(meta, host):
+            _metrics.count("spill.writes")
+            _metrics.count("spill.bytes_written", int(host.nbytes))
+
     def _record(self, meta, out_g, ready):
+        if _trace.current() != self._tctx:
+            _trace.adopt(self._tctx)
         t0 = time.perf_counter()
         host = torch.empty(out_g.shape, dtype=out_g.dtype)
-        self._staging.to_host(out_g, host, ready)
+
+        def pull():
+            fault_point("transfer.d2h")
+            with _metrics.stage("spill.write") as st:
+                self._staging.to_host(out_g, host, ready)
+                st.bytes_moved = _nbytes(host)
+
+        retry_transient(pull, site="transfer.d2h")
         del out_g
-        if not self._spill.gave_up:
-            self._spill.put(meta, host.numpy())
+        self._store(meta, host.numpy())
         self._stats["land_s"] += time.perf_counter() - t0
 
     def close(self, wait=True):
         """Wait for the last recording (raising the worker's error, if
-        any); with ``wait=False`` (an abandoned stream) only stop the
-        worker."""
+        any); with ``wait=False`` (an abandoned stream: a fault, a kill)
+        only stop the worker. Either way the worker is joined, the copy
+        stream drained and the pinned chunks released."""
         if self._pool is None:
             return
-        if wait:
-            self._wait()
-        self._pool.shutdown(wait=True, cancel_futures=not wait)
+        try:
+            if wait:
+                self._wait()
+        finally:
+            self._pool.shutdown(wait=True, cancel_futures=not wait)
+            self._staging.close()
 
     def stats(self):
         return dict(self._stats)
@@ -1431,15 +1512,17 @@ class StreamedForward:
                     planes_of(d))))
             return out
 
-        if self._facets_sparse:
-            self._dev_facets = (self._synth_slab(0, F),)
-        elif self._facets_real:
-            self._dev_facets = (upload(lambda d: d),)
-        elif _planar(core):
-            self._dev_facets = (upload(lambda d: d[..., 0]),
-                                upload(lambda d: d[..., 1]))
-        else:
-            self._dev_facets = (upload(lambda d: d),)
+        with _metrics.stage("fwd.facet_upload") as st:
+            if self._facets_sparse:
+                self._dev_facets = (self._synth_slab(0, F),)
+            elif self._facets_real:
+                self._dev_facets = (upload(lambda d: d),)
+            elif _planar(core):
+                self._dev_facets = (upload(lambda d: d[..., 0]),
+                                    upload(lambda d: d[..., 1]))
+            else:
+                self._dev_facets = (upload(lambda d: d),)
+            st.bytes_moved = sum(_nbytes(t) for t in self._dev_facets)
 
     def _hbm_budget(self):
         """Device bytes this executor may use (None = unlimited: the CPU).
@@ -1523,22 +1606,48 @@ class StreamedForward:
         self.last_plan = {"mode": "resident", "col_group": G,
                           "colpass": colpass}
         ops = self._operators() if colpass != "fft" else None
+        fp_flops = cp_flops = 0
+        if _metrics.enabled():
+            _metrics.gauge("fwd.plan", dict(self.last_plan))
+            S = len(next(iter(groups.values())))
+            F = base.stack.n_real
+            fp_flops = _flops.sampled_facet_pass_flops(
+                core, F, yB, core.xM_yN_size, self._facets_real)
+            cp_flops = _flops.column_pass_flops(core, F, S, subgrid_size,
+                                                colpass)
         inflight = FlightQueue(1)
         for g0 in range(0, len(col_offs0), G):
             grp = col_offs0[g0:g0 + G]
-            krows, sg_offs_g, m0_g, m1_g = _group_tensors(core, groups, grp)
-            buf = _facet_pass_sampled(core, self._dev_facets, e0, krows,
-                                      self._facets_real)
-            out_g = _column_pass_fwd_group(
-                core, subgrid_size, colpass, ops, buf, base._foffs0,
-                base._foffs1, sg_offs_g, m0_g, m1_g)  # [G, S, xA, xA(,2)]
-            del buf
-            inflight.admit([out_g])
+            # one span a column group, closed before the yield (a
+            # generator's context is the consumer's between yields)
+            with _trace.span("fwd.column_group", cat="fwd", group=g0 // G,
+                             n_cols=len(grp)):
+                krows, sg_offs_g, m0_g, m1_g = _group_tensors(core, groups,
+                                                              grp)
+                with _metrics.stage("fwd.sampled_facet_pass",
+                                    flops=fp_flops * len(grp)):
+                    buf = _facet_pass_sampled(core, self._dev_facets, e0,
+                                              krows, self._facets_real)
+                with _metrics.stage("fwd.column_pass",
+                                    flops=cp_flops * len(grp)):
+                    out_g = _column_pass_fwd_group(
+                        core, subgrid_size, colpass, ops, buf, base._foffs0,
+                        base._foffs1, sg_offs_g, m0_g, m1_g)  # [G, S, xA, xA(,2)]
+                del buf
+                _admit(inflight, [out_g], "fwd.drain")
+            self._count_group(groups, grp)
             if whole_groups:
                 yield [_real_items(groups[off0]) for off0 in grp], out_g
                 continue
             for gi, off0 in enumerate(grp):
                 yield _real_items(groups[off0]), out_g[gi]
+
+    @staticmethod
+    def _count_group(groups, grp):
+        if _metrics.enabled():
+            _metrics.count("fwd.subgrids", sum(len(_real_items(groups[o]))
+                                               for o in grp))
+            _metrics.count("fwd.column_groups")
 
     def _grouped_device_columns(self, groups, subgrid_size, facet_group,
                                 whole_groups=False):
@@ -1590,7 +1699,8 @@ class StreamedForward:
         else:
             G = grouped_col_group_for_budget(
                 base, budget, len(col_offs0), S, subgrid_size,
-                self._facets_real, Fg, 1, slab_depth=depth,
+                self._facets_real, Fg, 1,
+                slab_depth=1 if self._facets_sparse else depth,
                 extra_out_stacks=self.spill_out_stacks)
         G = min(G, len(col_offs0))
         n_groups = -(-len(col_offs0) // G)
@@ -1607,6 +1717,15 @@ class StreamedForward:
                              else "host"),
             "colpass": colpass, "stream_prefetch": use_prefetch,
         }
+        fp_flops = step_flops = 0
+        if _metrics.enabled():
+            _metrics.gauge("fwd.plan", dict(self.last_plan))
+            fp_flops = _flops.sampled_facet_pass_flops(
+                core, Fg, yB, core.xM_yN_size, self._facets_real)
+            # the whole column pass's FLOPs attributed to the slab step (the
+            # group finish's crop is folded in)
+            step_flops = _flops.column_pass_flops(core, Fg, S, subgrid_size,
+                                                  colpass)
 
         # per-slab facet metadata, zero-padded to F_pad facets
         pad = np.zeros(F_pad - F_total, np.int64)
@@ -1636,9 +1755,17 @@ class StreamedForward:
             if ev is not None:
                 ev.synchronize()
 
+        tctx = _trace.current()
+
         def fill(d):
             """Stage slab d (facets from (d % n_slabs) * Fg) in its pinned
             buffer, once the copy that last read the buffer has run."""
+            if _trace.current() != tctx:
+                _trace.adopt(tctx)
+            with _metrics.stage("fwd.slab_prefetch"):
+                return _fill(d)
+
+        def _fill(d):
             wait(copied, d - n_stage)
             bufs = stage[d % n_stage]
             s0 = (d % n_slabs) * Fg
@@ -1686,39 +1813,53 @@ class StreamedForward:
         try:
             for g0 in range(0, len(col_offs0), G):
                 grp = col_offs0[g0:g0 + G]
+                # one span a column group, entered and exited explicitly so
+                # it closes before the yield
+                grp_span = _trace.span("fwd.column_group", cat="fwd",
+                                       group=g0 // G, n_cols=len(grp))
+                grp_span.__enter__()
                 krows, sg_offs_g, m0_g, m1_g = _group_tensors(core, groups,
                                                               grp)
                 acc = torch.zeros((len(grp), S, xM, xM) + _tail(core),
                                   dtype=core.dtype, device=dev)
                 for s0 in range(0, F_pad, Fg):
-                    if self._facets_sparse:
-                        slab = (self._synth_slab(s0, s0 + Fg),)
-                    else:
-                        if fut is not None and fut[0] == d:
-                            bufs = fut[1].result()
+                    with _metrics.stage("fwd.slab_upload") as st:
+                        if self._facets_sparse:
+                            slab = (self._synth_slab(s0, s0 + Fg),)
                         else:
-                            bufs = fill(d)
-                        fut = None
-                        slab = upload(d, bufs)
-                        if prefetch is not None and d + 1 < n_dispatch:
-                            fut = (d + 1, prefetch.submit(fill, d + 1))
+                            if fut is not None and fut[0] == d:
+                                bufs = fut[1].result()
+                            else:
+                                bufs = fill(d)
+                            fut = None
+                            slab = upload(d, bufs)
+                            if prefetch is not None and d + 1 < n_dispatch:
+                                fut = (d + 1, prefetch.submit(fill, d + 1))
+                        st.bytes_moved = sum(_nbytes(t) for t in slab)
                     sl = slice(s0, s0 + Fg)
-                    buf = _facet_pass_sampled(core, slab, e0[sl], krows,
-                                              self._facets_real)
+                    with _metrics.stage("fwd.sampled_facet_pass",
+                                        flops=fp_flops * len(grp)):
+                        buf = _facet_pass_sampled(core, slab, e0[sl], krows,
+                                                  self._facets_real)
                     del slab
                     ops = None if colpass == "fft" else (A0[sl], B1[sl])
-                    _column_slab_step(core, colpass, ops, buf, foffs0[sl],
-                                      foffs1[sl], sg_offs_g, acc)
+                    with _metrics.stage("fwd.slab_step",
+                                        flops=step_flops * len(grp)):
+                        _column_slab_step(core, colpass, ops, buf, foffs0[sl],
+                                          foffs1[sl], sg_offs_g, acc)
                     del buf
                     if cuda and not self._facets_sparse:
                         ev = torch.cuda.Event()
                         ev.record(torch.cuda.current_stream(dev))
                         stepped[d] = ev
                     d += 1
-                out_g = _column_group_finish(core, colpass, subgrid_size, acc,
-                                             sg_offs_g, m0_g, m1_g)
+                with _metrics.stage("fwd.group_finish"):
+                    out_g = _column_group_finish(core, colpass, subgrid_size,
+                                                 acc, sg_offs_g, m0_g, m1_g)
                 del acc
-                inflight.admit([out_g])
+                _admit(inflight, [out_g], "fwd.drain")
+                grp_span.__exit__(None, None, None)
+                self._count_group(groups, grp)
                 if whole_groups:
                     yield [_real_items(groups[off0]) for off0 in grp], out_g
                     continue
@@ -1782,11 +1923,14 @@ class StreamedForward:
             if out is None:
                 out = torch.empty((len(col_offs0), F, core.xM_yN_size, Cb) +
                                   _tail(core), dtype=core.dtype, device=dev)
-            _facet_pass_fwd(core, block, base._foffs0, col_offs0, out)
+            with _metrics.stage("fwd.facet_pass"):
+                _facet_pass_fwd(core, block, base._foffs0, col_offs0, out)
             del block
             d2h += out.numel() * out.element_size()
-            pipe.put(j0, out)
-        pipe.flush()
+            with _metrics.stage("fwd.d2h", bytes_moved=_nbytes(out)):
+                pipe.put(j0, out)
+        with _metrics.stage("fwd.d2h"):
+            pipe.flush()
         self._nmbf = buf
         self._col_index = {int(o): k for k, o in enumerate(col_offs0)}
         return {"facet_pass_s": time.perf_counter() - t0,
@@ -1813,18 +1957,27 @@ class StreamedForward:
             self._pass_stats, mode="host", col_block=base.col_block,
             n_blocks=base._n_blocks, colpass=colpass, column_uploads=0,
             column_upload_bytes=0)
+        cp_flops = 0
+        if _metrics.enabled():
+            _metrics.gauge("fwd.plan", dict(plan))
+            cp_flops = _flops.column_pass_flops(
+                core, base.stack.n_real, len(next(iter(groups.values()))),
+                subgrid_size, colpass)
         inflight = FlightQueue(2)
         for off0 in col_offs0:
             host = self._nmbf[self._col_index[int(off0)]]
-            NMBF = host.to(dev, non_blocking=dev.type == "cuda")[:, :, :yB]
+            with _metrics.stage("fwd.h2d", bytes_moved=_nbytes(host)):
+                NMBF = host.to(dev, non_blocking=dev.type == "cuda")[:, :, :yB]
             plan["column_uploads"] += 1
             plan["column_upload_bytes"] += host.numel() * host.element_size()
             _, sg_offs, m0, m1 = _group_tensors(core, groups, [off0])
-            out = _column_pass_fwd(core, subgrid_size, colpass, ops, NMBF,
-                                   base._foffs0, base._foffs1, sg_offs[0],
-                                   m0[0], m1[0])
+            with _metrics.stage("fwd.column_pass", flops=cp_flops):
+                out = _column_pass_fwd(core, subgrid_size, colpass, ops, NMBF,
+                                       base._foffs0, base._foffs1, sg_offs[0],
+                                       m0[0], m1[0])
             del NMBF
-            inflight.admit([out])
+            _admit(inflight, [out], "fwd.drain")
+            self._count_group(groups, [off0])
             yield _real_items(groups[off0]), out
 
     def stream_column_groups(self, subgrid_configs, spill=None):
@@ -1871,6 +2024,7 @@ class StreamedForward:
                     f"(tag {spill.tag} != {spill_tag}); reset() it or "
                     "pass the cover it was recorded for"
                 )
+            _metrics.count("spill.replay_feeds")
             n_yielded = 0
             try:
                 for item in self._replay_spilled_groups(spill):
@@ -1886,6 +2040,12 @@ class StreamedForward:
                     "running the forward for the rest of this pass",
                     n_yielded, type(exc).__name__, exc,
                 )
+                _degrade.record(
+                    "spill", "replay_fallback",
+                    f"group {n_yielded}: {type(exc).__name__}: {exc}",
+                )
+                _metrics.count("spill.fallback_replays")
+                _metrics.count("fwd.passes")
                 spill.gave_up = True
                 spill.complete = False
                 self.last_spill = dict(self.last_spill or {},
@@ -1901,8 +2061,10 @@ class StreamedForward:
             # overflow again, so run the forward without the copies
             spill = None
             self.last_spill = {"mode": "forward-gave-up"}
+            _metrics.count("spill.fallback_replays")
         elif spill is None:
             self.last_spill = None
+        _metrics.count("fwd.passes")
         if spill is None:
             yield from self._sampled_generator(groups, size,
                                                whole_groups=True)
@@ -1952,17 +2114,34 @@ class StreamedForward:
         stats = self.last_spill = {
             "mode": "replay", "groups": 0, "bytes": 0, "read_s": 0.0,
             "blocked_s": 0.0, "prefetch_thread": use_thread}
+        tctx = _trace.current()
 
         def prepare(k):
             """Entry k on the device (a private host copy on the CPU), and
-            the event its upload records."""
+            the event its upload records: the cache read (``spill.read``,
+            retried inside the cache) and the upload (the fault site
+            ``transfer.h2d``, retried on a transient error)."""
+            # the worker adopts the caller's span, so its stages nest under
+            # the feed in the timeline
+            if _trace.current() != tctx:
+                _trace.adopt(tctx)
             t0 = time.perf_counter()
-            host = spill.get(k)
-            if cuda:
-                out, ev = staging.to_device(
-                    torch.from_numpy(np.ascontiguousarray(host)))
-            else:
-                out, ev = torch.from_numpy(np.array(host)), None
+            with _metrics.stage("spill.read") as st:
+                host = spill.get(k)
+                st.bytes_moved = int(host.nbytes)
+
+            def upload():
+                fault_point("transfer.h2d")
+                with _metrics.stage("spill.h2d") as st:
+                    if cuda:
+                        out, ev = staging.to_device(
+                            torch.from_numpy(np.ascontiguousarray(host)))
+                    else:
+                        out, ev = torch.from_numpy(np.array(host)), None
+                    st.bytes_moved = _nbytes(out)
+                return out, ev
+
+            out, ev = retry_transient(upload, site="transfer.h2d")
             stats["read_s"] += time.perf_counter() - t0
             stats["bytes"] += out.numel() * out.element_size()
             return out, ev
@@ -1977,6 +2156,7 @@ class StreamedForward:
                 if fut is not None:
                     out, ev = fut.result()
                     fut = ex.submit(prepare, k + 1) if k + 1 < n else None
+                    _metrics.count("spill.async_reads")
                 else:
                     out, ev = prepare(k)
                 if ev is not None:
@@ -1990,6 +2170,8 @@ class StreamedForward:
         finally:
             if ex is not None:
                 ex.shutdown(wait=True, cancel_futures=True)
+            if staging is not None:
+                staging.close()
 
     def stream_columns(self, subgrid_configs, device_arrays=False):
         """Yield (col_items, subgrids) per column: `col_items` is the
@@ -1999,12 +2181,23 @@ class StreamedForward:
         subgrid_configs = list(subgrid_configs)
         groups = _group_full_columns(subgrid_configs)
         size = subgrid_configs[0].size
+        _metrics.count("fwd.passes")
         if self._base.residency == "device":
             gen = self._sampled_generator(groups, size)
         else:
             gen = self._host_columns(groups, size)
+
+        def pull(out):
+            fault_point("transfer.d2h")
+            with _metrics.stage("fwd.d2h") as st:
+                host = out.cpu().numpy()
+                st.bytes_moved = host.nbytes
+            return host
+
         for items, out in gen:
-            yield items, (out if device_arrays else out.cpu().numpy())
+            yield items, (out if device_arrays else
+                          retry_transient(lambda: pull(out),
+                                          site="transfer.d2h"))
 
     def all_subgrids(self, subgrid_configs):
         """Every subgrid, in request order, as one host array
@@ -2030,90 +2223,128 @@ def facet_stack_bytes(base, real=False):
     return base.stack.n_total * yB * yB * per_el
 
 
+# -- device-memory pricing ---------------------------------------------------
+#
+# The sizers price the buffers the port's bodies hold, in bytes, from the
+# geometry (held to the peaks ``torch.cuda.max_memory_allocated`` reads on
+# the card by ``chip_smoke.py``). Per column of a group: the sampled rows
+# [F, m, yB(,2)], the finished subgrids [S, xA, xA(,2)] and (slab stream)
+# the pre-finish partials [S, xM, xM(,2)]. Flat: the facets (or slabs) and
+# one column's transients, at the larger of the column pass's two phases
+# (the prepare FFT of the rows [F, m, yN]: the embedded rows, the FFT's
+# output and three rows' worth of factored-FFT planes, beside the weighted
+# input rows; the gather and B1's partials with the crop) and the sampled
+# pass's products.
+
+_RESERVE_BYTES = 0.5e9  # operators, phase tables, group tensors, cuBLAS
+
+
+def _sizes(core):
+    """(dsize, rsize): bytes of one element in the core's layout (a planar
+    (re, im) pair counts both), and of one real."""
+    rsize = torch.empty((), dtype=core.real_dtype).element_size()
+    return rsize * 2, rsize
+
+
+def _column_transients(core, F, S, subgrid_size, yB):
+    """Device bytes of one forward column pass's transients beside its
+    input rows and its output stack (the larger of its phases)."""
+    dsize, _ = _sizes(core)
+    m, xM, yN, xA = core.xM_yN_size, core.xM_size, core.yN_size, subgrid_size
+    rows_b = F * m * yN
+    prepare = 5 * rows_b + F * m * yB  # + the weighted input rows
+    Sb = min(_colpass_sblock(), S)
+    Sb = -(-S // -(-S // Sb))  # executed blocks are rebalanced
+    mode = resolve_colpass(core, F)
+    if mode == "fft":
+        body = rows_b + 2 * S * F * xM * xM
+    elif mode == "einsum":
+        body = rows_b + Sb * F * m * (m + 2 * xM) + 2 * S * xM * xM
+    else:
+        body = rows_b + Sb * F * m * m + 2 * Sb * xM * xM + S * xM * xM
+    body += S * xA * (xM + xA)  # the crop
+    return max(prepare, body) * dsize
+
+
+def _sampled_transients(core, F, yB):
+    """Device bytes of the sampled facet pass's transients (one column's m
+    rows at a time): the int64 residues, the (A_re, A_im) planes, the
+    products' planes."""
+    dsize, rsize = _sizes(core)
+    m = core.xM_yN_size
+    return m * yB * (2 * 8 + 2 * rsize) + 3 * F * m * yB * dsize
+
+
+def resident_working_set(base, real=False, extra_out_stacks=0):
+    """(flat bytes, bytes per unit G) of the facets-resident stream's
+    device working set, as ``col_group_for_budget`` prices it: flat, the
+    facet stack, one column's transients (`_column_transients`, or the
+    sampled pass's where larger) and a reserve; per column of a group, its
+    sampled rows [F, m, yB(,2)], its group tensors, and its finished
+    subgrids [S, xA, xA(,2)] twice (the group's stack beside the previous
+    one, which the consumer and the generator hold while the next group
+    computes), plus `extra_out_stacks` more."""
+    core = base.core
+    dsize, rsize = _sizes(core)
+    yB = base.stack.size
+    F = base.stack.n_total
+    m = core.xM_yN_size
+    xA = base.config.max_subgrid_size
+    S = -(-core.N // xA)
+    flat = (facet_stack_bytes(base, real) + _RESERVE_BYTES
+            + max(_column_transients(core, F, S, xA, yB),
+                  _sampled_transients(core, F, yB)))
+    col_b = (F * m * yB + (2 + extra_out_stacks) * S * xA * xA) * dsize
+    col_b += S * (2 * xA * rsize + 16)  # masks and offsets
+    return flat, col_b
+
+
 def col_group_for_budget(base, budget, n_cols, real=False,
                          extra_out_stacks=0):
     """Largest sampled-DFT column group G whose working set fits `budget`
-    bytes on the device (facet stack + per-G buffers).
-
-    The JAX package's formula (``swiftly_tpu/parallel/streamed.py:3829``).
-    Live per unit G: the sampled group buffer and its product transients
-    (3 * F*m*yB) and the in-flight output stacks (2 * S*xA^2). Flat: the
-    facet stack, one column's transients (prepared rows, the gather block
-    or the reference's einsum body's [F, xM, yN] H buffer, more than the
-    port's gather-first einsum body holds, the partials) and a 0.4 GB
-    reserve for tables and fragmentation. The reserve is the reference's
-    value; it was not calibrated on the port's device.
-    """
+    bytes on the device (the JAX package's signature,
+    ``swiftly_tpu/parallel/streamed.py:3829``), pricing the port's own
+    buffers (`resident_working_set`): flat + G * per column <= budget."""
     flat, col_b = resident_working_set(base, real, extra_out_stacks)
-    facets_b = facet_stack_bytes(base, real)
     headroom = budget - flat
     if headroom <= col_b:
         logger.warning(
             "device memory budget %.2f GiB cannot fit the resident facet "
-            "stack (%.2f GiB) plus one column group (%.2f GiB); proceeding "
-            "with G=1 - expect an out-of-memory error",
-            budget / 2**30, facets_b / 2**30, col_b / 2**30,
+            "stack and one column's transients (%.2f GiB) plus one column "
+            "group (%.2f GiB); proceeding with G=1 - expect an "
+            "out-of-memory error",
+            budget / 2**30, flat / 2**30, col_b / 2**30,
         )
     G = int(headroom // col_b)
     return max(1, min(n_cols, G))
 
 
-def resident_working_set(base, real=False, extra_out_stacks=0):
-    """(flat bytes, bytes per unit G) of the facets-resident stream's
-    device working set, as ``col_group_for_budget`` prices it."""
-    core = base.core
-    dsize = _np_dtype(core).itemsize * (2 if _planar(core) else 1)
-    yB = base.stack.size
-    facets_b = facet_stack_bytes(base, real)
-    F = len(base.stack)
-    reserve = 0.4e9
-    m = core.xM_yN_size
-    xA = base.config.max_subgrid_size
-    xM = core.xM_size
-    S = -(-core.N // xA)
-    Sb = min(_colpass_sblock(), S)
-    Sb = -(-S // -(-S // Sb))  # executed blocks are rebalanced
-    if resolve_colpass(core, F) == "einsum":
-        flat_col = (
-            F * m * core.yN_size
-            + F * xM * (2 * core.yN_size + m)
-            + Sb * F * xM * m
-            + S * xM * xM
-        ) * dsize
-    else:
-        flat_col = (
-            F * m * core.yN_size + 2 * Sb * F * m * m + S * xM * xM
-        ) * dsize
-    col_b = (3 * F * m * yB + (2 + extra_out_stacks) * S * xA * xA) * dsize
-    return facets_b + reserve + flat_col, col_b
-
-
 def grouped_working_set(base, S, subgrid_size, real, facet_group, chunk,
                         slab_depth=2, extra_out_stacks=0):
     """(flat bytes, bytes per unit G) of the facet-slab stream's device
-    working set, as ``grouped_col_group_for_budget`` prices it."""
+    working set, as ``grouped_col_group_for_budget`` prices it: flat,
+    `slab_depth` facet slabs, the sampled pass's transients or `chunk`
+    columns' column-pass transients (the larger), and a reserve; per column
+    of a group, the slab's sampled rows [Fg, m, yB(,2)], the pre-finish
+    partials [S, xM, xM(,2)], the group tensors, and the finished subgrids
+    [S, xA, xA(,2)] twice (beside the previous group's) plus
+    `extra_out_stacks` more."""
     core = base.core
-    dsize = _np_dtype(core).itemsize * (2 if _planar(core) else 1)
-    rsize = torch.empty((), dtype=core.real_dtype).element_size()
+    dsize, rsize = _sizes(core)
     fsize = rsize if real else dsize
     yB = base.stack.size
     m = core.xM_yN_size
     xM = core.xM_size
-    yN = core.yN_size
     xA = subgrid_size
     Fg = facet_group
     slab_b = slab_depth * Fg * yB * yB * fsize
-    sampled_b = m * yB * (3 * 8 + 2 * rsize) + 4 * Fg * m * yB * dsize
-    Sb = min(_colpass_sblock(), S)
-    Sb = -(-S // -(-S // Sb))  # executed blocks are rebalanced
-    if resolve_colpass(core, Fg) == "einsum":
-        body = Fg * Sb * m * (m + xM) + Sb * xM * xM
-    else:
-        body = 2 * Sb * Fg * m * m
-    chunk_b = chunk * (4 * Fg * m * yN + body + 2 * S * xM * xM) * dsize
+    flat = slab_b + _RESERVE_BYTES + max(
+        chunk * _column_transients(core, Fg, S, xA, yB),
+        _sampled_transients(core, Fg, yB))
     per_G = (Fg * m * yB + S * xM * xM
              + (2 + extra_out_stacks) * S * xA * xA) * dsize
-    return slab_b + sampled_b + chunk_b + 0.6e9, per_G
+    per_G += S * (2 * xA * rsize + 16)
+    return flat, per_G
 
 
 def grouped_col_group_for_budget(base, budget, n_cols, S, subgrid_size, real,
@@ -2123,17 +2354,10 @@ def grouped_col_group_for_budget(base, budget, n_cols, S, subgrid_size, real,
     fits `budget` bytes on the device.
 
     The JAX package's signature (``swiftly_tpu/parallel/streamed.py:3727``),
-    pricing the port's own buffers (``grouped_working_set``). Flat:
-    `slab_depth` facet slabs; the sampled pass's per-column transients (the
-    int64 residue matrix [m, yB], the (A_re, A_im) phase planes and the
-    products' planes); `chunk` columns' column-pass transients (the
-    prepared rows [Fg, m, yN] with their FFT's planes, the gather block and
-    B1's or the einsum's partials, the crop), the executor running one
-    column at a time (chunk 1); and a 0.6 GB reserve for tables and
-    fragmentation (the reference's). Per unit G: the slab's sampled rows
-    [Fg, m, yB], the pre-finish accumulator [S, xM, xM], and the finished
-    stack plus one in flight (and `extra_out_stacks` more) [S, xA, xA].
-    ``warn=False`` sizes quietly.
+    pricing the port's own buffers (`grouped_working_set`): flat + G * per
+    column <= budget; `slab_depth` is the number of slabs the stream holds
+    at once (1 where the slabs are synthesised on the device, one at a
+    time). ``warn=False`` sizes quietly.
     """
     flat, per_G = grouped_working_set(base, S, subgrid_size, real,
                                       facet_group, chunk, slab_depth,
@@ -2149,6 +2373,59 @@ def grouped_col_group_for_budget(base, budget, n_cols, S, subgrid_size, real,
         )
     G = int(headroom // per_G)
     return max(1, min(G, -(-n_cols // chunk) * chunk))
+
+
+def stream_peak_bytes(forward, n_cols, S, subgrid_size, resting=0, active=0,
+                      held=0):
+    """The modelled device peak of `forward`'s last sampled stream (its
+    ``last_plan``) over `n_cols` columns of `S` subgrids, beside consumers
+    that hold `resting` bytes between groups and `active` bytes (all of
+    them, one at work) while one folds a group, and `held` bytes the
+    caller keeps. The largest of the stream's phases: each group's
+    sampled pass and column passes (or slab steps and finish) beside the
+    previous group's stack and, from the second group on, the consumers'
+    resting state (a consumer allocates at its first fold); each group in
+    the consumers' hands."""
+    base = forward._base
+    core = base.core
+    plan = forward.last_plan
+    dsize, rsize = _sizes(core)
+    yB = base.stack.size
+    m, xM, xA = core.xM_yN_size, core.xM_size, subgrid_size
+    G = int(plan["col_group"])
+    sizes = [min(G, n_cols - g0) for g0 in range(0, n_cols, G)]
+    out_c = S * xA * xA * dsize
+    tens_c = S * (2 * xA * rsize + 16)
+    real = forward._facets_real
+    if plan["mode"] == "resident":
+        F = base.stack.n_total
+        buf_c = F * m * yB * dsize
+        facets = facet_stack_bytes(base, real) + _RESERVE_BYTES
+        T = max(_column_transients(core, F, S, xA, yB),
+                _sampled_transients(core, F, yB))
+        phases = [facets + T + g * (buf_c + out_c + tens_c)
+                  + (sizes[k - 1] * out_c + resting if k else 0)
+                  for k, g in enumerate(sizes)]
+        phases += [facets + g * (out_c + tens_c) + active for g in sizes]
+        return max(phases) + held
+    Fg = int(plan["facet_group"])
+    slab_b = Fg * yB * yB * (rsize if real else dsize)
+    if forward._facets_sparse:  # one slab synthesised at a time
+        ring, slab = 0, slab_b
+    else:  # the device ring of host slabs, held throughout
+        ring, slab = int(plan["slab_depth"]) * slab_b, 0
+    acc_c = S * xM * xM * dsize
+    buf_c = Fg * m * yB * dsize
+    T = max(_column_transients(core, Fg, S, xA, yB),
+            _sampled_transients(core, Fg, yB))
+    fin = S * xA * (xM + xA) * dsize
+    phases = []
+    for k, g in enumerate(sizes):
+        before = sizes[k - 1] * out_c + resting if k else 0
+        phases.append(slab + T + g * (acc_c + buf_c + tens_c) + before)
+        phases.append(fin + g * (acc_c + out_c + tens_c) + before)
+        phases.append(g * (out_c + tens_c) + active)
+    return max(phases) + ring + _RESERVE_BYTES + held
 
 
 # ---------------------------------------------------------------------------
@@ -2288,22 +2565,58 @@ def feed_backward_passes(forward, subgrid_configs, backwards, spill=None,
         first feed records the stream into it, later feeds replay it
         (``StreamedForward.stream_column_groups``)
     :param progress: optional callable(n_subgrids_folded)
-    :param feed_index: this feed's position in a schedule (kept for the
-        reference's signature; the metrics it labels are ROADMAP A9)
+    :param feed_index: this feed's position in a schedule (0-based): an
+        uncached later feed (index > 0, the forward run again) records its
+        wall as ``fwd.replay`` instead of ``bwd.feed_group``
     :returns: number of column groups fed
+
+    Telemetry (the JAX package's): the whole feed is one
+    ``bwd.feed_group`` trace span; the wall spent blocked on the stream
+    (the generator's advance: the forward, or a cache read and upload) is
+    observed as the ``bwd.feed_group`` stage, with the cache-fed bytes, or
+    as ``fwd.replay`` for an uncached later feed; counters
+    ``bwd.feed_groups`` (feeds run) and ``bwd.feed_passes`` (passes
+    served). A kill or an error in a pass closes the stream on the way out
+    (its worker threads joined, its pinned chunks released).
     """
     backwards = list(backwards)
     if not backwards:
         return 0
+    cached = spill is not None and spill.complete
     n_groups = 0
-    for per_col, group in forward.stream_column_groups(subgrid_configs,
-                                                        spill=spill):
-        n_groups += 1
-        cols = [[sg for _, sg in col] for col in per_col]
-        for bwd in backwards:
-            bwd.add_subgrid_group(cols, group)
-        if progress is not None:
-            progress(sum(len(c) for c in cols) * len(backwards))
+    feed_wall = 0.0
+    feed_bytes = 0
+    with _trace.span("bwd.feed_group", cat="bwd", n_passes=len(backwards),
+                     feed_index=feed_index):
+        gen = forward.stream_column_groups(subgrid_configs, spill=spill)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    per_col, group = next(gen)
+                except StopIteration:
+                    break
+                feed_wall += time.perf_counter() - t0
+                if cached:
+                    feed_bytes += _nbytes(group)
+                n_groups += 1
+                cols = [[sg for _, sg in col] for col in per_col]
+                for bwd in backwards:
+                    bwd.add_subgrid_group(cols, group)
+                del group
+                if progress is not None:
+                    progress(sum(len(c) for c in cols) * len(backwards))
+        finally:
+            gen.close()
+    if _metrics.enabled():
+        _metrics.count("bwd.feed_groups")
+        _metrics.count("bwd.feed_passes", len(backwards))
+        if feed_index is not None and feed_index > 0 and not cached:
+            # an uncached later feed ran the forward again: replay cost
+            _metrics.observe("fwd.replay", feed_wall, bytes_moved=feed_bytes)
+        else:
+            _metrics.observe("bwd.feed_group", feed_wall,
+                             bytes_moved=feed_bytes)
     return n_groups
 
 
@@ -2376,8 +2689,102 @@ class StreamedBackward:
         self._fold_inflight = FlightQueue(2)
         self._rows_inflight = FlightQueue(2)
         self._finished = False
-        # (off0, off1) of every folded subgrid
+        # (off0, off1) of every folded subgrid: the resume ledger the
+        # autosave snapshots and `utils.checkpoint` restores
         self.processed = []
+        self._autosave = None
+
+    def enable_autosave(self, path, every_subgrids=0, every_s=0.0):
+        """Periodic checkpoints driven by the feed: a snapshot to `path`
+        (atomic, checksummed, keep-N rotated: `utils.checkpoint`) once
+        `every_subgrids` subgrids were folded since the last one and/or
+        `every_s` seconds of wall clock passed, whichever comes first,
+        checked at the end of each `add_subgrid_group` (a whole forward
+        column group) and each `add_subgrid_stack`. The snapshot carries
+        ``processed``, so a killed run resumes through
+        `utils.checkpoint.restore_streamed_backward_state` and skips the
+        processed subgrids; the sampled residency's pending fold rows are
+        in it, so the resumed run keeps the bits of an undisturbed one.
+        Costs a counter until a save is due. Pass neither to disable."""
+        every_subgrids = int(every_subgrids)
+        every_s = float(every_s)
+        if every_subgrids <= 0 and every_s <= 0:
+            self._autosave = None
+            return
+        self._autosave = {
+            "path": str(path),
+            "every_n": every_subgrids,
+            "every_s": every_s,
+            "since": 0,
+            "last_t": time.monotonic(),
+        }
+
+    def _autosave_tick(self, n_folded):
+        a = self._autosave
+        if a is None:
+            return
+        a["since"] += n_folded
+        now = time.monotonic()
+        due = (a["every_n"] > 0 and a["since"] >= a["every_n"]) or (
+            a["every_s"] > 0 and now - a["last_t"] >= a["every_s"]
+        )
+        if not due:
+            return
+        from ..utils.checkpoint import save_streamed_backward_state
+
+        save_streamed_backward_state(a["path"], self, self.processed)
+        a["since"] = 0
+        a["last_t"] = time.monotonic()
+        _metrics.count("ckpt.autosaves")
+        _trace.instant("ckpt.autosave_tick", cat="ckpt",
+                       processed=len(self.processed))
+        from ..obs import recorder as _recorder
+
+        _recorder.record("ckpt", "ckpt.autosave",
+                         f"{len(self.processed)} subgrids processed")
+
+    def device_bytes(self, S, subgrid_size):
+        """(resting, active): the device bytes this backward holds between
+        the column groups fed to it, and at most while it takes one
+        (columns of `S` subgrids of `subgrid_size`). Sampled: the
+        accumulator (or its row slab), up to ``fold_group`` - 1 pending
+        columns' rows; at work, a fold's rows beside the pending ones and
+        the column pass's transients, or the fold's conjugated rows and
+        its row block's tables. Host: one column's rows and transients at
+        work, nothing between. Device: the rows it keeps now, and one
+        column's more at work."""
+        base = self._base
+        core = base.core
+        dsize, rsize = _sizes(core)
+        F = base.stack.n_total
+        m, xM, yN = core.xM_yN_size, core.xM_size, core.yN_size
+        yB = base.stack.size
+        Sb = min(_colpass_sblock(), S)
+        Sb = -(-S // -(-S // Sb))
+        T = (2 * S * xM * xM + 2 * Sb * F * m * m + 5 * F * m * yN) * dsize
+        rows_pad = F * m * base._yB_pad * dsize
+        if base.residency == "host":
+            return 0, rows_pad + T
+        if base.residency == "device":
+            kept = len(self._naf) * rows_pad
+            return kept, kept + rows_pad + T
+        r0, r1 = self._row_slab or (0, yB)
+        acc = F * (r1 - r0) * yB * dsize
+        row = F * m * yB * dsize
+        cap = self._fold_group
+        B = min(_fold_row_block(F, yB, rsize), r1 - r0)
+        fold = 4 * cap * row + cap * m * B * (2 * 8 + 2 * rsize)
+        return acc + (cap - 1) * row, acc + max((2 * cap - 1) * row + T, fold)
+
+    def _bwd_cp_flops(self, n_subgrids, subgrid_size):
+        """Analytic FLOPs of one backward column pass over `n_subgrids`
+        subgrids (stage attribution; 0 when metrics are disabled)."""
+        if not _metrics.enabled():
+            return 0
+        base = self._base
+        return _flops.bwd_column_pass_flops(
+            self.core, base.stack.n_real, n_subgrids, base.stack.size,
+            subgrid_size, resolve_colpass_bwd(self.core, len(base.stack)))
 
     def _operators(self, mode):
         """The adjoint operators of the operator bodies (None for the FFT
@@ -2424,6 +2831,7 @@ class StreamedBackward:
         """
         if self._finished:
             raise RuntimeError("finish() was already called")
+        fault_point("bwd.feed")
         base = self._base
         core = base.core
         off0s = {sg.off0 for sg in sg_configs}
@@ -2443,25 +2851,31 @@ class StreamedBackward:
         alloc = torch.empty if width == yB else torch.zeros
         rows = alloc((len(base.stack), m, width) + _tail(core),
                      dtype=subgrids.dtype, device=subgrids.device)
-        _column_pass_bwd(core, yB, mode, self._operators(mode), subgrids,
-                         sg_offs, base._foffs0, base._foffs1,
-                         base._masks1_dev, rows[:, :, :yB])
+        _metrics.count("bwd.subgrids_folded", len(sg_configs))
+        with _metrics.stage(
+                "bwd.column_pass",
+                flops=self._bwd_cp_flops(len(sg_configs), sg_configs[0].size)):
+            _column_pass_bwd(core, yB, mode, self._operators(mode), subgrids,
+                             sg_offs, base._foffs0, base._foffs1,
+                             base._masks1_dev, rows[:, :, :yB])
         self.processed.extend((sg.off0, sg.off1) for sg in sg_configs)
         if sampled:
-            self._rows_inflight.admit([rows])
+            _admit(self._rows_inflight, [rows], "bwd.drain")
             self._pending_rows.append((key, rows))
             if len(self._pending_rows) >= self._fold_group:
                 self._flush_folds()
         elif base.residency == "device":
             prev = self._naf.get(key)
             self._naf[key] = rows if prev is None else prev.add_(rows)
-            self._rows_inflight.admit([self._naf[key]])
+            _admit(self._rows_inflight, [self._naf[key]], "bwd.drain")
         else:
-            host = rows.cpu()
+            with _metrics.stage("bwd.d2h", bytes_moved=_nbytes(rows)):
+                host = rows.cpu()
             if key in self._naf:
                 self._naf[key].add_(host)
             else:
                 self._naf[key] = host
+        self._autosave_tick(len(sg_configs))
 
     def _ensure_acc(self):
         base = self._base
@@ -2487,16 +2901,29 @@ class StreamedBackward:
                 (np.asarray(base.stack.offs0) - yB // 2).astype(np.int64),
                 device=core.device)
         if self._fold_mode == "fft":
-            _bwd_fft_fold(core, self._acc, rows_cat, offs, base._foffs0)
+            with _metrics.stage("bwd.fft_fold"):
+                _bwd_fft_fold(core, self._acc, rows_cat, offs, base._foffs0)
         else:
             krows = torch.as_tensor(sampled_row_indices(core, offs),
                                     device=core.device)
             if self._fold_mode == "ct":
-                _bwd_ct_fold(core, self._acc, rows_cat, self._e0, krows, offs)
+                with _metrics.stage("bwd.ct_fold"):
+                    _bwd_ct_fold(core, self._acc, rows_cat, self._e0, krows,
+                                 offs)
             else:
-                _bwd_sampled_fold(core, self._acc, rows_cat, self._e0, krows,
-                                  row0=(self._row_slab or (0, 0))[0])
-        self._fold_inflight.admit([self._acc])
+                fold_flops = 0
+                if _metrics.enabled():
+                    fold_flops = _flops.bwd_fold_flops(
+                        core, base.stack.n_real, yB, int(rows_cat.shape[1]))
+                    if self._row_slab is not None:
+                        # the fold's FLOPs scale with the rows it computes
+                        r0, r1 = self._row_slab
+                        fold_flops = int(fold_flops * (r1 - r0) / yB)
+                with _metrics.stage("bwd.sampled_fold", flops=fold_flops):
+                    _bwd_sampled_fold(core, self._acc, rows_cat, self._e0,
+                                      krows,
+                                      row0=(self._row_slab or (0, 0))[0])
+        _admit(self._fold_inflight, [self._acc], "bwd.drain")
 
     def _flush_folds(self):
         """Fold the pending columns' rows into the accumulator, in one
@@ -2533,6 +2960,7 @@ class StreamedBackward:
             raise ValueError(
                 "add_subgrid_group requires residency='sampled'"
             )
+        fault_point("bwd.feed")
         core = base.core
         yB = base.stack.size
         subgrids_group = self._device_subgrids(subgrids_group)
@@ -2561,15 +2989,19 @@ class StreamedBackward:
             # group, whose own remainder waits for the next; so the folds,
             # and the bits, do not depend on how the stream was grouped
             g = min(cap - len(self._pending_rows), len(offs) - j)
-            rows_cat = _column_pass_bwd_group(
-                core, yB, mode, self._operators(mode),
-                subgrids_group[j:j + g], sg_offs[j:j + g], base._foffs0,
-                base._foffs1, base._masks1_dev,
-            )  # [F, g*m, yB(,2)]
+            _metrics.count("bwd.subgrids_folded", g * S)
+            with _metrics.stage(
+                    "bwd.column_pass",
+                    flops=g * self._bwd_cp_flops(S, subgrids_group.shape[2])):
+                rows_cat = _column_pass_bwd_group(
+                    core, yB, mode, self._operators(mode),
+                    subgrids_group[j:j + g], sg_offs[j:j + g], base._foffs0,
+                    base._foffs1, base._masks1_dev,
+                )  # [F, g*m, yB(,2)]
             if g == cap:
                 self._fold_rows(offs[j:j + g], rows_cat)
             else:
-                self._rows_inflight.admit([rows_cat])
+                _admit(self._rows_inflight, [rows_cat], "bwd.drain")
                 self._pending_rows.extend(
                     (offs[j + c], rows_cat[:, c * m:(c + 1) * m])
                     for c in range(g))
@@ -2577,8 +3009,13 @@ class StreamedBackward:
                     self._flush_folds()
             del rows_cat
             j += g
+        # the whole group folded or pending: the ledger and the autosave at
+        # group boundaries only, so a resumed feed skips whole groups
+        n_group = 0
         for col in col_sg_lists:
             self.processed.extend((sg.off0, sg.off1) for sg in col)
+            n_group += len(col)
+        self._autosave_tick(n_group)
 
     def finish_device(self):
         """("sampled") the finished facet stack [F, yB, yB(,2)] as a device
@@ -2599,8 +3036,10 @@ class StreamedBackward:
         m = masks0[:, :, None]
         if _planar(self.core):
             m = m[..., None]
-        acc.mul_(m)
-        self._fold_inflight.drain()
+        with _metrics.stage("bwd.finish"):
+            acc.mul_(m)
+        with _metrics.stage("bwd.drain"):
+            self._fold_inflight.drain()
         self._finished = True
         return acc
 
@@ -2642,11 +3081,14 @@ class StreamedBackward:
                         dtype=core.dtype, pin_memory=cuda)
                 torch.stack(cols, out=stages[b % 2])
                 cols = stages[b % 2].to(dev, non_blocking=cuda)
-            out = _facet_pass_bwd(core, yB, cols, col_offs0, base._foffs0,
-                                  base._masks0_dev)
+            with _metrics.stage("bwd.facet_pass"):
+                out = _facet_pass_bwd(core, yB, cols, col_offs0,
+                                      base._foffs0, base._masks0_dev)
             del cols
-            pipe.put(j0, out)
-        pipe.flush()
+            with _metrics.stage("bwd.d2h", bytes_moved=_nbytes(out)):
+                pipe.put(j0, out)
+        with _metrics.stage("bwd.d2h"):
+            pipe.flush()
         self._naf = {}
         self._finished = True
         return facets[: self.stack.n_real].numpy()

@@ -36,12 +36,15 @@ __all__ = [
     "H100_F32_TFLOPS",
     "H100_HBM_TB_PER_S",
     "backward_batched_flops",
+    "backward_sampled_flops",
     "bwd_column_pass_flops",
     "bwd_fold_flops",
     "colpass_mode",
     "column_pass_flops",
     "fft_flops",
     "forward_batched_flops",
+    "forward_sampled_flops",
+    "peak_tflops",
     "resolve_colpass",
     "resolve_colpass_bwd",
     "resolve_fold_kernel",
@@ -199,12 +202,22 @@ def bwd_column_pass_flops(core, n_facets: int, n_subgrids: int,
                           facet_size: int, subgrid_size: int,
                           colpass: str = "einsum") -> int:
     """FLOPs of one backward column pass (subgrid column -> rows
-    [F, m, yB]): two K = xM complex products per (subgrid, facet) (the
-    einsum pair, or B1 with ``reduce_f=False``: the same contractions),
-    the scatter-add, and the per-column axis-1 finish."""
+    [F, m, yB]) for the body that runs: "einsum" or "kernel", two K = xM
+    complex products per (subgrid, facet) (the einsum pair, or B1 with
+    ``reduce_f=False``: the same contractions) and the scatter-add; "fft",
+    the subgrid's prepare (two FFTs) and per facet the two extracting
+    iFFTs with their windows, the first over the prepared subgrid's xM
+    rows (the JAX package's count takes m rows there: ROADMAP C); then
+    the per-column axis-1 finish."""
     m, xM, yN = core.xM_yN_size, core.xM_size, core.yN_size
-    per_sg = n_facets * 8 * (m * xM * xM + m * m * xM)
-    per_sg += n_facets * 2 * m * yN
+    if colpass == "fft":
+        per_sg = fft_flops(xM, subgrid_size) + fft_flops(xM, xM)
+        per_sg += n_facets * (
+            fft_flops(m, xM) + 6 * m * xM + fft_flops(m, m) + 6 * m * m
+        )
+    else:
+        per_sg = n_facets * 8 * (m * xM * xM + m * m * xM)
+        per_sg += n_facets * 2 * m * yN
     col_fin = n_facets * (fft_flops(yN, m) + 6 * m * facet_size)
     return n_subgrids * per_sg + col_fin
 
@@ -267,3 +280,90 @@ def backward_batched_flops(
         + n_columns * col_fin
         + facet_fin
     )
+
+
+def forward_sampled_flops(
+    core, n_facets: int, facet_size: int, n_columns: int,
+    subgrids_per_column: int, subgrid_size: int,
+    real_facets: bool = False, finish_passes: int = 1,
+    colpass: str | None = None,
+) -> int:
+    """Total FLOPs of the streamed sampled forward (``residency="device"``).
+
+    The facet pass: one [R, yB] x [F*yB, yB] complex product with R = C*m
+    sampled rows, plus the per-facet diagonal phase; the column passes as
+    `column_pass_flops` counts them for the body that runs (`colpass`,
+    default ``resolve_colpass``). ``real_facets`` halves the facet pass's
+    products (no imaginary plane). ``finish_passes``: the facet-slab
+    stream of the FFT body finishes each subgrid once per slab; the
+    operator bodies ("einsum", "kernel") finish with a crop, so repeats
+    cost nothing there.
+    """
+    yB = facet_size
+    xM = core.xM_size
+    m = core.xM_yN_size
+    if colpass is None:
+        colpass = resolve_colpass(core, n_facets)
+    facet_pass = sampled_facet_pass_flops(
+        core, n_facets, yB, n_columns * m, real_facets=real_facets
+    )
+    columns = n_columns * _column_prepare_flops(core, n_facets, colpass)
+    subgrids = (
+        n_columns
+        * subgrids_per_column
+        * _per_subgrid_flops(core, subgrid_size, n_facets, colpass)
+    )
+    if colpass in ("einsum", "kernel"):
+        extra_finish = 0
+    else:
+        extra_finish = (
+            (finish_passes - 1)
+            * n_columns
+            * subgrids_per_column
+            * (fft_flops(xM, xM) + fft_flops(xM, subgrid_size)
+               + 4 * subgrid_size**2)
+        )
+    return facet_pass + columns + subgrids + extra_finish
+
+
+def backward_sampled_flops(
+    core, n_facets: int, facet_size: int, n_columns: int,
+    subgrids_per_column: int, subgrid_size: int,
+    colpass: str | None = None,
+) -> int:
+    """Total FLOPs of the streamed sampled backward
+    (``residency="sampled"``): the column passes (`bwd_column_pass_flops`
+    for the body that runs, default ``resolve_colpass_bwd``), the adjoint
+    sampled fold over all R = n_columns*m rows (`bwd_fold_flops`) and the
+    finish mask."""
+    m = core.xM_yN_size
+    yB = facet_size
+    if colpass is None:
+        colpass = resolve_colpass_bwd(core, n_facets)
+    columns = n_columns * bwd_column_pass_flops(
+        core, n_facets, subgrids_per_column, yB, subgrid_size, colpass
+    )
+    fold = bwd_fold_flops(core, n_facets, yB, n_columns * m)
+    finish_mask = 2 * n_facets * yB * yB
+    return columns + fold + finish_mask
+
+
+def peak_tflops(device=None) -> float | None:
+    """The peak rate, TFLOP/s, that stage MFU is held against, or None.
+
+    ``SWIFTLY_PEAK_TFLOPS`` when set; otherwise `H100_F32_TFLOPS` when the
+    CUDA device (`device`, default the current one) is an H100 (the
+    pipeline's products are IEEE f32 on the CUDA cores), and None for any
+    other card, or where CUDA is not available.
+    """
+    env = os.environ.get("SWIFTLY_PEAK_TFLOPS")
+    if env:
+        return float(env)
+    import torch
+
+    if not torch.cuda.is_available():
+        return None
+    if device is not None and torch.device(device).type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    return H100_F32_TFLOPS if "H100" in name else None

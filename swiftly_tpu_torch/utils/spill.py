@@ -22,14 +22,19 @@ Storage is a host-RAM ring with optional disk backing:
 The cache stores plain float arrays, so a row read back is bit-identical to
 the row recorded.
 
-Not ported yet: the ``resilience`` hooks of the reference (fault points,
-transient-retry of disk reads and writes, the degradation record, here and
-on the streamed executors' record and replay paths; ROADMAP A7), its
-``obs.metrics`` / ``trace`` instrumentation (A9), ``patch_entry`` for
-incremental facet updates with the reader–writer patch gate it needs
-(``begin_patch`` / ``end_patch``, ``StreamMidPatch``; A11),
-``export_manifest`` for process-fleet readers (A12) and the compiled
-plan's ``policy`` stamp (A10).
+Resilience and telemetry, as the JAX package's: reads and disk writes are
+fault sites (``spill.read``, ``spill.get_row``, ``spill.write``) that
+retry transient I/O errors (`resilience.retry.retry_transient`); a disk
+write that stays failed steps the degradation ladder down to a
+host-RAM-only cache (``degrade`` record ``spill.disk_to_ram``); disk reads
+and writes are ``spill.disk_read`` / ``spill.disk_write`` stages with
+their bytes, and evictions, disk reads and swept orphans are ``spill.*``
+counters.
+
+Not ported yet: ``patch_entry`` for incremental facet updates with the
+reader–writer patch gate it needs (``begin_patch`` / ``end_patch``,
+``StreamMidPatch``; ROADMAP A11), ``export_manifest`` for process-fleet
+readers (A12) and the compiled plan's ``policy`` stamp (A10).
 """
 
 from __future__ import annotations
@@ -42,6 +47,12 @@ import tempfile
 import threading
 
 import numpy as np
+
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
+from ..resilience import degrade as _degrade
+from ..resilience.faults import fault_point
+from ..resilience.retry import retry_transient
 
 __all__ = ["SpillCache", "spill_budget_bytes"]
 
@@ -141,6 +152,7 @@ class SpillCache:
             self.gave_up = False
             self.tag = tag
             self.counters["fills"] += 1
+        _trace.instant("spill.begin_fill", cat="spill", tag=str(tag))
 
     def put(self, meta, array) -> bool:
         """Append one group's host array (+ its per-column metadata).
@@ -159,18 +171,21 @@ class SpillCache:
             try:
                 path = self._disk_write(len(self._entries), array)
             except OSError as exc:
-                # the spill disk failed: drop to a host-RAM-only cache for
-                # the rest of the run (this over-budget entry evicts, so
-                # the fill gives up and consumers compute instead: slower,
-                # never wrong)
+                # the spill disk failed past its retries: drop to a
+                # host-RAM-only cache for the rest of the run (this
+                # over-budget entry evicts, so the fill gives up and
+                # consumers compute instead: slower, never wrong)
                 logger.warning(
                     "spill disk write failed (%s: %s); degrading to "
                     "host-RAM-only cache",
                     type(exc).__name__, exc,
                 )
+                _degrade.record("spill", "disk_to_ram",
+                                f"{type(exc).__name__}: {exc}")
                 self.spill_dir = None
                 self._bump("evictions")
                 self.gave_up = True
+                _metrics.count("spill.evictions")
                 return False
             with self._lock:
                 self._entries.append(("disk", path))
@@ -178,6 +193,10 @@ class SpillCache:
         else:
             self._bump("evictions")
             self.gave_up = True
+            _metrics.count("spill.evictions")
+            _trace.instant("spill.evict", cat="spill",
+                           entry=len(self._entries),
+                           nbytes=int(array.nbytes))
             return False
         with self._lock:
             self._meta.append(meta)
@@ -187,6 +206,11 @@ class SpillCache:
         """Seal the fill: the cache is complete iff nothing was evicted
         and at least one entry landed."""
         self.complete = bool(self._entries) and not self.gave_up
+        _trace.instant(
+            "spill.end_fill", cat="spill", entries=len(self._entries),
+            complete=self.complete, ram_bytes=int(self.ram_bytes),
+            disk_bytes=int(self.disk_bytes),
+        )
         if self.gave_up:
             logger.warning(
                 "spill cache gave up: stream exceeds the %.1f GiB RAM "
@@ -205,11 +229,31 @@ class SpillCache:
         return self._meta[k]
 
     def get(self, k):
-        """Entry k as a host ndarray (RAM hit or a full disk read)."""
+        """Entry k as a host ndarray (RAM hit or a full disk read). Reads
+        retry transient failures with backoff; a read that stays failed
+        raises (the streamed consumer then runs the forward instead: see
+        `StreamedForward.stream_column_groups`)."""
         kind, payload = self._entries[k]
-        out = payload if kind == "ram" else np.load(payload)
-        self._bump("ram_reads" if kind == "ram" else "disk_reads")
+
+        def read():
+            fault_point("spill.read")
+            if kind == "ram":
+                return payload
+            with _metrics.stage("spill.disk_read") as st:
+                arr = np.load(payload)
+                st.bytes_moved = int(arr.nbytes)
+            return arr
+
+        out = retry_transient(read, site="spill.read")
+        self._count_read(kind)
         return out
+
+    def _count_read(self, kind):
+        if kind == "ram":
+            self._bump("ram_reads")
+        else:
+            self._bump("disk_reads")
+            _metrics.count("spill.disk_reads")
 
     def get_row(self, k, index):
         """One sub-array of entry k (e.g. ``(c, s)`` of a [G, S, ...]
@@ -222,11 +266,18 @@ class SpillCache:
         row's IO, not the entry's.
         """
         kind, payload = self._entries[k]
-        if kind == "ram":
-            out = payload[index]
-        else:
-            out = np.array(np.load(payload, mmap_mode="r")[index])
-        self._bump("ram_reads" if kind == "ram" else "disk_reads")
+
+        def read():
+            fault_point("spill.get_row")
+            if kind == "ram":
+                return payload[index]
+            with _metrics.stage("spill.disk_read") as st:
+                row = np.array(np.load(payload, mmap_mode="r")[index])
+                st.bytes_moved = int(row.nbytes)
+            return row
+
+        out = retry_transient(read, site="spill.get_row")
+        self._count_read(kind)
         return out
 
     # -- maintenance --------------------------------------------------------
@@ -287,29 +338,38 @@ class SpillCache:
                 "swept %d orphaned spill .tmp file(s) from a crashed "
                 "fill", swept,
             )
+            _metrics.count("spill.orphans_swept", swept)
 
     def _disk_write(self, k, array):
-        """Chunked memmap write of one entry under the spill dir —
-        ATOMIC (tmp sibling + rename: a crash mid-write can never leave
-        a truncated ``group_*.npy`` that poisons a later read)."""
+        """Chunked memmap write of one entry under the spill dir: atomic
+        (tmp sibling + rename: a crash mid-write can never leave a
+        truncated ``group_*.npy`` that poisons a later read) and retried on
+        transient I/O failure."""
         if self._own_dir is None:
             os.makedirs(self.spill_dir, exist_ok=True)
             self._own_dir = tempfile.mkdtemp(
                 prefix="swiftly_spill_", dir=self.spill_dir
             )
         path = os.path.join(self._own_dir, f"group_{k:05d}.npy")
-        tmp = path + ".tmp"
-        mm = np.lib.format.open_memmap(
-            tmp, mode="w+", dtype=array.dtype, shape=array.shape
-        )
-        row_bytes = max(1, array[:1].nbytes) if array.ndim else 1
-        step = max(1, int(_DISK_CHUNK_BYTES // row_bytes))
-        for s in range(0, array.shape[0], step):
-            mm[s : s + step] = array[s : s + step]
-        mm.flush()
-        del mm
-        os.replace(tmp, path)
-        return path
+
+        def write():
+            fault_point("spill.write")
+            tmp = path + ".tmp"
+            with _metrics.stage("spill.disk_write") as st:
+                mm = np.lib.format.open_memmap(
+                    tmp, mode="w+", dtype=array.dtype, shape=array.shape
+                )
+                row_bytes = max(1, array[:1].nbytes) if array.ndim else 1
+                step = max(1, int(_DISK_CHUNK_BYTES // row_bytes))
+                for s in range(0, array.shape[0], step):
+                    mm[s : s + step] = array[s : s + step]
+                mm.flush()
+                del mm
+                st.bytes_moved = int(array.nbytes)
+            os.replace(tmp, path)
+            return path
+
+        return retry_transient(write, site="spill.write")
 
     def __del__(self):  # pragma: no cover - interpreter-shutdown path
         try:

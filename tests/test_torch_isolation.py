@@ -43,7 +43,8 @@ def test_port_imports_with_jax_blocked():
         "swiftly_tpu_torch.utils.flops, swiftly_tpu_torch.utils.spill, "
         "swiftly_tpu_torch.serve, swiftly_tpu_torch.vis, "
         "swiftly_tpu_torch.plan, swiftly_tpu_torch.plan.model, "
-        "swiftly_tpu_torch.plan.compiler; "
+        "swiftly_tpu_torch.plan.compiler, swiftly_tpu_torch.obs, "
+        "swiftly_tpu_torch.resilience, swiftly_tpu_torch.utils.checkpoint; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swiftly_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)"
     )

@@ -330,12 +330,46 @@ def test_col_group_budget_accounting():
           for b in (1e9, 4e9, 16e9, 64e9)]
     assert gs == sorted(gs)
     assert fwd._hbm_budget() is None and fwd._facet_stack_fits()
-    # the port's sizer is the reference's formula
-    jfwd = jstreamed.StreamedForward(_jax_setup("jax")[0],
-                                     _jax_setup("jax")[3])
+    # the port's sizer prices the port's own buffers: per column, its
+    # sampled rows [F, m, yB] and its finished subgrids [S, xA, xA] beside
+    # the previous group's (complex128: 16 bytes), plus the group tensors;
+    # flat, the facets, one column's transients and the reserve
+    core = config.core
+    F, yB, m = len(base.stack), base.stack.size, core.xM_yN_size
+    xA = config.max_subgrid_size
+    S = -(-config.image_size // xA)
+    flat, per_G = tstreamed.resident_working_set(base)
+    assert per_G == (F * m * yB + 2 * S * xA * xA) * 16 + S * (2 * xA * 8 + 16)
+    assert flat > tstreamed.facet_stack_bytes(base) + tstreamed._RESERVE_BYTES
     for budget in (2e9, 8e9, 32e9):
-        assert tstreamed.col_group_for_budget(base, budget, 10**6) == (
-            jstreamed.col_group_for_budget(jfwd._base, budget, 10**6))
+        assert tstreamed.col_group_for_budget(base, budget, 10**6) == max(
+            1, int((budget - flat) // per_G))
+
+
+def test_stream_peak_model_follows_the_stream_phases():
+    """``stream_peak_bytes``: a consumer's resting bytes count beside the
+    second group on, not beside the first (it allocates at its first
+    fold); the caller's held bytes add; a sampled backward's resting and
+    active bytes are its accumulator plus its fold rows."""
+    config, fcs, sgcs, tasks = _port_setup("planar")
+    fwd = T.StreamedForward(config, tasks, residency="device")
+    n_cols = len({sg.off0 for sg in sgcs})
+    S, xA = len(sgcs) // n_cols, sgcs[0].size
+    fwd.last_plan = {"mode": "resident", "col_group": n_cols}
+    one = tstreamed.stream_peak_bytes(fwd, n_cols, S, xA, resting=1e12)
+    assert one < 1e12
+    assert tstreamed.stream_peak_bytes(fwd, n_cols, S, xA, resting=1e12,
+                                       held=5) == one + 5
+    fwd.last_plan = {"mode": "resident", "col_group": n_cols - 1}
+    assert tstreamed.stream_peak_bytes(fwd, n_cols, S, xA,
+                                       resting=1e12) > 1e12
+    bwd = T.StreamedBackward(config, fcs, residency="sampled", fold_group=3)
+    resting, active = bwd.device_bytes(S, xA)
+    yB, m = fcs[0].size, config.core.xM_yN_size
+    acc, row = len(fcs) * yB * yB * 16, len(fcs) * m * yB * 16
+    assert resting == acc + 2 * row and active > resting
+    assert T.StreamedBackward(config, fcs, residency="host").device_bytes(
+        S, xA)[0] == 0
 
 
 def test_left_out_paths_raise(monkeypatch):
