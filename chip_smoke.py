@@ -76,9 +76,9 @@ this checkout, and holds each kernel against its plain PyTorch version:
    facets of the grid-corrected, band-limited sky model, a cache feed
    (``SpillCache`` / ``CachedColumnFeed``) seeded with the hottest
    column's rows, 2^20 zipf-over-columns samples with a 10% uniform tail
-   cut into 16 batches, of which the first 5 (``--serve-full``: all 16)
+   cut into 16 batches, of which the first 3 (``--serve-full``: all 16)
    are served through ``VisibilityService`` (pumped dry after every
-   second, the feed force-evicted after the fourth), every served
+   second, the feed force-evicted after the second), every served
    sample gridded by a version-pinned ``VisGridder`` and ingested by a
    sampled ``StreamedBackward``; gated on the oracle, the shed reasons,
    the cache ladder, the adjoint identity, bit-identity to a fresh
@@ -97,9 +97,11 @@ this checkout, and holds each kernel against its plain PyTorch version:
    2048-row slab that holds a source pixel, then ``finish_device``; one
    run synchronised at both ends, gated on the oracle RMS of >= 2% of the
    subgrids from every column and on the slab's rows of all 9 facets
-   against ``synth_facet_device``; its plan, seconds, peak memory beside
-   the slab sizer's model, and launches; then its first column group again
-   under torch.profiler for the device's busy share and the time by stage;
+   against ``synth_facet_device``, the forward under an ``obs.Heartbeat``
+   (progress and ETA every 30 s, gated on counting every subgrid); its
+   plan, seconds, peak memory beside the slab sizer's model, and
+   launches; then its first column group again under torch.profiler for
+   the device's busy share and the time by stage;
 10. the host and device residencies at ``32k[1]-n16k-512``, planar f32,
    from real facet planes on the host (run after the slab checks): (a)
    ``StreamedForward(residency="host", col_block=512)`` (the FFT facet
@@ -121,12 +123,14 @@ this checkout, and holds each kernel against its plain PyTorch version:
    bodies, each within 1e-5 (relative), with its seconds;
 11. the partitioned sampled round trip at ``32k[1]-n16k-512`` as the JAX
    package's ``roundtrip-streamed`` composes it, planar f32, from real
-   facet planes on the host (run after phase 10): the plan
-   (``plan.plan_backward_passes`` with the operator overrides, 3 facet
-   passes x 3 row slabs of 3755 rows, no multiple of the fold's row
-   block; ``plan.plan_backward_feed``, 3 passes a feed) on the card's
-   budget (``plan.hbm_budget_bytes``) with the margins the port derives
-   (``plan.plan_margins``); per feed chunk ``StreamedBackward(residency=
+   facet planes on the host (run after phase 10): the plan from
+   ``plan.compile_plan(..., n_facet_env=3, n_row_env=3, feed_env=3)``
+   (3 facet passes x 3 row slabs of 3755 rows, no multiple of the fold's
+   row block; 3 passes a feed) on the card's budget
+   (``plan.hbm_budget_bytes``), gated equal to what
+   ``plan.plan_backward_passes`` and ``plan.plan_backward_feed`` give by
+   hand with the margins the port derives (``plan.plan_margins``); per
+   feed chunk ``StreamedBackward(residency=
    "sampled", fold_group=4, row_slab=...)`` over its facets, fed by
    ``feed_backward_passes(..., spill=..., feed_index=k)`` from one
    ``StreamedForward(residency="device")`` whose ``hbm_headroom`` is the
@@ -145,7 +149,7 @@ this checkout, and holds each kernel against its plain PyTorch version:
    transient ``spill.read`` fault injected (``resilience.FaultPlan``),
    gated on one retry (the ``retry.*`` counters, metrics on) and the same
    bits; it prints each feed's seconds, the bytes and seconds recorded
-   and replayed, the peaks, and the 128k plan on this card (not run);
+   and replayed, and the peaks;
 12. telemetry, and a kill and resume of the streamed round trip at
    ``32k[1]-n16k-512``, planar f32 (run after phase 6):
    ``StreamedForward(residency="device", col_group=10)`` into
@@ -164,7 +168,31 @@ this checkout, and holds each kernel against its plain PyTorch version:
    the kill, 44 B1 forward launches, and the device memory back to its
    start after the kill; it prints the snapshot's GB, its save and
    restore seconds, the peak across the kill and the resume and the
-   launches, and deletes the snapshot.
+   launches, and deletes the snapshot;
+13. the plan compiler and its calibration loop at ``32k[1]-n16k-512``,
+   planar f32, on phase 6's path (run after phase 12): (a)
+   ``plan.compile_plan(PlanInputs.from_cover(..., hbm_budget=
+   plan.hbm_budget_bytes(...), real_facets=True))`` with the card's
+   default coefficients, gated on ``coeffs_source == "default"``, the
+   seed fold group (4) and the planned forward mode and column group
+   equal to what ``StreamedForward(residency="device")`` executes; (b)
+   two round trips to that plan with metrics and trace on, each closed
+   by ``stamp_measured_wall``, ``run_manifest``, ``plan_accuracy_block``
+   and ``append_history`` into a calibration history in a temporary
+   file (``SWIFTLY_CALIBRATION_HISTORY``), gated on phase 6's facet
+   SHA-256, ``validate_artifact``, ``validate_plan_accuracy_artifact``
+   and no timed stage outside the ledger's tables; (c)
+   ``refit_from_ledger`` on that history (gated on ``ledger_readiness``
+   and ``source == "ledger"``), the plan recompiled, and a third observed
+   run to it, held to phase 6's SHA-256 where it keeps phase 6's
+   parameters, else to the oracle's facet RMS, with the whole leg's
+   predicted / measured wall within 0.8-1.25 and no stage mispriced
+   beyond x2 (``record_mispricing``); (d) ``report.summarize_trace`` of
+   (c)'s trace from the leg's span, its self times within 5% of the leg
+   wall, ``validate_trace_artifact``; (e) the 128k round trip's plan
+   with the default and the ledger coefficients, printed, not run; and
+   the card's copy rates (pinned host to device and back, and a host
+   memcpy), the sources of the model's byte defaults.
 
 At phases 6, 10 (b), 11 (a) and 9 the streamed forward's sizer model
 (``parallel.streamed.stream_peak_bytes`` beside the backwards'
@@ -176,14 +204,16 @@ The launch counters are set to 0 just before each 32k and 128k path runs
 and read just after it. Every phase that fails ends the run with a non-zero exit
 code. The last lines are the ``residency_32k`` JSON record of phase
 10, the ``spill_32k`` record of phase 11, the ``resume_32k`` record of
-phase 12, the ``vis`` JSON record of phase 8, the
+phase 12, the ``plan_32k`` record of phase 13, the ``vis`` JSON record
+of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
 visibility path's for B4 and ``grid``; ``paths`` holds each path's
 launches, the 128k one's, phase 10's (``residency``, its part (a), and
 ``residency_bodies``, its part (c)), phase 11's (``spill``, its timed
-run (a)) and phase 12's (``resume``, its observed run (a)) too, with the
-times at that path's shapes) and
+run (a)), phase 12's (``resume``, its observed run (a)) and phase 13's
+(``plan``, its calibrated run (c)) too, with the times at that path's
+shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -205,7 +235,9 @@ phase 2 and phase 10 alone and prints one ``residency_32k`` JSON line;
 ``--spill`` runs phase 2, phase 11 and phase 7 at phase 11's shapes and
 prints one ``spill_32k`` JSON line; ``--resume`` runs phase 2, phase 6's
 warm and timed round trips (unprofiled) and phase 12, and prints one
-``resume_32k`` JSON line.
+``resume_32k`` JSON line; ``--plan`` runs phase 2, phase 6's warm and
+timed round trips (unprofiled) and phase 13, and prints one ``plan_32k``
+JSON line.
 """
 
 from __future__ import annotations
@@ -368,12 +400,12 @@ VIS_SAMPLES = 2**20
 VIS_BATCHES = 16
 # batches phase 8 serves by default (--serve-full: all VIS_BATCHES), to keep
 # the whole script inside its time limit beside phases 9 and 12
-VIS_SERVED = 5
+VIS_SERVED = 3
 VIS_SEED = 1234
 VIS_ZIPF_S = 1.1
 VIS_MAX_DEPTH = 65536
 VIS_MAX_BATCH = 64
-VIS_EVICT_AFTER = 4  # batches served from the feed before it is evicted
+VIS_EVICT_AFTER = 2  # batches served from the feed before it is evicted
 # whole batches in the profiled serving window, from the traffic's first
 VIS_PROFILE_BATCHES = 1
 # kernels whose batch varies per launch (grid, B4's pumps) are timed at
@@ -1403,11 +1435,12 @@ class _TimedFeed:
     device reached the step's first and last work), and copies of the
     `wanted` subgrids kept on the device as they pass."""
 
-    def __init__(self, torch, forward, wanted):
+    def __init__(self, torch, forward, wanted, heartbeat=None):
         self.forward = forward
         self.wanted = set(wanted)
         self.samples = {}
         self.n_groups = 0
+        self.heartbeat = heartbeat  # an obs.Heartbeat over the subgrids
         self._torch = torch
         self._marks = []
 
@@ -1435,6 +1468,10 @@ class _TimedFeed:
                 for s, (i, _) in enumerate(col):
                     if i in self.wanted:
                         self.samples[i] = group[c, s].clone()
+            if self.heartbeat is not None:
+                self.heartbeat.update(
+                    sum(i is not None for col in per_col for i, _ in col),
+                    group=self.n_groups)
             yield per_col, group
 
 
@@ -2270,45 +2307,6 @@ class _RssPeak:
         self.peak = max(self.peak, _rss_gib())
 
 
-def big_plan(torch, fold_group=4, device="cuda"):
-    """The 128k partitioned backward's plan, not run: the facet x row-slab
-    grid and the feed group on this card's budget (``hbm_budget_bytes``),
-    with the margins the port derives from the 128k geometry, beside the
-    stream's bytes and the spill cache's default budget."""
-    import swiftly_tpu_torch as st
-    from swiftly_tpu_torch import plan
-    from swiftly_tpu_torch.parallel import streamed as sm
-    from swiftly_tpu_torch.utils.spill import spill_budget_bytes
-
-    params = st.SWIFT_CONFIGS[BIG_CONFIG]
-    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
-                           device=device, **params)
-    fcs = st.make_full_facet_cover(cfg)
-    base = sm._StreamedBase(cfg, fcs, residency="device")
-    xA, yB = params["xA_size"], fcs[0].size
-    m = cfg.core.xM_yN_size
-    fwd_min, reserve = plan.plan_margins(base, xA, fold_group)
-    budget = plan.hbm_budget_bytes(device=device)
-    parts, resident = plan.plan_backward_passes(
-        len(fcs), yB, yB * yB * 8, m * yB * 8, fold_group, budget, fwd_min,
-        reserve)
-    q = plan.plan_backward_feed(parts, resident, budget, fwd_min, reserve)
-    n_side = -(-cfg.image_size // xA)
-    stream = n_side * n_side * xA * xA * 8
-    return {
-        "config": BIG_CONFIG, "budget_gb": None if budget is None
-        else budget / 1e9, "fwd_min_gb": fwd_min / 1e9,
-        "reserve_gb": reserve / 1e9, "parts": parts,
-        "n_passes": len(parts),
-        "n_facet_passes": len({p[:2] for p in parts}),
-        "n_row_slabs": len({p[2:] for p in parts}),
-        "resident_gb": resident / 1e9, "feed_group": q,
-        "n_feeds": -(-len(parts) // q), "stream_gb": stream / 1e9,
-        "spill_budget_gb": spill_budget_bytes() / 1e9,
-        "stream_fits_ram_budget": stream <= spill_budget_bytes(),
-    }
-
-
 def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
                facet_passes=SPILL_FACET_PASSES, row_slabs=SPILL_ROW_SLABS,
                feed_group=SPILL_FEED_GROUP, warm=True, phase6_digests=None):
@@ -2356,15 +2354,28 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
         if cuda:
             torch.cuda.synchronize()
 
-    # the plan, as bench.py composes it
+    # the plan from the compiler, with the operator overrides, gated equal
+    # to the parts and feed group the plan functions give by hand
+    budget = plan.hbm_budget_bytes(device=device)
+    compiled = plan.compile_plan(
+        plan.PlanInputs.from_cover(cfg, fcs, sgcs, hbm_budget=budget,
+                                   real_facets=True, fold_group=fold_group,
+                                   config_name=config_name),
+        n_facet_env=facet_passes, n_row_env=row_slabs, feed_env=feed_group)
+    parts, resident = compiled.backward.parts, compiled.backward.resident_bytes
+    q = compiled.backward.feed_group
     fwd_min, reserve = plan.plan_margins(
         st.StreamedForward(cfg, tasks, residency="device"), xA, fold_group)
-    budget = plan.hbm_budget_bytes(device=device)
-    parts, resident = plan.plan_backward_passes(
+    hand = plan.plan_backward_passes(
         F, yB, yB * yB * 8, m * yB * 8, fold_group, budget, fwd_min, reserve,
         n_facet_env=facet_passes, n_row_env=row_slabs)
-    q = plan.plan_backward_feed(parts, resident, budget, fwd_min, reserve,
-                                feed_env=feed_group)
+    hand_q = plan.plan_backward_feed(hand[0], hand[1], budget, fwd_min,
+                                     reserve, feed_env=feed_group)
+    require(compiled.coeffs_source == "default"
+            and compiled.backward.fold_group == fold_group
+            and (parts, resident, q) == (*hand, hand_q),
+            f"spill: compile_plan gave {compiled.backward.as_dict()}, by "
+            f"hand {len(hand[0])} parts, feed group {hand_q}")
     chunks = [parts[i:i + q] for i in range(0, len(parts), q)]
     headroom = q * resident + reserve
     F_sub = max(i1 - i0 for i0, i1, _, _ in parts)
@@ -2372,6 +2383,8 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
     heights = sorted({r1 - r0 for _, _, r0, r1 in parts})
     out["plan"] = {
         "budget_gb": None if budget is None else budget / 1e9,
+        "compiled": True, "spill_mode": compiled.spill.mode,
+        "predicted_wall_s": compiled.predicted["wall_s"],
         "fwd_min_gb": fwd_min / 1e9, "reserve_gb": reserve / 1e9,
         "parts": parts, "resident_gb": resident / 1e9, "feed_group": q,
         "n_feeds": len(chunks), "hbm_headroom_gb": headroom / 1e9,
@@ -2602,8 +2615,6 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
                 f"{c['b1_forward_launches']}")
         missing = [k for k in ("colpass", "fold") if a["launches"][k] == 0]
         require(not missing, f"spill: the path launched {missing} no time")
-    out["big_plan"] = big_plan(torch, fold_group, device)
-    log(f"{BIG_CONFIG} plan (not run): {json.dumps(out['big_plan'])}")
     del facets_in, tasks
     gc_collect(torch)
     return out
@@ -2947,6 +2958,341 @@ def _resume_line(res):
 # -- phase 9: the 128k streamed round trip ---------------------------------
 
 
+PLAN_RATIO_BAND = (0.8, 1.25)  # a calibrated leg's predicted / measured
+PLAN_MISPRICED = 2.0  # a calibrated stage's predicted / measured, either way
+TRACE_ATTRIBUTION_TOL = 0.05  # self times against the leg wall
+PLAN_LEG = "leg.roundtrip"
+
+
+def copy_rates(torch, nbytes=1 << 30, reps=3):
+    """GB/s of the copies the cost model's byte stages price, best of
+    `reps` on `nbytes`: pinned host to card (``spill.h2d``), card to pinned
+    host (``spill.write``'s copy), and a host memcpy between pageable and
+    pinned memory (``spill.read``, ``cache.l1``)."""
+    n = nbytes // 4
+    dev = torch.empty(n, dtype=torch.float32, device="cuda")
+    pinned = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    host = torch.ones(n, dtype=torch.float32)
+
+    def best(fn, sync):
+        times = []
+        for _ in range(reps):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            if sync:
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return nbytes / min(times) / 1e9
+
+    out = {"bytes": nbytes,
+           "h2d_pinned_gbps": best(lambda: dev.copy_(pinned, non_blocking=True),
+                                   True),
+           "d2h_pinned_gbps": best(lambda: pinned.copy_(dev, non_blocking=True),
+                                   True),
+           "host_memcpy_gbps": best(lambda: pinned.copy_(host), False)}
+    del dev, pinned, host
+    return out
+
+
+def _stage_ratios(acc):
+    return {name: e.get("ratio") for name, e in acc["stages"].items()}
+
+
+def _plan_summary(p):
+    """What a compiled plan decided, for the JSON line and the log."""
+    return {"coeffs_source": p.coeffs_source,
+            "backward": p.backward.as_dict(), "spill_mode": p.spill.mode,
+            "forward": {k: v for k, v in p.forward.items()
+                        if k != "colpass_candidates"},
+            "predicted_wall_s": p.predicted["wall_s"],
+            "hbm_peak_gb": p.predicted["hbm_peak_bytes"] / 1e9,
+            "fwd_min_gb": p.predicted["fwd_min_bytes"] / 1e9,
+            "reserve_gb": p.predicted["reserve_bytes"] / 1e9,
+            "stages": {k: v["wall_s"]
+                       for k, v in p.predicted["stages"].items()}}
+
+
+def plan_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
+              device="cuda"):
+    """Phase 13: the plan compiler and its calibration loop on the card,
+    at `config_name`, planar f32, on phase 6's path (module docstring):
+    (a) ``compile_plan`` with the card's default coefficients, against the
+    executor's own choice; (b) two observed round trips to that plan,
+    each stamped, manifested, reconciled and appended to a calibration
+    history in a temporary file; (c) ``refit_from_ledger`` on that
+    history, a recompiled plan and a third observed round trip held to
+    the calibrated prediction; (d) the trace of (c) summarised from the
+    leg's span; (e) the 128k round trip's plan with both coefficient
+    sets, not run. `phase6`: its ``facet_digests`` (None: the first run
+    here is the reference)."""
+    import os
+    import shutil
+    import tempfile
+
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import plan
+    from swiftly_tpu_torch.obs import (
+        ledger,
+        metrics,
+        recorder,
+        report,
+        run_manifest,
+        trace,
+        validate_artifact,
+        validate_plan_accuracy_artifact,
+        validate_trace_artifact,
+    )
+
+    cuda = device == "cuda"
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    F, yB = len(fcs), fcs[0].size
+    sources = sources_for(N)
+    t0 = time.perf_counter()
+    facets_in = [st.make_real_facet(N, fc, sources) for fc in fcs]
+    tasks = list(zip(fcs, facets_in))
+    out = {"config": config_name, "facet_setup_s": time.perf_counter() - t0}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def digests(facets):
+        return [hashlib.sha256(facets[i].cpu().numpy().tobytes()).hexdigest()
+                for i in range(F)]
+
+    def facet_rms(facets):
+        return max(_facet_rms(torch, facets[i],
+                              torch.as_tensor(facets_in[i],
+                                              device=facets.device))
+                   for i in range(F))
+
+    def round_trip(p):
+        """One round trip to plan `p` (one pass: every facet, every row),
+        in a window synchronised at both ends and traced as the leg's
+        span; the facets, the wall and what the forward chose."""
+        (i0, i1, r0, r1), = p.backward.parts
+        fwd = st.StreamedForward(cfg, tasks, residency="device")
+        fwd.hbm_headroom = p.forward["hbm_headroom"]
+        slab = None if (r0, r1) == (0, yB) else (r0, r1)
+        bwd = st.StreamedBackward(cfg, fcs[i0:i1], residency="sampled",
+                                  fold_group=p.backward.fold_group,
+                                  row_slab=slab)
+        sync()
+        with trace.span(PLAN_LEG, cat="bench", config=config_name):
+            t = time.perf_counter()
+            st.feed_backward_passes(fwd, sgcs, [bwd])
+            facets = bwd.finish_device()
+            sync()
+            wall = time.perf_counter() - t
+        return facets, wall, dict(fwd.last_plan)
+
+    def observed(p, history, manifest_params):
+        """A round trip to `p` with metrics and trace on; the stamped plan
+        block, the manifest, the plan-accuracy block (appended to
+        `history`) and the trace."""
+        for mod in (metrics, trace, recorder):
+            mod.disable()
+            mod.reset()
+        metrics.enable(device=device)
+        trace.enable(device=device)
+        facets, wall, executed = round_trip(p)
+        exp = metrics.export()
+        exported = trace.export()
+        metrics.disable()
+        trace.disable()
+        block = plan.stamp_measured_wall(p.artifact_block(), wall)
+        manifest = run_manifest(params=manifest_params)
+        acc = ledger.plan_accuracy_block(block, exp, manifest)
+        record = {"metric": f"{config_name} round trip wall", "value": wall,
+                  "unit": "s", "manifest": manifest, "plan_compiled": block,
+                  "telemetry": exp, "plan_accuracy": acc}
+        problems = (validate_artifact(record, require_baseline=False)
+                    + validate_plan_accuracy_artifact(record))
+        require(not problems, f"phase 13: invalid artifact: {problems}")
+        unmapped = ledger.unmapped_stage_names(exp["stages"])
+        require(not unmapped, f"phase 13: stages outside the ledger: "
+                              f"{unmapped}")
+        ledger.append_history(acc, history)
+        return facets, wall, executed, block, acc, exported, manifest
+
+    tmp = tempfile.mkdtemp(prefix="swiftly_plan_smoke_")
+    history = os.path.join(tmp, "calibration.jsonl")
+    keep_env = os.environ.get("SWIFTLY_CALIBRATION_HISTORY")
+    os.environ["SWIFTLY_CALIBRATION_HISTORY"] = history
+    try:
+        # (a) the default-coefficient plan against the executor's choice
+        budget = plan.hbm_budget_bytes(device=device)
+        inputs = plan.PlanInputs.from_cover(
+            cfg, fcs, sgcs, hbm_budget=budget, real_facets=True,
+            fold_group=fold_group, config_name=config_name)
+        p0 = plan.compile_plan(inputs)
+        out["budget_gb"] = None if budget is None else budget / 1e9
+        out["default_plan"] = _plan_summary(p0)
+        log(f"{config_name} plan (default coefficients): "
+            f"{json.dumps(out['default_plan'])}")
+        require(p0.coeffs_source == "default",
+                f"phase 13: the plan's coefficients are {p0.coeffs_source}")
+        require(p0.backward.fold_group == fold_group,
+                f"phase 13: the default plan moved the seed fold group "
+                f"{fold_group} to {p0.backward.fold_group}")
+        require(p0.backward.n_passes == 1,
+                f"phase 13: {p0.backward.n_passes} passes at "
+                f"{config_name}; this phase runs one")
+
+        # (b) two observed round trips to it, each reconciled and recorded
+        params = {"config": config_name, "mode": "roundtrip-streamed",
+                  "dtype": "float32", "fold_group": fold_group}
+        runs = []
+        want = None if phase6 is None else phase6["facet_digests"]
+        for k in range(2):
+            facets, wall, executed, block, acc, _, manifest = observed(
+                p0, history, params)
+            dig = digests(facets)
+            del facets
+            want = dig if want is None else want
+            run = {"wall_s": wall, "executed_forward": executed,
+                   "predicted_vs_measured": block["predicted_vs_measured"],
+                   "coverage": acc["coverage"], "uncovered": acc["uncovered"],
+                   "stage_ratios": _stage_ratios(acc),
+                   "bits_equal_phase6": dig == want}
+            runs.append(run)
+            log(f"{config_name} plan run {k}: wall {wall:.3f} s, predicted / "
+                f"measured {block['predicted_vs_measured']}, coverage "
+                f"{acc['coverage']}, uncovered {acc['uncovered']}, stages "
+                f"{json.dumps(run['stage_ratios'])}, forward {executed}")
+            require(run["bits_equal_phase6"],
+                    f"phase 13 run {k}: the facets differ from phase 6's")
+            require(executed["mode"] == p0.forward["mode"]
+                    and executed["col_group"] == p0.forward["col_group"],
+                    f"phase 13: planned forward {p0.forward['mode']} "
+                    f"G {p0.forward['col_group']}, executed {executed}")
+            gc_collect(torch)
+        out["runs"] = runs
+        out["manifest_device"] = manifest["device"]
+
+        # (c) refit from the ledger, recompile, and run to the new plan
+        entries = ledger.load_calibration_history(history)
+        ready = plan.ledger_readiness(entries)
+        out["readiness"] = {
+            "ready": ready["ready"], "platform": ready["platform"],
+            "n_records": ready["n_records"], "reasons": ready["reasons"],
+            "stages": {k: {"n": v["n"], "rel_spread": v["rel_spread"],
+                           "ready": v["ready"]}
+                       for k, v in ready["stages"].items()}}
+        require(ready["ready"]
+                and ready["platform"] == ("gpu" if cuda else "cpu"),
+                f"phase 13: the ledger is not ready: {out['readiness']}")
+        coeffs = plan.refit_from_ledger(entries)
+        require(coeffs.source == "ledger",
+                f"phase 13: refit_from_ledger gave {coeffs.source}")
+        out["ledger_rates"] = {**coeffs.flops_per_s, **coeffs.bytes_per_s}
+        p1 = plan.compile_plan(inputs, coeffs=coeffs)
+        out["calibrated_plan"] = _plan_summary(p1)
+        same = (p1.backward.fold_group == fold_group
+                and p1.backward.parts == p0.backward.parts)
+        gate = "phase 6's facet SHA-256" if same else "the oracle's facet RMS"
+        out["calibrated_gate"] = gate
+        log(f"{config_name} plan (ledger coefficients, {coeffs.n_records} "
+            f"records): {json.dumps(out['calibrated_plan'])}; held to {gate}")
+        require(p1.backward.n_passes == 1,
+                f"phase 13: the calibrated plan has {p1.backward.n_passes} "
+                "passes")
+        _reset_peak(torch)
+        reset_counts()
+        facets, wall, executed, block, acc, exported, _ = observed(
+            p1, history, params)
+        out["counts"] = read_counts()
+        out["launches"] = {k: v[0] for k, v in out["counts"].items()}
+        if same:
+            ok = digests(facets) == want
+        else:
+            rms = facet_rms(facets)
+            out["calibrated_facet_rms"] = rms
+            ok = rms <= FACET_RMS
+        del facets
+        bad = ledger.record_mispricing(acc, threshold=PLAN_MISPRICED)
+        ratio = block["predicted_vs_measured"]
+        out["calibrated_run"] = {
+            "wall_s": wall, "predicted_wall_s": block["predicted"]["wall_s"],
+            "predicted_vs_measured": ratio, "coverage": acc["coverage"],
+            "uncovered": acc["uncovered"], "stage_ratios": _stage_ratios(acc),
+            "mispriced": [name for name, _ in bad], "gate_met": ok,
+            "executed_forward": executed}
+        log(f"{config_name} calibrated run: wall {wall:.3f} s, predicted "
+            f"{block['predicted']['wall_s']} s, predicted / measured {ratio}, "
+            f"stages {json.dumps(out['calibrated_run']['stage_ratios'])}, "
+            f"mispriced {out['calibrated_run']['mispriced']}")
+        require(ok, f"phase 13: the calibrated run fails {gate}")
+        require(PLAN_RATIO_BAND[0] <= ratio <= PLAN_RATIO_BAND[1],
+                f"phase 13: the calibrated leg's predicted / measured "
+                f"{ratio} is outside {PLAN_RATIO_BAND}")
+        require(not bad, f"phase 13: mispriced stages {bad}")
+        missing = [k for k in ("cmatmul", "colpass", "fold")
+                   if out["launches"][k] == 0]
+        require(not cuda or not missing,
+                f"phase 13 launched {missing} no time")
+
+        # (d) the trace of (c), attributed from the leg's span
+        spans = report.build_tree(exported)
+        leg = [sid for sid, sp in spans.items() if sp["name"] == PLAN_LEG]
+        require(len(leg) == 1, f"phase 13: {len(leg)} leg spans")
+        summary = report.summarize_trace(exported, root_id=leg[0])
+        attributed = summary["attributed_s"]
+        out["trace"] = {"span_count": summary["span_count"],
+                        "wall_s": summary["wall_s"],
+                        "attributed_s": attributed, "leg_wall_s": wall,
+                        "critical_path": [c["name"] for c in
+                                          summary["critical_path"]],
+                        "top": [(t["name"], t["self_s"])
+                                for t in summary["top"]]}
+        log(f"{config_name} trace of the calibrated run: "
+            f"{json.dumps(out['trace'])}")
+        problems = validate_trace_artifact({"trace": summary})
+        require(not problems, f"phase 13: trace block: {problems}")
+        require(abs(attributed - wall) <= TRACE_ATTRIBUTION_TOL * wall,
+                f"phase 13: self times {attributed:.3f} s against the leg's "
+                f"{wall:.3f} s")
+
+        # (e) the 128k round trip's plan on this card, not run
+        big = plan.PlanInputs.from_config(
+            BIG_CONFIG, hbm_budget=budget, real_facets=True,
+            sparse_facets=True, fold_group=fold_group)
+        out["plan_128k"] = {}
+        for name, c in (("default", None), ("ledger", coeffs)):
+            pb = plan.compile_plan(big, coeffs=c)
+            out["plan_128k"][name] = _plan_summary(pb)
+            log(f"{BIG_CONFIG} plan ({name} coefficients), not run: "
+                f"{pb.backward.n_passes} passes, {pb.backward.n_feeds} "
+                f"feeds of {pb.backward.feed_group}, spill "
+                f"{pb.spill.mode}, predicted {pb.predicted['wall_s']} s, "
+                f"peak {pb.predicted['hbm_peak_bytes'] / 1e9:.3f} GB")
+        if cuda:
+            out["rates"] = copy_rates(torch)
+            log(f"copy rates: {json.dumps(out['rates'])}")
+    finally:
+        for mod in (metrics, trace, recorder):
+            mod.disable()
+            mod.reset()
+        if keep_env is None:
+            os.environ.pop("SWIFTLY_CALIBRATION_HISTORY", None)
+        else:
+            os.environ["SWIFTLY_CALIBRATION_HISTORY"] = keep_env
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _plan_line(res):
+    """Phase 13's JSON record: every key but the per-shape launch counts
+    (the `kernels` line's ``paths`` holds them)."""
+    return {k: v for k, v in res.items() if k != "counts"}
+
+
 def _facet_rms(torch, got, ref):
     """RMS of a planar [..., 2] device tensor against a real one, in
     float64."""
@@ -2996,8 +3342,13 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
                                   fold_group=fold_group, row_slab=rows)
         return fwd, bwd
 
+    from swiftly_tpu_torch.obs import Heartbeat
+
     fwd, bwd = executors()
-    feed = _TimedFeed(torch, fwd, idxs)
+    # progress and ETA over the 85,849 subgrids, every 30 s
+    hb = Heartbeat(total=n, label=f"{config_name} subgrids", interval_s=30.0,
+                   log=SimpleNamespace(info=lambda fmt, *a: log(fmt % a)))
+    feed = _TimedFeed(torch, fwd, idxs, heartbeat=hb)
     gc_collect(torch)
     before = _reset_peak(torch)
     reset_counts()
@@ -3007,8 +3358,10 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
     facets = bwd.finish_device()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
+    hb.finish()
     counts = read_counts()
     plan = fwd.last_plan
+    require(hb.done == n, f"the heartbeat counted {hb.done} of {n} subgrids")
     t_fwd = feed.forward_s()
     peak = _peak(torch)
     from swiftly_tpu_torch.parallel import streamed as sm
@@ -3029,6 +3382,7 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
            "forward_modelled_gb": _modelled_bytes(fwd, sgcs) / 1e9,
            "launches": {k: v[0] for k, v in counts.items()},
            "counts": counts, "facet_setup_s": setup_s,
+           "heartbeat_subgrids": hb.done,
            "sizer": _sizer_record(f"{config_name} streamed", model, peak)}
     log(f"{config_name} streamed round trip: forward {t_fwd:.3f} s, backward "
         f"{total - t_fwd:.3f} s, plan {json.dumps(plan)}, {feed.n_groups} "
@@ -3870,6 +4224,10 @@ def _args():
     p.add_argument("--resume", action="store_true",
                    help="phase 2, then phase 6's round trip (warm and timed, "
                    "unprofiled) and phase 12 (telemetry, kill and resume)")
+    p.add_argument("--plan", action="store_true",
+                   help="phase 2, then phase 6's round trip (warm and timed, "
+                   "unprofiled) and phase 13 (the plan compiler and its "
+                   "calibration loop)")
     p.add_argument("--serve-full", action="store_true",
                    help="phase 8 serves all its batches (default: the first "
                    f"{VIS_SERVED})")
@@ -3988,6 +4346,14 @@ def main():
         done("resume")
         log(json.dumps({"resume_32k": _resume_line(res)}))
         return 0
+    if args.plan:
+        streamed = streamed_main(torch, profile=False)
+        done("streamed")
+        gc_collect(torch)
+        res = plan_main(torch, phase6=streamed)
+        done("plan")
+        log(json.dumps({"plan_32k": _plan_line(res)}))
+        return 0
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
@@ -4024,6 +4390,9 @@ def main():
     resume = resume_main(torch, phase6=streamed)
     done("resume")
     gc_collect(torch)
+    plan13 = plan_main(torch, phase6=streamed)
+    done("plan")
+    gc_collect(torch)
     slabs = slabs_main(torch)
     done("slabs")
     gc_collect(torch)
@@ -4050,7 +4419,7 @@ def main():
     results = {"fused": fused, "streamed": streamed, "vis": vis,
                "128k": big, "residency": residency,
                "residency_bodies": residency["bodies"], "spill": spill,
-               "resume": resume}
+               "resume": resume, "plan": plan13}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -4084,6 +4453,7 @@ def main():
     log(json.dumps({"spill_32k": _spill_line(spill)}))
     log(json.dumps({"resume_32k": _resume_line(resume)}))
     log(json.dumps({"streamed_128k": _big_line(big)}))
+    log(json.dumps({"plan_32k": _plan_line(plan13)}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",
         "submitted_samples", "serve_s", "samples_per_s", "p50_ms",

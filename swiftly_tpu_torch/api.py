@@ -15,12 +15,22 @@ streams subgrids in and accumulates facets. Both bound their working set:
 `SwiftlyForward.all_subgrids` and `backward_all` compute a whole cover in
 one call each: the fused round trip that the main path runs.
 
+Telemetry, as the JAX package's (recorded only while ``obs.metrics`` is
+enabled): the LRUs count ``<name>.hit`` / ``<name>.miss``; the stages
+``fwd.prepare_facets``, ``fwd.fused_forward``, ``bwd.fused_backward`` and
+``bwd.finish`` are timed, and so are the flight queues' waits
+(``fwd.drain`` / ``bwd.drain``); `last_dispatch_path` (and the gauge
+``fwd.dispatch_path``) says which path served the latest batched
+request.
+
 Subgrids may be produced/consumed in any order — every accumulation is a
 sum of linear contributions.
 """
 
 from __future__ import annotations
 
+import contextlib
+import logging
 from collections import deque
 
 import numpy as np
@@ -39,7 +49,10 @@ from .ops.oracle import (
     make_sparse_real_facet_from_sources,
     make_subgrid_from_sources,
 )
+from .obs import metrics as _metrics
 from .parallel import batched
+
+log = logging.getLogger(__name__)
 
 __all__ = [
     "FacetConfig",
@@ -53,6 +66,7 @@ __all__ = [
     "check_facet",
     "check_residual",
     "check_subgrid",
+    "last_dispatch_path",
     "make_facet",
     "make_full_facet_cover",
     "make_full_subgrid_cover",
@@ -162,16 +176,26 @@ class LRUCache:
 
     `set` returns the evicted (key, value) once capacity is exceeded —
     eviction is what triggers the backward fold step.
+
+    Hit/miss counters (``<name>.hit`` / ``<name>.miss``, recorded only
+    while metrics are enabled) show how well a workload's column locality
+    is used.
     """
 
-    def __init__(self, capacity: int):
+    def __init__(self, capacity: int, name: str = "lru"):
         self.capacity = capacity
         self._store = {}  # insertion-ordered; order == recency
+        self._hit_name = f"{name}.hit"
+        self._miss_name = f"{name}.miss"
 
     def get(self, key):
         """Return the cached value and refresh its recency, or None."""
         if key not in self._store:
+            if _metrics.enabled():
+                _metrics.count(self._miss_name)
             return None
+        if _metrics.enabled():
+            _metrics.count(self._hit_name)
         value = self._store.pop(key)
         self._store[key] = value
         return value
@@ -200,6 +224,38 @@ class LRUCache:
         return len(self._store)
 
 
+# Which path served the latest batched forward request: a silent fall
+# back to the per-subgrid loop (the numpy backend) would give numbers
+# nobody can read, so the path is recorded (gauge ``fwd.dispatch_path``,
+# counter ``fwd.path.<path>`` and `last_dispatch_path`) and the fallback
+# warns once per reason.
+_LAST_DISPATCH_PATH = None
+_FALLBACK_WARNED = set()
+
+
+def last_dispatch_path():
+    """The path the most recent batched-forward call executed:
+    ``"batched-column"`` or the host ``"per-subgrid-loop"`` fallback (None
+    before any call)."""
+    return _LAST_DISPATCH_PATH
+
+
+def _record_dispatch_path(path, fallback_reason=None):
+    global _LAST_DISPATCH_PATH
+    _LAST_DISPATCH_PATH = path
+    if _metrics.enabled():
+        _metrics.gauge("fwd.dispatch_path", path)
+        _metrics.count(f"fwd.path.{path}")
+    if fallback_reason and fallback_reason not in _FALLBACK_WARNED:
+        _FALLBACK_WARNED.add(fallback_reason)
+        log.warning(
+            "get_subgrid_tasks falling back to the per-subgrid loop (%s): "
+            "O(subgrids) dispatches instead of O(columns)", fallback_reason,
+        )
+        _metrics.event("fwd.path_fallback", path=path,
+                       reason=fallback_reason)
+
+
 class FlightQueue:
     """Bounds in-flight asynchronous device work, counted in logical tasks
     (subgrids), not bytes.
@@ -209,11 +265,13 @@ class FlightQueue:
     the current stream of the admitted tensors' device, once per admitted
     task; past `depth` tasks, the oldest event is waited on
     (``Event.synchronize``). Host (CPU) tensors are complete when they are
-    returned and hold no event.
+    returned and hold no event. With `stage`, the waits are timed as that
+    ``obs.metrics`` stage (the host's one view of the device's progress).
     """
 
-    def __init__(self, depth: int):
+    def __init__(self, depth: int, stage: str | None = None):
         self.depth = depth
+        self.stage = stage
         self._inflight = deque()
 
     @staticmethod
@@ -231,8 +289,14 @@ class FlightQueue:
             arrays = [arrays]
         event = self._event(arrays)
         self._inflight.extend([event] * len(arrays))
-        while len(self._inflight) > self.depth:
-            self._ready(self._inflight.popleft())
+        if len(self._inflight) > self.depth:
+            with self._timed():
+                while len(self._inflight) > self.depth:
+                    self._ready(self._inflight.popleft())
+
+    def _timed(self):
+        return (_metrics.stage(self.stage) if self.stage
+                else contextlib.nullcontext())
 
     @staticmethod
     def _ready(event):
@@ -241,8 +305,11 @@ class FlightQueue:
 
     def drain(self):
         """Block until all in-flight work completes."""
-        while self._inflight:
-            self._ready(self._inflight.popleft())
+        if not self._inflight:
+            return
+        with self._timed():
+            while self._inflight:
+                self._ready(self._inflight.popleft())
 
     def __len__(self):
         return len(self._inflight)
@@ -362,15 +429,16 @@ class SwiftlyForward:
         self._facet_data = [data for _, data in facet_tasks]
         self._BF_Fs = None
         self.lru = LRUCache(lru_forward)
-        self.queue = FlightQueue(queue_size)
+        self.queue = FlightQueue(queue_size, stage="fwd.drain")
         # column intermediates computed (LRU misses of `_get_columns`)
         self.columns_extracted = 0
 
     def _get_BF_Fs(self):
         if self._BF_Fs is None:
-            self._BF_Fs = batched.prepare_facets_batch(
-                self.core, self._facet_data, self.stack.offs0
-            )
+            with _metrics.stage("fwd.prepare_facets"):
+                self._BF_Fs = batched.prepare_facets_batch(
+                    self.core, self._facet_data, self.stack.offs0
+                )
         return self._BF_Fs
 
     def _get_columns(self, off0):
@@ -408,7 +476,10 @@ class SwiftlyForward:
         in input order.
         """
         if self.core.backend == "numpy":
+            _record_dispatch_path("per-subgrid-loop",
+                                  "the numpy backend has no batched path")
             return [self.get_subgrid_task(sg) for sg in subgrid_configs]
+        _record_dispatch_path("batched-column")
         groups = {}  # (off0, size) -> list of input indices
         for i, sg in enumerate(subgrid_configs):
             groups.setdefault((sg.off0, sg.size), []).append(i)
@@ -469,10 +540,22 @@ class SwiftlyForward:
             ms = [_subgrid_masks(sg) for _, sg in col]
             masks0.append([m[0] for m in ms])
             masks1.append([m[1] for m in ms])
-        stacked = batched.forward_all_batch(
-            self.core, self._get_BF_Fs(), self.stack.offs0, self.stack.offs1,
-            col_offs0, sg_offs1, size, masks0, masks1,
-        )
+        fused_flops = 0
+        if _metrics.enabled():
+            from .utils.flops import forward_batched_flops
+
+            fused_flops = forward_batched_flops(
+                self.core, n_facets=self.stack.n_real,
+                facet_size=self.stack.size, n_columns=len(col_offs0),
+                subgrids_per_column=max_S, subgrid_size=size,
+            )
+            _metrics.count("fwd.subgrids", len(subgrid_configs))
+        BF_Fs = self._get_BF_Fs()
+        with _metrics.stage("fwd.fused_forward", flops=fused_flops):
+            stacked = batched.forward_all_batch(
+                self.core, BF_Fs, self.stack.offs0, self.stack.offs1,
+                col_offs0, sg_offs1, size, masks0, masks1,
+            )
         flat = stacked.reshape((len(col_offs0) * max_S,) + stacked.shape[2:])
         n = len(subgrid_configs)
         order = [rows[i] for i in range(n)]
@@ -507,7 +590,7 @@ class SwiftlyBackward:
         self.core = swiftly_config.core
         self.stack = _FacetStack(facets_config_list)
         self.lru = LRUCache(lru_backward)
-        self.queue = FlightQueue(queue_size)
+        self.queue = FlightQueue(queue_size, stage="bwd.drain")
         self._MNAF_BMNAFs = None
         self._finished = False
 
@@ -588,10 +671,11 @@ class SwiftlyBackward:
             self._MNAF_BMNAFs = self._zeros(
                 (len(self.stack), self.core.yN_size, self.stack.size)
             )
-        facets = batched.finish_facets_batch(
-            self.core, self._MNAF_BMNAFs, self.stack.offs0,
-            self.stack.masks0, self.stack.size,
-        )
+        with _metrics.stage("bwd.finish"):
+            facets = batched.finish_facets_batch(
+                self.core, self._MNAF_BMNAFs, self.stack.offs0,
+                self.stack.masks0, self.stack.size,
+            )
         self.queue.drain()
         self._MNAF_BMNAFs = None
         self._finished = True
@@ -635,7 +719,18 @@ def backward_all(swiftly_config, facet_configs, subgrid_tasks):
     sg_offs = [
         [(sg.off0, sg.off1) for sg, _ in groups[off0]] for off0 in groups
     ]
-    return batched.backward_all_batch(
-        core, subgrids, sg_offs, stack.offs0, stack.offs1, stack.masks0,
-        stack.masks1, stack.size,
-    )
+    fused_flops = 0
+    if _metrics.enabled():
+        from .utils.flops import backward_batched_flops
+
+        fused_flops = backward_batched_flops(
+            core, n_facets=stack.n_real, facet_size=stack.size,
+            n_columns=len(groups),
+            subgrids_per_column=len(next(iter(groups.values()))),
+            subgrid_size=subgrid_tasks[0][0].size,
+        )
+    with _metrics.stage("bwd.fused_backward", flops=fused_flops):
+        return batched.backward_all_batch(
+            core, subgrids, sg_offs, stack.offs0, stack.offs1, stack.masks0,
+            stack.masks1, stack.size,
+        )

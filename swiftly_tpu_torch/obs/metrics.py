@@ -23,7 +23,12 @@ constraints, in order:
    over host wall) is exact on synchronous backends (the CPU) and a
    launch-side attribution on the card, where the run-level ``total``
    block is meaningful and a profiler trace holds the per-kernel device
-   truth.
+   truth. So, enabled for a CUDA device, each stage also records a CUDA
+   event at each end on the current stream, and ``export()`` gives the
+   stage's ``device_s``: the summed time between its events, what the
+   stream spent from reaching the stage's first launch to finishing its
+   last. The events are read at export (or once complete, to bound
+   them), never waited on inside a stage.
 
 Stage timing keeps streaming aggregates (count/total/min/max) plus a
 bounded sample ring for p99 (capacity 8192; beyond that, samples
@@ -58,6 +63,7 @@ __all__ = [
 ]
 
 _P99_RING = 8192  # per-stage sample capacity (see module docstring)
+_PENDING_EVENTS = 512  # a stage's unread CUDA event pairs before a fold
 
 
 class _NullStage:
@@ -85,7 +91,7 @@ _NULL_STAGE = _NullStage()
 class _StageStats:
     __slots__ = (
         "count", "total_s", "min_s", "max_s", "flops", "bytes_moved",
-        "samples", "_ring_i",
+        "samples", "_ring_i", "device_s", "device_count", "pending",
     )
 
     def __init__(self):
@@ -97,6 +103,30 @@ class _StageStats:
         self.bytes_moved = 0
         self.samples = []
         self._ring_i = 0
+        self.device_s = 0.0
+        self.device_count = 0
+        self.pending = []  # (start, end) CUDA events not read yet
+
+    def add_events(self, events):
+        """Keep one stage's (start, end) CUDA events; fold in those already
+        complete once many are pending (no wait)."""
+        self.pending.append(events)
+        if len(self.pending) >= _PENDING_EVENTS:
+            self.resolve(wait=False)
+
+    def resolve(self, wait=True):
+        """Add the pending events' elapsed times to ``device_s``: all of
+        them (``wait``: blocks until they complete), else the leading run
+        of complete ones."""
+        done = 0
+        for ev0, ev1 in self.pending:
+            if not wait and not ev1.query():
+                break
+            ev1.synchronize()
+            self.device_s += ev0.elapsed_time(ev1) / 1e3
+            self.device_count += 1
+            done += 1
+        del self.pending[:done]
 
     def add(self, wall_s, flops, bytes_moved):
         self.count += 1
@@ -148,6 +178,19 @@ class _Annotation:
         self._rf.__exit__(*exc)
 
 
+def _on_cuda(device=None):
+    """Whether stages time the device: `device` is a CUDA device (default:
+    CUDA when available)."""
+    try:
+        import torch
+
+        if device is None:
+            return torch.cuda.is_available()
+        return torch.device(device).type == "cuda"
+    except Exception:  # pragma: no cover - torch without CUDA bindings
+        return False
+
+
 def _resolve_annotation(device=None):
     """The stage's profiler-marker factory for `device` (default: CUDA when
     available): ``name -> _Annotation``, with NVTX on a CUDA device; None
@@ -176,7 +219,7 @@ class _Stage:
     only) — it then records no registry state."""
 
     __slots__ = ("_reg", "name", "flops", "bytes_moved", "_t0", "_ann",
-                 "_tspan")
+                 "_tspan", "_ev0")
 
     def __init__(self, reg, name, flops, bytes_moved):
         self._reg = reg
@@ -185,6 +228,7 @@ class _Stage:
         self.bytes_moved = bytes_moved
         self._ann = None
         self._tspan = None
+        self._ev0 = None
 
     def __enter__(self):
         reg = self._reg
@@ -193,11 +237,23 @@ class _Stage:
         if _trace._TRACER.enabled:
             self._tspan = _trace.span(self.name, cat="stage")
             self._tspan.__enter__()
+        if reg._device_events and reg.enabled:
+            import torch
+
+            self._ev0 = torch.cuda.Event(enable_timing=True)
+            self._ev0.record()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         wall = time.perf_counter() - self._t0
+        events = None
+        if self._ev0 is not None:
+            import torch
+
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            events = (self._ev0, ev1)
         if self._tspan is not None:
             if self.flops:
                 self._tspan.set(flops=self.flops)
@@ -208,7 +264,7 @@ class _Stage:
             self._ann.close(*exc)
         if self._reg.enabled:
             self._reg._record_stage(self.name, wall, self.flops,
-                                    self.bytes_moved)
+                                    self.bytes_moved, events)
         rec = _recorder._RECORDER
         if rec.enabled:
             rec.record("stage", self.name, round(wall, 6))
@@ -225,6 +281,7 @@ class MetricsRegistry:
     def __init__(self, enabled=False, jsonl_path=None):
         self._lock = threading.Lock()
         self._annotation_cls = None
+        self._device_events = False
         self._jsonl = None
         self._jsonl_path = None
         self._t_epoch = time.time()
@@ -253,6 +310,7 @@ class MetricsRegistry:
             self._t0 = time.perf_counter()
             if self._annotation_cls is None or device is not None:
                 self._annotation_cls = _resolve_annotation(device)
+                self._device_events = _on_cuda(device)
             if jsonl_path:
                 self._jsonl_path = str(jsonl_path)
                 self._jsonl = open(self._jsonl_path, "a", buffering=1)
@@ -339,12 +397,14 @@ class MetricsRegistry:
         with self._lock:
             self._emit({"kind": kind, **fields})
 
-    def _record_stage(self, name, wall_s, flops, bytes_moved):
+    def _record_stage(self, name, wall_s, flops, bytes_moved, events=None):
         with self._lock:
             st = self.stages.get(name)
             if st is None:
                 st = self.stages[name] = _StageStats()
             st.add(wall_s, flops, bytes_moved)
+            if events is not None:
+                st.add_events(events)
             self._emit(
                 {
                     "kind": "stage",
@@ -370,7 +430,9 @@ class MetricsRegistry:
         ``tflops`` plus ``mfu_pct`` against the chip's peak
         (``utils.flops.peak_tflops``; absent when no peak is known: the
         CPU, or a card other than an H100, without
-        ``SWIFTLY_PEAK_TFLOPS``).
+        ``SWIFTLY_PEAK_TFLOPS``); on the card ``device_s`` and
+        ``device_count``, the stage's device time between its CUDA events
+        (this waits for the pending ones).
         """
         peak = None
         with self._lock:
@@ -397,6 +459,10 @@ class MetricsRegistry:
                     "p50_s": round(_quantile_sorted(samples, 0.50), 6),
                     "p99_s": round(_quantile_sorted(samples, 0.99), 6),
                 }
+                st.resolve()
+                if st.device_count:
+                    entry["device_s"] = round(st.device_s, 6)
+                    entry["device_count"] = st.device_count
                 if st.flops:
                     entry["flops"] = st.flops
                     if st.total_s > 0:

@@ -240,17 +240,6 @@ def _identity(core, n):
     return eye.to(core.dtype)
 
 
-def _admit(queue, arrays, stage):
-    """``queue.admit(arrays)``, timed as the ``*.drain`` stage `stage`
-    when the admission waits on an older entry's event (the queue is
-    full): the executors' only waits on the device."""
-    if len(queue) + len(arrays) > queue.depth:
-        with _metrics.stage(stage):
-            queue.admit(arrays)
-    else:
-        queue.admit(arrays)
-
-
 def _nbytes(t):
     return t.numel() * t.element_size()
 
@@ -1615,7 +1604,7 @@ class StreamedForward:
                 core, F, yB, core.xM_yN_size, self._facets_real)
             cp_flops = _flops.column_pass_flops(core, F, S, subgrid_size,
                                                 colpass)
-        inflight = FlightQueue(1)
+        inflight = FlightQueue(1, stage="fwd.drain")
         for g0 in range(0, len(col_offs0), G):
             grp = col_offs0[g0:g0 + G]
             # one span a column group, closed before the yield (a
@@ -1634,7 +1623,7 @@ class StreamedForward:
                         core, subgrid_size, colpass, ops, buf, base._foffs0,
                         base._foffs1, sg_offs_g, m0_g, m1_g)  # [G, S, xA, xA(,2)]
                 del buf
-                _admit(inflight, [out_g], "fwd.drain")
+                inflight.admit([out_g])
             self._count_group(groups, grp)
             if whole_groups:
                 yield [_real_items(groups[off0]) for off0 in grp], out_g
@@ -1809,7 +1798,7 @@ class StreamedForward:
         n_dispatch = n_slabs * n_groups
         d = 0  # slab dispatches so far, continuous across groups
         xM = core.xM_size
-        inflight = FlightQueue(1)
+        inflight = FlightQueue(1, stage="fwd.drain")
         try:
             for g0 in range(0, len(col_offs0), G):
                 grp = col_offs0[g0:g0 + G]
@@ -1857,7 +1846,7 @@ class StreamedForward:
                     out_g = _column_group_finish(core, colpass, subgrid_size,
                                                  acc, sg_offs_g, m0_g, m1_g)
                 del acc
-                _admit(inflight, [out_g], "fwd.drain")
+                inflight.admit([out_g])
                 grp_span.__exit__(None, None, None)
                 self._count_group(groups, grp)
                 if whole_groups:
@@ -1963,7 +1952,7 @@ class StreamedForward:
             cp_flops = _flops.column_pass_flops(
                 core, base.stack.n_real, len(next(iter(groups.values()))),
                 subgrid_size, colpass)
-        inflight = FlightQueue(2)
+        inflight = FlightQueue(2, stage="fwd.drain")
         for off0 in col_offs0:
             host = self._nmbf[self._col_index[int(off0)]]
             with _metrics.stage("fwd.h2d", bytes_moved=_nbytes(host)):
@@ -1976,7 +1965,7 @@ class StreamedForward:
                                        base._foffs0, base._foffs1, sg_offs[0],
                                        m0[0], m1[0])
             del NMBF
-            _admit(inflight, [out], "fwd.drain")
+            inflight.admit([out])
             self._count_group(groups, [off0])
             yield _real_items(groups[off0]), out
 
@@ -2686,8 +2675,8 @@ class StreamedBackward:
         self._e0 = None
         # depth-2 in-flight pipelines (CUDA events): folds, and column
         # passes fed one column at a time
-        self._fold_inflight = FlightQueue(2)
-        self._rows_inflight = FlightQueue(2)
+        self._fold_inflight = FlightQueue(2, stage="bwd.drain")
+        self._rows_inflight = FlightQueue(2, stage="bwd.drain")
         self._finished = False
         # (off0, off1) of every folded subgrid: the resume ledger the
         # autosave snapshots and `utils.checkpoint` restores
@@ -2860,14 +2849,14 @@ class StreamedBackward:
                              base._masks1_dev, rows[:, :, :yB])
         self.processed.extend((sg.off0, sg.off1) for sg in sg_configs)
         if sampled:
-            _admit(self._rows_inflight, [rows], "bwd.drain")
+            self._rows_inflight.admit([rows])
             self._pending_rows.append((key, rows))
             if len(self._pending_rows) >= self._fold_group:
                 self._flush_folds()
         elif base.residency == "device":
             prev = self._naf.get(key)
             self._naf[key] = rows if prev is None else prev.add_(rows)
-            _admit(self._rows_inflight, [self._naf[key]], "bwd.drain")
+            self._rows_inflight.admit([self._naf[key]])
         else:
             with _metrics.stage("bwd.d2h", bytes_moved=_nbytes(rows)):
                 host = rows.cpu()
@@ -2923,7 +2912,7 @@ class StreamedBackward:
                     _bwd_sampled_fold(core, self._acc, rows_cat, self._e0,
                                       krows,
                                       row0=(self._row_slab or (0, 0))[0])
-        _admit(self._fold_inflight, [self._acc], "bwd.drain")
+        self._fold_inflight.admit([self._acc])
 
     def _flush_folds(self):
         """Fold the pending columns' rows into the accumulator, in one
@@ -3001,7 +2990,7 @@ class StreamedBackward:
             if g == cap:
                 self._fold_rows(offs[j:j + g], rows_cat)
             else:
-                _admit(self._rows_inflight, [rows_cat], "bwd.drain")
+                self._rows_inflight.admit([rows_cat])
                 self._pending_rows.extend(
                     (offs[j + c], rows_cat[:, c * m:(c + 1) * m])
                     for c in range(g))
@@ -3038,8 +3027,7 @@ class StreamedBackward:
             m = m[..., None]
         with _metrics.stage("bwd.finish"):
             acc.mul_(m)
-        with _metrics.stage("bwd.drain"):
-            self._fold_inflight.drain()
+        self._fold_inflight.drain()
         self._finished = True
         return acc
 

@@ -1,6 +1,9 @@
 """On-demand serving: the admission queue and the coalescing scheduler (the
-port of the JAX package's ``swiftly_tpu.serve`` queue and scheduler;
-``SubgridService``, health, autoscale and the fleets are ROADMAP A12)."""
+port of the JAX package's ``swiftly_tpu.serve`` queue and scheduler, with
+the plan's admission byte projections; ``SubgridService``, health,
+autoscale and the fleets are ROADMAP A12)."""
+
+from ..plan.model import projected_column_bytes, projected_request_bytes
 
 from .queue import (
     STATUS_EXPIRED,
@@ -23,4 +26,6 @@ __all__ = [
     "STATUS_SHED",
     "SubgridRequest",
     "bucket_shape",
+    "projected_column_bytes",
+    "projected_request_bytes",
 ]

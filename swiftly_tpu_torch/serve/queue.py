@@ -1,10 +1,9 @@
 """Bounded admission queue for on-demand subgrid serving.
 
 The port of the JAX package's ``swiftly_tpu/serve/queue.py``: the same
-states, results, requests and depth admission. Not ported yet: the
-projected-HBM admission (``hbm_budget_bytes``, priced by the plan
-compiler's byte model, ROADMAP A10: passing it raises
-``NotImplementedError``) and the ``obs.metrics`` queue gauges (A9).
+states, results, requests, depth and projected-device-memory admission,
+and the same ``obs.metrics`` gauges (``serve.queue_depth`` and its
+peak).
 
 The serving path admits requests arriving over time, so unlike the
 batch drivers it must say NO: an unbounded queue under sustained
@@ -20,10 +19,11 @@ drain rate by `retry_after_hint`, tells it *when*; the fleet router in
 * **depth** — at most ``max_depth`` requests pending (the classic
   bounded-queue latency cap: past it, added queue depth only adds
   waiting time, never throughput);
-* **projected HBM cost** — in the reference each pending request prices
-  its subgrid output and each *distinct pending column* one set of
-  column intermediates, and the queue sheds past ``hbm_budget_bytes``;
-  that budget waits for the port of the plan compiler (ROADMAP A10).
+* **projected device cost** — each pending request prices its subgrid
+  output and each *distinct pending column* one set of column
+  intermediates (the plan's byte model, `plan.projected_request_bytes`
+  and `plan.projected_column_bytes`); the queue sheds with reason
+  ``"hbm"`` past ``hbm_budget_bytes``.
 
 Requests are keyed by subgrid column offset (``off0``) because that is
 the unit the scheduler coalesces on; the queue itself imposes no order
@@ -39,6 +39,8 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+
+from ..obs import metrics as _metrics
 
 __all__ = [
     "AdmissionQueue",
@@ -199,22 +201,25 @@ class _ColumnSummary:
 
 
 class AdmissionQueue:
-    """Bounded, column-keyed admission queue.
+    """Bounded, column-keyed admission queue with cost-aware shedding.
 
     :param max_depth: pending-request cap (admission sheds past it)
-    :param hbm_budget_bytes: projected-device-cost cap; must be None
-        (not ported yet, ROADMAP A10)
+    :param hbm_budget_bytes: projected-device-cost cap; None disables
+    :param request_bytes: per-request projected output bytes (one
+        finished subgrid)
+    :param column_bytes: per-distinct-pending-column projected bytes
+        (the column intermediates the batcher materialises once per
+        column program)
     """
 
-    def __init__(self, max_depth=256, hbm_budget_bytes=None):
+    def __init__(self, max_depth=256, hbm_budget_bytes=None,
+                 request_bytes=0, column_bytes=0):
         if max_depth < 1:
             raise ValueError("max_depth must be >= 1")
-        if hbm_budget_bytes is not None:
-            raise NotImplementedError(
-                "hbm_budget_bytes (projected-HBM admission, priced by the "
-                "plan compiler's byte model) is not ported yet (ROADMAP A10)"
-            )
         self.max_depth = int(max_depth)
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.request_bytes = int(request_bytes)
+        self.column_bytes = int(column_bytes)
         self._lock = threading.Lock()
         self._cols = {}  # off0 -> [SubgridRequest, ...] in arrival order
         self._depth = 0
@@ -228,12 +233,20 @@ class AdmissionQueue:
         with self._lock:
             return self._depth
 
+    def _projected_bytes(self, depth, n_cols):  # caller holds the lock
+        return depth * self.request_bytes + n_cols * self.column_bytes
+
+    def projected_bytes(self):
+        """Projected device cost of the current pending set."""
+        with self._lock:
+            return self._projected_bytes(self._depth, len(self._cols))
+
     def offer(self, request, now=None):
         """Admit or shed one request.
 
         :return: ``(True, None)`` when admitted, else ``(False, reason)``
-            with reason in ``("expired", "depth")``. The caller owns
-            completing a shed request with the matching result.
+            with reason in ``("expired", "depth", "hbm")``. The caller
+            owns completing a shed request with the matching result.
         """
         now = time.perf_counter() if now is None else now
         with self._lock:
@@ -241,8 +254,19 @@ class AdmissionQueue:
                 return False, "expired"
             if self._depth + 1 > self.max_depth:
                 return False, "depth"
+            if self.hbm_budget_bytes is not None:
+                n_cols = len(self._cols)
+                if request.config.off0 not in self._cols:
+                    n_cols += 1
+                if (
+                    self._projected_bytes(self._depth + 1, n_cols)
+                    > self.hbm_budget_bytes
+                ):
+                    return False, "hbm"
             self._cols.setdefault(request.config.off0, []).append(request)
             self._depth += 1
+            _metrics.gauge("serve.queue_depth", self._depth)
+            _metrics.gauge_max("serve.queue_depth_peak", self._depth)
             return True, None
 
     def columns(self):
@@ -296,6 +320,7 @@ class AdmissionQueue:
                 )
             self._last_take_t = now
             self._taken_total += len(taken)
+            _metrics.gauge("serve.queue_depth", self._depth)
             return taken
 
     def take_expired(self, now=None):
@@ -313,6 +338,8 @@ class AdmissionQueue:
                 else:
                     del self._cols[off0]
             self._depth -= len(expired)
+            if expired:
+                _metrics.gauge("serve.queue_depth", self._depth)
             return expired
 
     def retry_after_hint(self, now=None):
@@ -335,4 +362,5 @@ class AdmissionQueue:
             out = [r for reqs in self._cols.values() for r in reqs]
             self._cols = {}
             self._depth = 0
+            _metrics.gauge("serve.queue_depth", 0)
             return out

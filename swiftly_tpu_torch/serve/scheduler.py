@@ -1,8 +1,7 @@
 """Column-locality-aware coalescing scheduler.
 
-The port of the JAX package's ``swiftly_tpu/serve/scheduler.py``, with
-its own copy of ``plan.model.bucket_shape`` (the plan compiler is not
-ported yet, ROADMAP A10).
+The port of the JAX package's ``swiftly_tpu/serve/scheduler.py``; its
+dispatch-shape bucket is the plan's (`plan.model.bucket_shape`).
 
 The engine's cost shape makes the scheduling policy: computing a
 subgrid costs one column extraction (``extract_columns_batch`` over the
@@ -42,17 +41,9 @@ for one fused dispatch over several columns.
 from __future__ import annotations
 
 from ..api import _group_columns, _pad_ragged_columns
+from ..plan.model import bucket_shape
 
 __all__ = ["CoalescingScheduler", "bucket_shape"]
-
-
-def bucket_shape(n):
-    """Next power of two >= n — the serve dispatch-shape bucket (the
-    reference's ``plan.model.bucket_shape``)."""
-    b = 1
-    while b < n:
-        b *= 2
-    return b
 
 
 class CoalescingScheduler:

@@ -1,7 +1,7 @@
-"""Host-side utilities of the port: FLOP models, checkpointing and the
-subgrid-stream spill cache (the JAX package's ``swiftly_tpu/utils``, as
-far as ported: its profiling helpers are ROADMAP A10, its compilation
-cache A15)."""
+"""Host-side utilities of the port: FLOP models, checkpointing, the
+subgrid-stream spill cache and the profiling helpers (the JAX package's
+``swiftly_tpu/utils``, as far as ported: its compilation cache is ROADMAP
+A15)."""
 
 from .checkpoint import (
     CorruptCheckpointError,
@@ -24,26 +24,42 @@ from .flops import (
     peak_tflops,
     sampled_facet_pass_flops,
 )
+from .profiling import (
+    MemorySampler,
+    collective_bytes_backward,
+    collective_bytes_forward,
+    column_collective_bytes,
+    device_memory_stats,
+    probe_hbm_bytes,
+    trace,
+)
 from .spill import SpillCache, spill_budget_bytes
 
 __all__ = [
     "CorruptCheckpointError",
+    "MemorySampler",
     "SpillCache",
     "backward_batched_flops",
     "backward_sampled_flops",
     "bwd_column_pass_flops",
     "bwd_fold_flops",
     "checkpoint_generations",
+    "collective_bytes_backward",
+    "collective_bytes_forward",
+    "column_collective_bytes",
     "column_pass_flops",
+    "device_memory_stats",
     "fft_flops",
     "forward_batched_flops",
     "forward_sampled_flops",
     "peak_tflops",
+    "probe_hbm_bytes",
     "restore_backward_state",
     "restore_streamed_backward_state",
     "sampled_facet_pass_flops",
     "save_backward_state",
     "save_streamed_backward_state",
     "spill_budget_bytes",
+    "trace",
     "verify_checkpoint",
 ]

@@ -98,9 +98,11 @@ class SpillCache:
         ``SWIFTLY_SPILL_DIR``; None (and the variable unset or empty)
         disables disk backing: over-budget entries are evicted and the
         fill gives up
+    :param policy: the compiled plan's spill-policy dict
+        (`plan.SpillPolicy.make_cache`), stamped into `stats`
     """
 
-    def __init__(self, budget_bytes=None, spill_dir=None):
+    def __init__(self, budget_bytes=None, spill_dir=None, policy=None):
         self.budget_bytes = (
             spill_budget_bytes() if budget_bytes is None
             else float(budget_bytes)
@@ -108,6 +110,7 @@ class SpillCache:
         if spill_dir is None:
             spill_dir = os.environ.get("SWIFTLY_SPILL_DIR") or None
         self.spill_dir = spill_dir
+        self.policy = dict(policy) if policy else None
         self._own_dir = None  # created lazily under spill_dir
         self._entries = []  # ("ram", ndarray) | ("disk", path)
         self._meta = []
@@ -292,8 +295,9 @@ class SpillCache:
             self.gave_up = False
 
     def stats(self):
-        """JSON-ready summary."""
-        return {
+        """JSON-ready summary (with the plan's ``policy`` when one made
+        the cache)."""
+        out = {
             "entries": len(self._entries),
             "complete": self.complete,
             "ram_bytes": int(self.ram_bytes),
@@ -303,6 +307,9 @@ class SpillCache:
             "stream_version": int(self.stream_version),
             **self.counters,
         }
+        if self.policy is not None:
+            out["policy"] = dict(self.policy)
+        return out
 
     def _clear_entries(self):
         with self._lock:

@@ -23,8 +23,8 @@ the accumulated columns over in `StreamedBackward.add_subgrid_group` form
 gridded visibilities are an ingest source for the backward with no
 adapter in between.
 
-Not ported yet: the reference's ``obs.metrics`` stage timer around each
-scatter (ROADMAP A9).
+Each scatter runs as the ``obs.metrics`` stage ``vis.grid``, with the
+FLOPs and bytes `plan.price_vis` prices it by.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
 from ..ops import kernels
 from ..ops.core import as_torch_dtype, resolve_device
 
@@ -150,12 +151,17 @@ class VisGridder:
                 acc = self._acc[key] = torch.zeros(
                     (sg.size, sg.size, 2), dtype=self.dtype,
                     device=self.device)
-            grid_batch(
-                sg.size, entry["iu0"], entry["iv0"],
-                self.kernel.weights(entry["fu"], dtype=np_dt),
-                self.kernel.weights(entry["fv"], dtype=np_dt),
-                vis[entry["idx"]], acc=(acc[..., 0], acc[..., 1]),
-            )
+            cu = self.kernel.weights(entry["fu"], dtype=np_dt)
+            cv = self.kernel.weights(entry["fv"], dtype=np_dt)
+            B, W = cu.shape
+            # attributed as plan.price_vis prices the stage (two scattered
+            # planes and the weights' outer product)
+            with _metrics.stage("vis.grid", flops=8 * B * W * W,
+                                bytes_moved=2 * B * W * W * 4):
+                grid_batch(
+                    sg.size, entry["iu0"], entry["iv0"], cu, cv,
+                    vis[entry["idx"]], acc=(acc[..., 0], acc[..., 1]),
+                )
             gridded += len(entry["idx"])
         self.n_gridded += gridded
         self.batches += 1

@@ -8,10 +8,12 @@ then answers all their samples in one launch of B4, with one copy back
 (the reference dispatches once per subgrid); every per-subgrid observable
 (``batch_size``, ``path``, ``coalesced``, ``n_batches``, ``mean_batch``,
 the 4096-sample cap) stays the reference's, and ``n_pumps`` counts the
-pumps that launched. Not ported yet: ``FleetRowSource`` (it needs
-``serve.fleet``, ROADMAP A12; any ``row_source`` callable works), the
-projected-HBM admission ``hbm_budget_bytes`` (A10), and the
-``obs.metrics`` / ``trace`` hooks (A9).
+pumps that launched. The projected-device-memory admission
+(``hbm_budget_bytes``) and the ``obs.metrics`` / ``trace`` hooks are the
+reference's (``vis.row_fetch`` and ``vis.degrid`` stages, the request,
+sample, shed and cache counters, the ``vis.request`` latencies). Not
+ported yet: ``FleetRowSource`` (it needs ``serve.fleet``, ROADMAP A12;
+any ``row_source`` callable works).
 
 The reference's serving stack answers *subgrid* requests (`serve.service`);
 radio-astronomy clients want *visibilities* — the sky transform sampled
@@ -54,6 +56,8 @@ import time
 import numpy as np
 import torch
 
+from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from ..ops.core import resolve_device
 from ..serve.queue import (
     STATUS_EXPIRED,
@@ -193,8 +197,11 @@ class VisibilityService:
     :param scheduler: `serve.scheduler.CoalescingScheduler`
     :param timeout_s: service-wide per-request deadline
     :param slo_ms: per-request latency SLO for ``stats()``
-    :param hbm_budget_bytes: projected-device-cost admission cap; must be
-        None (not ported yet, ROADMAP A10)
+    :param hbm_budget_bytes: optional projected-device-cost admission
+        cap, priced with the plan's serve byte projections
+        (`plan.model.projected_request_bytes`,
+        `plan.model.projected_column_bytes`): past it, slices shed with
+        the queue's reason ``"hbm"``
     :param device: where host rows are degridded; defaults to the
         forward's device, else the GPU
     """
@@ -215,11 +222,6 @@ class VisibilityService:
             raise ValueError(
                 "need N (or a forward whose config carries image_size)"
             )
-        if hbm_budget_bytes is not None:
-            raise NotImplementedError(
-                "hbm_budget_bytes (projected-HBM admission, priced by the "
-                "plan compiler's byte model) is not ported yet (ROADMAP A10)"
-            )
         if device is None and fwd is not None:
             device = fwd.core.device
         self.device = resolve_device(device)
@@ -237,7 +239,23 @@ class VisibilityService:
             getattr(cache_feed, "stream_version", 0)
         )
         if queue is None:
-            queue = AdmissionQueue(max_depth=max_depth)
+            # admission byte model: a pending slice pins one served row
+            # plus the column intermediates a compute fallback makes
+            request_bytes = column_bytes = 0
+            if hbm_budget_bytes is not None and fwd is not None:
+                from ..plan.model import (
+                    projected_column_bytes,
+                    projected_request_bytes,
+                )
+
+                request_bytes = projected_request_bytes(fwd.config)
+                column_bytes = projected_column_bytes(fwd)
+            queue = AdmissionQueue(
+                max_depth=max_depth,
+                hbm_budget_bytes=hbm_budget_bytes,
+                request_bytes=request_bytes,
+                column_bytes=column_bytes,
+            )
         self.queue = queue
         self.scheduler = scheduler or CoalescingScheduler()
         self.timeout_s = timeout_s
@@ -275,6 +293,8 @@ class VisibilityService:
         handle = VisHandle(uv.shape[0], time.perf_counter())
         self._counts["requests"] += 1
         self._counts["samples"] += handle.n_samples
+        _metrics.count("vis.requests")
+        _metrics.count("vis.samples", handle.n_samples)
         owners, shed = self.cover.map_samples(uv)
         if shed:
             self._shed_samples(handle, shed, "outside_cover")
@@ -295,6 +315,7 @@ class VisibilityService:
                     retry_after_s=self.queue.retry_after_hint(),
                 ))
                 handle._child_done(req, req.result)
+        _metrics.gauge_max("vis.queue_depth_peak", len(self.queue))
         if handle._pending == 0:
             handle._event.set()
         return handle
@@ -305,9 +326,13 @@ class VisibilityService:
         self._shed_reasons[reason] = (
             self._shed_reasons.get(reason, 0) + n_samples
         )
+        _metrics.count("vis.shed")
+        _metrics.count(f"vis.shed.{reason}", n_samples)
 
     def _shed_samples(self, handle, idx, reason):
         self._shed_counts(len(idx), reason)
+        _trace.instant("vis.shed", cat="vis", reason=reason,
+                       n_samples=len(idx))
         handle._shed(idx, reason)
 
     def serve(self, uv, priority=0, deadline_s=None):
@@ -331,6 +356,7 @@ class VisibilityService:
         n_done = 0
         for req in self.queue.take_expired(now):
             self._counts["expired"] += 1
+            _metrics.count("vis.expired")
             self._finish(
                 req, RequestResult(STATUS_EXPIRED, error="deadline")
             )
@@ -364,6 +390,7 @@ class VisibilityService:
 
     def _fetch_row(self, sg, reqs):
         """The row ladder: version-gated cache feed, then compute."""
+        row_bytes = 2 * sg.size * sg.size * 4
         if self.cache_feed is not None:
             stale = sum(
                 1 for r in reqs
@@ -375,19 +402,25 @@ class VisibilityService:
                 # through to compute against the CURRENT stack
                 # (fresher than asked; never staler)
                 self._counts["version_fallbacks"] += stale
+                _metrics.count("vis.version_fallbacks", stale)
             else:
                 try:
-                    row = self.cache_feed.lookup(sg)
+                    with _metrics.stage("vis.row_fetch",
+                                        bytes_moved=row_bytes):
+                        row = self.cache_feed.lookup(sg)
                 except LookupError:
                     self._counts["cache_fallbacks"] += 1
+                    _metrics.count("vis.cache_fallbacks")
                     row = None
                 if row is not None:
                     self._counts["cache_hits"] += 1
+                    _metrics.count("vis.cache_hits")
                     return row, "cache"
-        if self.row_source is not None:
-            row = self.row_source(sg)
-        else:  # stays on the device
-            row = self.fwd.get_subgrid_task(sg)
+        with _metrics.stage("vis.row_fetch", bytes_moved=row_bytes):
+            if self.row_source is not None:
+                row = self.row_source(sg)
+            else:  # stays on the device
+                row = self.fwd.get_subgrid_task(sg)
         return row, "compute"
 
     def _fetch_group(self, reqs):
@@ -412,11 +445,15 @@ class VisibilityService:
         slot = np.repeat(np.arange(len(fetched)),
                          [sum(r.n_samples for r in rs)
                           for rs, _, _ in fetched])
-        vis = degrid_rows(
-            [row for _, row, _ in fetched], slot,
-            *(np.concatenate([getattr(r, f) for r in reqs])
-              for f in ("iu0", "iv0", "fu", "fv")),
-            self._table, device=self.device)
+        W = self.kernel.support
+        n_lanes = len(slot)
+        with _metrics.stage("vis.degrid", flops=6 * n_lanes * W * W,
+                            bytes_moved=2 * n_lanes * W * W * 4):
+            vis = degrid_rows(
+                [row for _, row, _ in fetched], slot,
+                *(np.concatenate([getattr(r, f) for r in reqs])
+                  for f in ("iu0", "iv0", "fu", "fv")),
+                self._table, device=self.device)
         self._counts["pumps"] += 1
         now = time.perf_counter()
         lo = 0
@@ -427,6 +464,7 @@ class VisibilityService:
                 n = req.n_samples
                 self._counts["coalesced"] += 1 if len(rs) > 1 else 0
                 self._counts["served_samples"] += n
+                _metrics.count("vis.served_samples", n)
                 self._finish(req, RequestResult(
                     STATUS_OK, data=vis[lo:lo + n], path=path,
                     batch_size=B, coalesced=len(rs),
@@ -439,6 +477,7 @@ class VisibilityService:
         result.latency_s = now - req.submit_t
         if result.status == STATUS_OK:
             self._counts["served"] += 1
+            _metrics.observe("vis.request", result.latency_s)
             if req.take_t and req.compute_t:
                 result.journey = {
                     "queue_s": req.take_t - req.submit_t,
@@ -460,6 +499,7 @@ class VisibilityService:
                 and result.latency_s * 1e3 > self.slo_ms
             ):
                 self._counts["slo_violations"] += 1
+                _metrics.count("vis.slo_violations")
         req._complete(result)
         if req.parent is not None:
             req.parent._child_done(req, result)
@@ -493,6 +533,9 @@ class VisibilityService:
                 stream_version = self.stream_version + 1
             self.stream_version = int(stream_version)
             self._counts["facet_updates"] += 1
+            _metrics.count("vis.facet_updates")
+            _trace.instant("vis.facet_update", cat="vis",
+                           stream_version=self.stream_version)
         return self.stream_version
 
     # -- SLO export ---------------------------------------------------

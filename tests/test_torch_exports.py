@@ -29,37 +29,6 @@ PENDING = {
             "subgrids_from_columns_sharded",
         },
     },
-    "A9 rest": {  # manifest, report, tower, ledger, heartbeat
-        "obs": {
-            "ControlTower", "Heartbeat", "PartialArtifactWriter", "SLO",
-            "by_process", "ledger", "merge_traces", "report", "run_manifest",
-            "summarize_trace", "tower", "validate_alerts_artifact",
-            "validate_artifact", "validate_delta_artifact",
-            "validate_fleet_artifact", "validate_fleet_telemetry_artifact",
-            "validate_mesh_artifact", "validate_plan_accuracy_artifact",
-            "validate_plan_artifact", "validate_procfleet_artifact",
-            "validate_resilience_artifact", "validate_serve_artifact",
-            "validate_trace_artifact", "validate_vis_artifact",
-        },
-    },
-    "A10": {  # the plan compiler, cost model, autotune, profiling
-        "plan": {
-            "BackwardPlan", "CacheTierPlan", "CostCoefficients", "DeltaPlan",
-            "MeshLayout", "Plan", "PlanInputs", "ServePlan", "SpillPolicy",
-            "VisPlan", "autotune", "bucket_shape", "bucket_sizes",
-            "compile_plan", "ledger_readiness", "load_history", "plan_delta",
-            "plan_mesh_layout", "price_cache_tier",
-            "price_collective_candidates", "price_colpass_candidates",
-            "price_vis", "projected_column_bytes", "projected_request_bytes",
-            "refit_from_ledger", "stamp_measured_wall",
-        },
-        "serve": {"projected_column_bytes", "projected_request_bytes"},
-        "utils": {
-            "MemorySampler", "collective_bytes_backward",
-            "collective_bytes_forward", "column_collective_bytes",
-            "device_memory_stats", "trace",
-        },
-    },
     "A12": {  # serving, the rest: fleet, health, autoscale, process fleet
         "serve": {
             "FleetAutoscaler", "FleetRequest", "HealthLease", "HealthMonitor",
@@ -114,7 +83,7 @@ def test_pending_names_are_still_missing(sub):
 
 def test_this_slice_is_exported():
     """The names this slice ported, where the JAX package exports them."""
-    from swiftly_tpu_torch import obs, parallel, resilience, utils
+    from swiftly_tpu_torch import obs, parallel, plan, resilience, serve, utils
 
     assert {"metrics", "recorder", "trace"} <= set(obs.__all__)
     assert set(_reference_all("resilience")) == set(resilience.__all__)
@@ -123,4 +92,15 @@ def test_this_slice_is_exported():
                  "forward_sampled_flops", "backward_sampled_flops",
                  "save_streamed_backward_state",
                  "restore_streamed_backward_state", "verify_checkpoint"):
+        assert name in utils.__all__, name
+    # the run manifest, report, tower, ledger and heartbeat (A9), and the
+    # plan compiler, cost model, autotune and profiling (A10): the whole
+    # of the JAX package's obs and plan surfaces
+    assert set(_reference_all("obs")) == set(obs.__all__)
+    assert set(_reference_all("plan")) <= set(plan.__all__)
+    for name in ("projected_column_bytes", "projected_request_bytes"):
+        assert name in serve.__all__, name
+    for name in ("MemorySampler", "collective_bytes_backward",
+                 "collective_bytes_forward", "column_collective_bytes",
+                 "device_memory_stats", "trace"):
         assert name in utils.__all__, name

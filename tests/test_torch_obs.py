@@ -2,8 +2,9 @@
 the span tracer and the flight recorder, held to the JAX package's cases
 (``tests/test_obs.py:40-134,237-330``, ``tests/test_trace.py:76-302``).
 
-The port's Chrome trace export is read with the JAX package's own
-``swiftly_tpu.obs.report`` (tree, validator, critical path), and the same
+The port's Chrome trace export is read with
+the port's ``obs.report`` (tree, validator, critical path; one test reads
+the same trace with both packages' ``report``), and the same
 streamed round trip through both packages must give the same stage names
 and the same subgrid counters. The port's twins of the JAX spots: a stage
 opens a ``torch.profiler.record_function`` of its name, and the HBM
@@ -20,10 +21,9 @@ import pytest
 import torch
 
 import swiftly_tpu_torch as T
-from swiftly_tpu.obs import report
-from swiftly_tpu.obs.report import validate_trace_events
-from swiftly_tpu_torch.obs import metrics, recorder, trace
+from swiftly_tpu_torch.obs import metrics, recorder, report, trace
 from swiftly_tpu_torch.obs.metrics import _NULL_STAGE, MetricsRegistry
+from swiftly_tpu_torch.obs.report import validate_trace_events
 from swiftly_tpu_torch.obs.trace import _NULL_SPAN, Tracer
 from swiftly_tpu_torch.utils import flops as tflops
 
@@ -462,6 +462,37 @@ def test_critical_path_and_self_time_partition():
         summary["wall_s"], abs=1e-5)
     assert summary["top"][0]["name"] == "fwd.column_group"
     assert summary["event_count"] == 1
+
+
+def test_both_packages_report_the_same_summary_of_one_trace(tmp_path):
+    """One Chrome trace of the port, written to disk, read by both
+    packages' ``report``: the same tree, critical path, self times,
+    summary block and validator verdicts."""
+    from swiftly_tpu.obs import report as jreport
+
+    tr = Tracer(enabled=True)
+    with tr.span("leg.roundtrip", cat="bench"):
+        with tr.span("fwd.pass"):
+            with tr.span("fwd.column_group", group=0):
+                time.sleep(0.003)
+            with tr.span("fwd.column_group", group=1):
+                time.sleep(0.001)
+        with tr.span("bwd.pass"):
+            time.sleep(0.002)
+    tr.instant("fault.injected", site="spill.read")
+    path = tmp_path / "trace.json"
+    with open(path, "w") as fh:
+        json.dump(tr.export(), fh)
+    ours = report.load_trace(path)
+    theirs = jreport.load_trace(path)
+    assert report.summarize_trace(ours) == jreport.summarize_trace(theirs)
+    assert report.self_times(report.build_tree(ours)) == \
+        jreport.self_times(jreport.build_tree(theirs))
+    assert report.validate_trace_events(ours) == \
+        jreport.validate_trace_events(theirs) == []
+    block = {"trace": report.summarize_trace(ours)}
+    assert report.validate_trace_artifact(block) == \
+        jreport.validate_trace_artifact(block) == []
 
 
 # ---------------------------------------------------------------------------

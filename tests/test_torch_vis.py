@@ -333,12 +333,39 @@ def test_outside_cover_and_overload_handles_equal_jax(k):
 
 
 def test_hbm_budget_admission_waits_for_the_plan_compiler():
-    with pytest.raises(NotImplementedError, match="A10"):
-        tserve.AdmissionQueue(hbm_budget_bytes=2**30)
-    _, _, _, sgs = _port_cover()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tvis.VisibilityService(_forward("port"), subgrid_configs=sgs,
-                               hbm_budget_bytes=2**30)
+    """Projected-device-memory admission, now that the plan compiler is
+    ported: both packages' services price a pending slice with the plan's
+    byte projections and shed the same slices with reason "hbm"."""
+    outcomes = {}
+    for pkg in ("jax", "port"):
+        names = PKGS[pkg]
+        fwd = _forward(pkg)
+        sgs = _cover(pkg)[3]
+        plan = (J if pkg == "jax" else T).plan
+        req_b = plan.projected_request_bytes(fwd.config)
+        col_b = plan.projected_column_bytes(fwd)
+        # room for one column and two requests, not for a second column
+        service = names["vis"].VisibilityService(
+            fwd, subgrid_configs=sgs, kernel=names["vis"].vis_kernel(),
+            hbm_budget_bytes=col_b + 2 * req_b)
+        assert service.queue.request_bytes == req_b
+        assert service.queue.column_bytes == col_b
+        cols = sorted({sg.off0 for sg in sgs})
+        pts = [np.array([[sg.off0 + 0.3, sg.off1 + 0.3]]) for sg in (
+            next(sg for sg in sgs if sg.off0 == cols[0]),
+            next(sg for sg in sgs if sg.off0 == cols[1]))]
+        handles = [service.submit(pts[0]), service.submit(pts[0]),
+                   service.submit(pts[1]), service.submit(pts[0])]
+        outcomes[pkg] = ([h.shed_reason for h in handles], req_b, col_b,
+                         service.stats()["shed_reasons"])
+        while service.pump_once():
+            pass
+    assert outcomes["port"] == outcomes["jax"]
+    reasons = outcomes["port"][0]
+    assert reasons[2] == "hbm" and reasons[0] is None
+    queue = tserve.AdmissionQueue(max_depth=10, hbm_budget_bytes=1500,
+                                  request_bytes=100, column_bytes=1000)
+    assert queue.projected_bytes() == 0
 
 
 # ---------------------------------------------------------------------------
