@@ -192,7 +192,48 @@ this checkout, and holds each kernel against its plain PyTorch version:
    wall, ``validate_trace_artifact``; (e) the 128k round trip's plan
    with the default and the ledger coefficients, printed, not run; and
    the card's copy rates (pinned host to device and back, and a host
-   memcpy), the sources of the model's byte defaults.
+   memcpy), the sources of the model's byte defaults;
+14. incremental facet updates and the serving fleet at
+   ``32k[1]-n16k-512``, planar f32 (run after phase 13), from
+   ``make_sparse_facet`` facets of phase 8's grid-corrected sky model:
+   (a) ``IncrementalForward(cfg, tasks, SpillCache(), col_group=10)`` and
+   ``record`` (74 x 74 subgrids, 8.79 GB of host RAM in 8 entries),
+   timed; (b) ``update(new, use_plan=False)`` scaling K = 1 facet, then K
+   = 3, each gated on ``mode == "patch"``, the ledger's version equal to
+   the cache's, and max |patched - fresh| <= 1e-4 of max |fresh| over
+   every entry against an independent ``stream_column_groups(...,
+   spill=fresh)`` of the new stack; its seconds split into the delta
+   pass's device work (B1 and its facet pass), d2h and route, and the
+   patch, beside the full re-record's and ``plan_delta``'s prediction;
+   then ``update(..., exact=True)`` back to the K = 1 stack, its stream's
+   SHA-256 equal to the fresh K = 1 stream's, and a ``delta`` record
+   (``run_manifest``) gated on ``validate_delta_artifact``; (c) the
+   patched recording fed through ``feed_backward_passes(..., spill=
+   engine.spill)`` into ``StreamedBackward(residency="sampled",
+   fold_group=4)`` and ``finish_device``, within 1e-6 (RMS over the
+   largest value) of the same backward fed from the fresh stream, its
+   facets within phase 6's facet RMS of ``synth_facet_device``, B2
+   launched; (d) ``ServeFleet`` of 2 ``SubgridService`` replicas (each
+   over its own ``SwiftlyForward``, ``lru_forward=2``,
+   ``CoalescingScheduler(max_batch=8)``, its facets prepared first)
+   over ``engine.fabric()``, 4096 zipf-over-columns requests of
+   priorities 0 and 1 from 4 closed-loop client threads: a quarter
+   before ``fleet.post_facet_update(engine, ...)`` (K = 1, back to the
+   first stack), the next 1536 paced while it runs, then
+   ``kill_replica(0)`` with work in flight, ``restore_replica(0)`` and
+   the rest paced past the victim's breaker reopen delay; gated on zero
+   requests lost, every request admitted before the update returning
+   the old stream's row and every one admitted after it the new
+   stream's (bit-equal on the cache path, within 1e-5 relative L2 on
+   the compute path; those admitted during it either), at least one
+   compute fallback with B3 launches inside the patch window, the
+   victim's breaker open -> half-open -> closed, one fabric roll and one
+   stream copy, and a fleet record gated on ``validate_fleet_artifact``
+   (each replica's ``serve`` block on ``validate_serve_artifact``); (e)
+   phase 8's first batch of 65,536 samples served through
+   ``VisibilityService(row_source=FleetRowSource(fleet))``, gated on
+   the oracle (``DEGRID_TOLERANCE``) and B4 launched once per pump that
+   served a sample. It prints the device peak after every step.
 
 At phases 6, 10 (b), 11 (a) and 9 the streamed forward's sizer model
 (``parallel.streamed.stream_peak_bytes`` beside the backwards'
@@ -204,16 +245,17 @@ The launch counters are set to 0 just before each 32k and 128k path runs
 and read just after it. Every phase that fails ends the run with a non-zero exit
 code. The last lines are the ``residency_32k`` JSON record of phase
 10, the ``spill_32k`` record of phase 11, the ``resume_32k`` record of
-phase 12, the ``plan_32k`` record of phase 13, the ``vis`` JSON record
-of phase 8, the
+phase 12, the ``plan_32k`` record of phase 13, the ``delta_32k`` record
+of phase 14, the ``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
 visibility path's for B4 and ``grid``; ``paths`` holds each path's
 launches, the 128k one's, phase 10's (``residency``, its part (a), and
 ``residency_bodies``, its part (c)), phase 11's (``spill``, its timed
 run (a)), phase 12's (``resume``, its observed run (a)) and phase 13's
-(``plan``, its calibrated run (c)) too, with the times at that path's
-shapes) and
+(``plan``, its calibrated run (c)) and phase 14's (``delta``, (a) to (c)
+and the exact update; ``fleet``, (d) and (e)) too, with the times at that
+path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -237,7 +279,9 @@ prints one ``spill_32k`` JSON line; ``--resume`` runs phase 2, phase 6's
 warm and timed round trips (unprofiled) and phase 12, and prints one
 ``resume_32k`` JSON line; ``--plan`` runs phase 2, phase 6's warm and
 timed round trips (unprofiled) and phase 13, and prints one ``plan_32k``
-JSON line.
+JSON line; ``--delta`` runs phase 2 and phase 14 alone, and prints one
+``delta_32k`` JSON line (with B1, B2 and B3 timed at the delta path's
+shapes).
 """
 
 from __future__ import annotations
@@ -3293,6 +3337,749 @@ def _plan_line(res):
     return {k: v for k, v in res.items() if k != "counts"}
 
 
+# -- phase 14: incremental facet updates and the serving fleet at 32k --------
+
+# the engine records the stream in groups of 10 columns (8 entries of ~1.2
+# GB at 32k): an out-of-place patch doubles one entry at a time
+DELTA_COL_GROUP = 10
+# K = 1: facet a scaled; K = 3: facets a, b, c scaled again (the first three
+# facets holding a source)
+DELTA_SCALES_K1 = (1.75,)
+DELTA_SCALES_K3 = (0.6, 1.3, 2.1)
+# the f32 sum-reorder bound of a patched stream against a fresh one, over
+# the stream's largest value (tests/test_delta.py:73)
+DELTA_REL_TOL = 1e-4
+# a computed row against the recorded stream's (another program: the
+# fused column pass against the sampled one), relative L2
+FLEET_COMPUTE_REL = 1e-5
+FLEET_REQUESTS = 4096
+FLEET_CLIENTS = 4
+FLEET_REPLICAS = 2
+# the traffic's segments: before the update, while it runs, after the kill,
+# after the restore (fractions of FLEET_REQUESTS, cumulative)
+FLEET_SEGMENTS = (0.25, 0.625, 0.8125, 1.0)
+# pacing per client and request while the update runs, so that traffic
+# spans its patch window; after the restore, one request a client at a
+# time, the last segment spread over FLEET_RESTORE_SPAN_S until the
+# victim's breaker closes (its reopen delay is 0.25-0.5 s after the trip)
+FLEET_UPDATE_PACE_S = 0.02
+FLEET_RESTORE_SPAN_S = 1.5
+# requests of the kill segment done before the kill: the victim then holds
+# work in flight
+FLEET_KILL_AFTER = 64
+FLEET_SEED = 1414
+
+
+def _mutate_sparse(tasks, idxs, scales):
+    """`tasks` with the sparse facets `idxs` scaled by `scales`."""
+    from swiftly_tpu_torch.ops.oracle import SparseRealFacet
+
+    out = list(tasks)
+    for j, s in zip(idxs, scales):
+        fc, f = out[j]
+        out[j] = (fc, SparseRealFacet(f.size, f.rows, f.cols,
+                                      f.vals * np.float32(s)))
+    return out
+
+
+def _stream_digest(spill):
+    """SHA-256 over the entries' SHA-256 (hex, in order), the entries hashed
+    in parallel: the recorded stream's bytes, in one digest."""
+    import concurrent.futures
+
+    def one(k):
+        return hashlib.sha256(memoryview(
+            np.ascontiguousarray(spill.get(k))).cast("B")).hexdigest()
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        digests = list(pool.map(one, range(len(spill))))
+    return hashlib.sha256("".join(digests).encode()).hexdigest()
+
+
+def _stream_diff(torch, spill, ref):
+    """(max |spill - ref|, max |ref|) over two recordings of one cover,
+    entry by entry (host, torch's threads)."""
+    require(len(spill) == len(ref), "the streams have different entries")
+    mx = sc = 0.0
+    buf = torch.empty(1 << 26, dtype=torch.float32)
+    for k in range(len(spill)):
+        require([[i for i, _ in col] for col in spill.meta(k)]
+                == [[i for i, _ in col] for col in ref.meta(k)],
+                f"entry {k} holds other subgrids than the reference's")
+        a = torch.from_numpy(np.asarray(spill.get(k))).reshape(-1)
+        b = torch.from_numpy(np.asarray(ref.get(k))).reshape(-1)
+        for i in range(0, a.numel(), 1 << 26):  # 256 MB of f32 a chunk
+            a_i, b_i = a[i:i + (1 << 26)], b[i:i + (1 << 26)]
+            tmp = torch.sub(a_i, b_i, out=buf[:a_i.numel()])
+            mx = max(mx, float(tmp.abs_().max()))
+            sc = max(sc, float(b_i.abs().max()))
+    return mx, sc
+
+
+def _rel_l2(a, b):
+    d = np.linalg.norm((np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).ravel())
+    return d / max(np.linalg.norm(np.asarray(b, np.float64).ravel()), 1e-300)
+
+
+def _quantile_ms(lat, q):
+    lat = sorted(lat)
+    return (lat[min(len(lat) - 1, int(q * len(lat)))] * 1e3) if lat else 0.0
+
+
+def _fleet_traffic(sgcs, n, seed):
+    """`n` zipf-over-columns subgrid requests (shuffled popularity, p ~
+    1/rank^VIS_ZIPF_S, a uniform subgrid of the column), priorities 0 and
+    1: [(config, priority)]."""
+    rng = np.random.default_rng(seed)
+    cols = sorted({sg.off0 for sg in sgcs})
+    by_col = {c: [sg for sg in sgcs if sg.off0 == c] for c in cols}
+    ranks = np.empty(len(cols), dtype=int)
+    ranks[rng.permutation(len(cols))] = np.arange(len(cols))
+    p = 1.0 / (ranks + 1.0) ** VIS_ZIPF_S
+    p /= p.sum()
+    out = []
+    for c, prio in zip(rng.choice(len(cols), size=n, p=p),
+                       rng.integers(0, 2, size=n)):
+        col = by_col[cols[c]]
+        out.append((col[rng.integers(len(col))], int(prio)))
+    return out
+
+
+class _FleetClients:
+    """`FLEET_CLIENTS` closed-loop client threads over one request list:
+    each takes the next request, submits it to the fleet and waits for its
+    result before the next. A request is taken only below the gate
+    ``allowed`` (the caller moves it); ``epoch`` (the caller's state when a
+    request is submitted) and the submit time are kept with the handle."""
+
+    def __init__(self, fleet, work, n_clients=FLEET_CLIENTS):
+        import threading
+
+        self.fleet, self.work = fleet, work
+        self.cond = threading.Condition()
+        self.allowed = 0
+        self.next = 0
+        self.done = 0
+        self.epoch = "before"
+        self.pace_s = 0.0
+        self.closed = False
+        self.tracked = [None] * len(work)
+        self.errors = []
+        self.threads = [threading.Thread(target=self._run, daemon=True,
+                                         name=f"fleet-client-{i}")
+                        for i in range(n_clients)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self):
+        while True:
+            with self.cond:
+                while (not self.closed and self.next >= self.allowed
+                       and self.next < len(self.work)):
+                    self.cond.wait()
+                if self.closed or self.next >= len(self.work):
+                    return
+                i = self.next
+                self.next += 1
+                epoch, pace = self.epoch, self.pace_s
+            sg, prio = self.work[i]
+            try:
+                t0 = time.perf_counter()
+                freq = self.fleet.submit(sg, priority=prio)
+                freq.wait(timeout=600.0)
+                self.tracked[i] = (sg, freq, epoch, t0)
+            except Exception as exc:  # noqa: BLE001 - reported as a failure
+                self.errors.append(f"request {i}: {exc!r}")
+            with self.cond:
+                self.done += 1
+                self.cond.notify_all()
+            if pace:
+                time.sleep(pace)
+
+    def release(self, upto, epoch=None, pace_s=None):
+        with self.cond:
+            self.allowed = upto
+            if epoch is not None:
+                self.epoch = epoch
+            if pace_s is not None:
+                self.pace_s = pace_s
+            self.cond.notify_all()
+
+    def wait_done(self, upto, timeout=600.0):
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while self.done < upto:
+                left = deadline - time.monotonic()
+                require(left > 0, f"fleet clients: {self.done} of {upto} "
+                                  "requests done before the timeout")
+                self.cond.wait(timeout=min(left, 1.0))
+
+    def close(self):
+        """No request is taken any more; the threads end once their
+        requests in flight are done."""
+        with self.cond:
+            self.closed = True
+            self.cond.notify_all()
+        for t in self.threads:
+            t.join(timeout=600.0)
+
+
+def delta_main(torch, config_name=MAIN_CONFIG, device="cuda", fold_group=4,
+               col_group=DELTA_COL_GROUP, n_requests=FLEET_REQUESTS,
+               n_vis=VIS_SAMPLES // VIS_BATCHES):
+    """Phase 14: incremental facet updates and the serving fleet at
+    `config_name`, planar f32, from sparse facets of the grid-corrected sky
+    model (module docstring): (a) ``IncrementalForward.record``; (b) K = 1
+    and K = 3 patches against fresh streams, then an exact update against
+    a fresh stream's SHA-256; (c) the backward fed from the patched
+    recording against the one fed from the fresh stream and the facets
+    themselves; (d) a ``ServeFleet`` of `FLEET_REPLICAS` ``SubgridService``
+    replicas over the engine's fabric, `n_requests` zipf requests from
+    `FLEET_CLIENTS` client threads, a facet update, a kill and a restore
+    midway; (e) `n_vis` samples of phase 8's traffic served through
+    ``FleetRowSource``."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import plan
+    from swiftly_tpu_torch import vis as sv
+    from swiftly_tpu_torch.obs import (
+        run_manifest,
+        validate_delta_artifact,
+        validate_fleet_artifact,
+        validate_serve_artifact,
+    )
+    from swiftly_tpu_torch.parallel.streamed import CachedColumnFeed
+    from swiftly_tpu_torch.serve import AdmissionQueue, CoalescingScheduler
+    from swiftly_tpu_torch.utils.spill import SpillCache
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+
+    def mark(step):
+        p = peak_gib()
+        log(f"  [delta: {step} at {time.perf_counter() - t_phase:.1f} s"
+            + ("" if p is None else f", device peak {p:.2f} GiB") + "]")
+
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    kernel = sv.vis_kernel()
+    raw = vis_sources(N, kernel)
+    corrected = kernel.correct_sources(raw, N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    S0 = [(fc, st.make_sparse_facet(N, fc, corrected)) for fc in fcs]
+    content = [j for j, (_, f) in enumerate(S0) if np.count_nonzero(f.vals)]
+    require(len(content) >= 3, f"only {len(content)} facets hold a source")
+    a, b, c = content[:3]
+    S1 = _mutate_sparse(S0, [a], DELTA_SCALES_K1)
+    S3 = _mutate_sparse(S1, [a, b, c], DELTA_SCALES_K3)
+    params = {"config": config_name, **st.SWIFT_CONFIGS[config_name]}
+    inputs = plan.PlanInputs.from_cover(cfg, fcs, sgcs)
+    out = {"config": config_name, "col_group": col_group,
+           "changed": {"k1": [a], "k3": [a, b, c]}}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- the delta path: (a) record, (b) patches, (c) backward, exact ------
+    reset_counts()
+    engine = st.IncrementalForward(cfg, S0, SpillCache(), col_group=col_group)
+    sync()
+    t0 = time.perf_counter()
+    rec = engine.record(sgcs)
+    sync()
+    out["record_s"] = time.perf_counter() - t0
+    out["entries"] = rec["entries"]
+    out["stream_gb"] = engine.spill.stats()["ram_bytes"] / 1e9
+    out["record_peak_gib"] = peak_gib()
+    log(f"{config_name} delta: recorded {out['entries']} entries, "
+        f"{out['stream_gb']:.3f} GB, in {out['record_s']:.3f} s")
+    mark("(a) recorded")
+
+    def fresh_stream(tasks):
+        ref = SpillCache()
+        fwd = st.StreamedForward(cfg, tasks, residency="device",
+                                 col_group=col_group)
+        for _ in fwd.stream_column_groups(sgcs, spill=ref):
+            pass
+        require(ref.complete, "the fresh stream did not fit its cache")
+        return ref, fwd
+
+    legs = {}
+    fresh3 = fwd3 = None
+    for key, tasks, K in (("k1", S1, 1), ("k3", S3, 3)):
+        sync()
+        t0 = time.perf_counter()
+        rep = engine.update(tasks, use_plan=False)
+        sync()
+        wall = time.perf_counter() - t0
+        require(rep["mode"] == "patch",
+                f"K={K} update took {rep['mode']} ({rep['reason']})")
+        require(engine.ledger.version == engine.spill.stream_version
+                == rep["stream_version"],
+                f"K={K}: ledger version {engine.ledger.version}, cache "
+                f"{engine.spill.stream_version}")
+        require(len(rep["changed_facets"]) == K,
+                f"K={K} update changed {rep['changed_facets']}")
+        t1 = time.perf_counter()
+        fresh, ffwd = fresh_stream(engine.facet_tasks)
+        fresh_s = time.perf_counter() - t1
+        mx, sc = _stream_diff(torch, engine.spill, fresh)
+        priced = plan.plan_delta(inputs, K).as_dict()
+        legs[key] = {
+            "k": K, "changed_facets": rep["changed_facets"],
+            "patched_columns": rep["patched_columns"],
+            "patched_entries": rep["patched_entries"],
+            "update_s": wall, **rep["timings"],
+            "full_record_s": out["record_s"],
+            "speedup_vs_full": out["record_s"] / wall,
+            "fresh_stream_s": fresh_s,
+            "match": {"max_abs_diff": mx, "scale": sc,
+                      "tolerance": DELTA_REL_TOL * sc,
+                      "within_tolerance": bool(mx <= DELTA_REL_TOL * sc)},
+            "plan": {"mode": priced["mode"],
+                     "predicted_wall_s": priced["predicted_wall_s"],
+                     "full_wall_s": priced["full_wall_s"],
+                     "break_even_k": priced["break_even_k"]},
+            "stream_version": rep["stream_version"],
+        }
+        log(f"{config_name} delta K={K}: patch {wall:.3f} s (delta pass "
+            f"{rep['timings']['delta_s']:.3f} s: B1 and its facet pass "
+            f"{rep['timings']['compute_s']:.3f}, d2h "
+            f"{rep['timings']['d2h_s']:.3f}, route "
+            f"{rep['timings']['route_s']:.3f}; patch "
+            f"{rep['timings']['patch_s']:.3f} s) against the full re-record's "
+            f"{out['record_s']:.3f} s: x{out['record_s'] / wall:.2f}; "
+            f"plan_delta {priced['mode']} predicted "
+            f"{priced['predicted_wall_s']:.3f} s (full "
+            f"{priced['full_wall_s']:.3f} s); max |patched - fresh| "
+            f"{mx:.3e} of {sc:.3e} ({mx / sc:.2e})")
+        require(mx <= DELTA_REL_TOL * sc,
+                f"K={K}: the patched stream is {mx / sc:.2e} off the fresh "
+                f"one (bound {DELTA_REL_TOL})")
+        if key == "k1":
+            legs[key]["fresh_digest"] = _stream_digest(fresh)
+            fresh.reset()
+            del fresh, ffwd
+        else:
+            fresh3, fwd3 = fresh, ffwd
+        mark(f"(b) K={K} patched and held to a fresh stream")
+
+    # (c) one imaging cycle after the update: the backward fed from the
+    # patched recording against the same backward fed from the fresh one
+    def backward(fwd, spill):
+        bwd = st.StreamedBackward(cfg, fcs, residency="sampled",
+                                  fold_group=fold_group)
+        sync()
+        t0 = time.perf_counter()
+        st.feed_backward_passes(fwd, sgcs, [bwd], spill=spill)
+        facets = bwd.finish_device()
+        sync()
+        return facets, time.perf_counter() - t0, fwd.last_spill
+
+    fp, out["backward_patched_s"], sp_p = backward(engine.fwd, engine.spill)
+    ff, out["backward_fresh_s"], sp_f = backward(fwd3, fresh3)
+    require((sp_p or {}).get("mode") == "replay"
+            and (sp_f or {}).get("mode") == "replay",
+            f"the backwards were not fed from the recordings: {sp_p}, {sp_f}")
+    d2 = scale = 0.0
+    for i in range(len(fcs)):  # RMS over the largest value, facet by facet
+        a_i, b_i = fp[i].double(), ff[i].double()
+        d2 += float((a_i - b_i).pow(2).sum(-1).mean())
+        scale = max(scale, float(b_i.pow(2).sum(-1).max().sqrt()))
+        del a_i, b_i
+    out["backward_rel_rms"] = (d2 / len(fcs)) ** 0.5 / scale
+    f_rms = [_facet_rms(torch, fp[i], engine.fwd.synth_facet_device(i))
+             for i in range(len(fcs))]
+    out["backward_max_facet_rms"] = max(f_rms)
+    counts_c = read_counts()
+    log(f"{config_name} delta (c): backward from the patched recording "
+        f"{out['backward_patched_s']:.3f} s, from the fresh one "
+        f"{out['backward_fresh_s']:.3f} s; rel RMS between them "
+        f"{out['backward_rel_rms']:.3e} (bound {FACET_RMS:.0e}), max facet "
+        f"RMS against the new facets {max(f_rms):.3e} (bound "
+        f"{FACET_RMS:.0e}); B2 launches {counts_c['fold'][0]}")
+    require(out["backward_rel_rms"] <= FACET_RMS,
+            "the patched recording's backward is off the fresh one's")
+    require(max(f_rms) <= FACET_RMS,
+            "the patched recording's backward is off the new facets")
+    require(not cuda or counts_c["fold"][0] > 0, "(c) launched B2 no time")
+    del fp, ff
+    fresh3.reset()
+    del fresh3, fwd3
+    if cuda:
+        gc_collect(torch)
+    mark("(c) backward fed from the patched recording")
+
+    # the exact update: back to S1, re-recorded; its stream's digest is the
+    # fresh S1 stream's
+    sync()
+    t0 = time.perf_counter()
+    rep = engine.update(S1, exact=True)
+    sync()
+    out["exact"] = {"mode": rep["mode"], "reason": rep["reason"],
+                    "seconds": time.perf_counter() - t0,
+                    "digest": _stream_digest(engine.spill),
+                    "fresh_digest": legs["k1"]["fresh_digest"]}
+    out["exact"]["sha256_equal"] = (out["exact"]["digest"]
+                                    == out["exact"]["fresh_digest"])
+    log(f"{config_name} delta exact: {rep['mode']} ({rep['reason']}) in "
+        f"{out['exact']['seconds']:.3f} s, stream sha256 "
+        f"{out['exact']['digest'][:16]} (fresh {legs['k1']['fresh_digest'][:16]})")
+    require(rep["mode"] == "replay" and rep["reason"] == "exact_mode",
+            f"the exact update took {rep['mode']} ({rep['reason']})")
+    require(out["exact"]["sha256_equal"],
+            "the exact update's stream differs from a fresh forward's")
+    delta_counts = read_counts()
+    out["delta_launches"] = {k: v[0] for k, v in delta_counts.items()}
+    out["counts_delta"] = delta_counts
+    require(not cuda or all(out["delta_launches"][k] > 0
+                            for k in ("colpass", "fold")),
+            f"the delta path launched {out['delta_launches']}")
+    mark("exact update")
+
+    head = legs["k1"]
+    delta_record = {
+        "metric": f"{config_name} incremental K-facet update wall-clock "
+                  f"({len(sgcs)} subgrids, planar f32, delta, "
+                  f"{'gpu' if cuda else 'cpu'})",
+        "value": head["update_s"], "unit": "s", "n_subgrids": len(sgcs),
+        "full_record_wall_s": out["record_s"],
+        "delta": {
+            "n_facets": len(fcs),
+            "changed_facets": head["changed_facets"],
+            "patched_columns": head["patched_columns"],
+            "patched_entries": head["patched_entries"],
+            "speedup_vs_full": head["speedup_vs_full"],
+            "max_abs_diff": head["match"]["max_abs_diff"],
+            "match": head["match"], "plan": head["plan"],
+            "exact": {"mode": out["exact"]["mode"],
+                      "bit_identical": out["exact"]["sha256_equal"]},
+            "exact_mode": False,
+            "legs": [{k: v for k, v in leg.items() if k != "fresh_digest"}
+                     for leg in legs.values()],
+            "spill": engine.spill.stats(),
+        },
+        "manifest": run_manifest(params={**params, "mode": "delta"}),
+    }
+    problems = validate_delta_artifact(delta_record)
+    require(not problems, f"the delta record: {problems}")
+    out["legs"] = delta_record["delta"]["legs"]
+
+    # -- (d) the fleet over the engine's fabric ---------------------------
+    fabric = engine.fabric()
+    stack = engine.facet_tasks
+
+    def factory(rid, feed):
+        fwd = st.SwiftlyForward(cfg, stack, lru_forward=2)
+        return st.SubgridService(
+            fwd, scheduler=CoalescingScheduler(max_batch=8), cache_feed=feed)
+
+    # as in the JAX package's fleet drill (bench.py:2414), an impossible
+    # brownout share keeps the ladder out of the update and kill windows
+    # (hedge losers left queued behind the patch window's fallbacks would
+    # otherwise read as overload and shed priority-0 submissions); a
+    # replica busy preparing its facets is probed, not revoked, unless
+    # the supervisor misses it for 1 s; a fast supervisor and pumps, as
+    # (e) fetches rows one by one
+    fleet = st.ServeFleet(factory, FLEET_REPLICAS, fabric=fabric,
+                          seed=FLEET_SEED, poll_s=0.0005,
+                          supervise_interval_s=0.0005,
+                          lease_interval_s=0.05, miss_suspect=2,
+                          miss_revoke=20, brownout_share=2.0)
+    victim = 0
+    # the replicas' forwards prepare their facet stacks (one request each)
+    for r in fleet.replicas.values():
+        r.service.fwd.get_subgrid_tasks([sgcs[0]])
+    sync()
+    mark("(d) fleet built, replicas' facets prepared")
+    index = CachedColumnFeed.build_index(engine.spill)
+    old_entries = [engine.spill.get(k) for k in range(len(engine.spill))]
+    work = _fleet_traffic(sgcs, n_requests, FLEET_SEED)
+    bounds = [int(round(f * n_requests)) for f in FLEET_SEGMENTS]
+    reset_counts()
+    window = {"b3": 0, "fallbacks": 0}
+    spill = engine.spill
+    begin_patch, end_patch = spill.begin_patch, spill.end_patch
+
+    def fallbacks():
+        return sum(r.service.stats()["cache_fallbacks"]
+                   for r in fleet.replicas.values())
+
+    def begin():  # the patch window opens: no engine launch until it closes
+        window["b3"] -= st.cmatmul_stats.launches
+        window["fallbacks"] -= fallbacks()
+        begin_patch()
+
+    def end():
+        end_patch()
+        window["b3"] += st.cmatmul_stats.launches
+        window["fallbacks"] += fallbacks()
+
+    spill.begin_patch, spill.end_patch = begin, end
+    fleet.start()
+    clients = _FleetClients(fleet, work)
+    t_fleet = time.perf_counter()
+    try:
+        clients.release(bounds[0], epoch="before")
+        clients.wait_done(bounds[0])
+        mark(f"(d) {bounds[0]} requests served before the update")
+        clients.release(bounds[1], epoch="during",
+                        pace_s=FLEET_UPDATE_PACE_S)
+        t0 = time.perf_counter()
+        rep = fleet.post_facet_update(engine, S0, use_plan=False)
+        out["fleet_update_s"] = time.perf_counter() - t0
+        clients.release(bounds[1], epoch="after", pace_s=0.0)
+        require(rep["mode"] == "patch",
+                f"the fleet's update took {rep['mode']} ({rep['reason']})")
+        clients.wait_done(bounds[1])
+        mark("(d) facet update landed")
+        clients.release(bounds[2])
+        clients.wait_done(min(bounds[1] + FLEET_KILL_AFTER, bounds[2]))
+        fleet.kill_replica(victim)
+        clients.wait_done(bounds[2])
+        deadline = time.monotonic() + 30.0
+        while (not fleet.replica(victim).lease.revoked
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
+        require(fleet.replica(victim).lease.revoked,
+                "the killed replica's lease was never revoked")
+        fleet.restore_replica(victim)
+        # the rest in steps of one request a client, until the victim's
+        # breaker has closed again (its half-open probes succeeded), then
+        # all at once
+        clients.release(bounds[2], epoch="restored")
+        breaker = fleet.replica(victim).breaker
+        step_s = FLEET_RESTORE_SPAN_S * FLEET_CLIENTS / (bounds[3] - bounds[2])
+        while clients.allowed < bounds[3] and breaker.state != "closed":
+            clients.release(min(bounds[3], clients.allowed + FLEET_CLIENTS))
+            time.sleep(step_s)
+        clients.release(bounds[3])
+        clients.wait_done(bounds[3])
+        require(fleet.drain(timeout=120.0), "the fleet did not drain")
+        fleet_s = time.perf_counter() - t_fleet
+        mark(f"(d) {n_requests} requests served")
+        sync()
+        fleet_counts_d = read_counts()
+
+        # -- (e) visibilities through the fleet ---------------------------
+        uv_all, _ = vis_traffic(sgcs, n_vis * VIS_BATCHES, VIS_SEED,
+                                VIS_ZIPF_S, kernel.support + 1, N)
+        uv = np.array_split(uv_all, VIS_BATCHES)[0]
+        vsvc = sv.VisibilityService(
+            subgrid_configs=sgcs, N=N, kernel=kernel,
+            row_source=sv.FleetRowSource(fleet, priority=1),
+            queue=AdmissionQueue(max_depth=VIS_MAX_DEPTH),
+            scheduler=CoalescingScheduler(max_batch=VIS_MAX_BATCH,
+                                          urgency_s=0.05),
+            device=device)
+        b4_0 = st.degrid_stats.launches
+        sync()
+        t0 = time.perf_counter()
+        handle = vsvc.submit(uv, priority=1)
+        while vsvc.pump_once():
+            pass
+        sync()
+        out["vis_s"] = time.perf_counter() - t0
+        vstats = vsvc.stats()
+        out["vis_b4_launches"] = st.degrid_stats.launches - b4_0
+        fleet_counts = read_counts()
+        fleet_wall = time.perf_counter() - t_fleet
+        fstats = fleet.stats(wall_s=fleet_wall)
+        fabric_stats = fabric.stats()
+        tower = fleet.tower.fleet_telemetry()
+    finally:
+        clients.close()
+        fleet.stop()
+        spill.begin_patch, spill.end_patch = begin_patch, end_patch
+    mark("(e) visibilities served through the fleet")
+
+    # -- gates of (d) -------------------------------------------------------
+    require(not clients.errors, f"fleet clients: {clients.errors[:3]}")
+    new_entries = [engine.spill.get(k) for k in range(len(engine.spill))]
+
+    def recorded(entries, sg):
+        k, ci, si, _ = index[(sg.off0, sg.off1, sg.size)]
+        return entries[k][ci, si]
+
+    paths = {"cache": 0, "coalesced": 0, "compute": 0}
+    bad = {"old": 0, "new": 0, "either": 0}
+    lat = {"before": [], "during": [], "after": []}
+    n_ok = checked = cache_checked = 0
+    for i, item in enumerate(clients.tracked):
+        require(item is not None, f"request {i} was never submitted")
+        sg, freq, epoch, _t = item
+        res = freq.result
+        if res is None or not res.ok:
+            continue
+        n_ok += 1
+        lat["before" if i < bounds[0] else "during" if i < bounds[2]
+            else "after"].append(res.latency_s)
+        if res.path == "cache":
+            paths["cache"] += 1
+            got = np.asarray(res.data)
+            def match(ref):
+                return np.array_equal(got, ref)
+        else:
+            paths["coalesced" if res.coalesced else "compute"] += 1
+            got = res.data.cpu().numpy() if hasattr(res.data, "cpu") \
+                else np.asarray(res.data)
+            def match(ref):
+                return _rel_l2(got, ref) <= FLEET_COMPUTE_REL
+        old_ok = match(recorded(old_entries, sg))
+        new_ok = match(recorded(new_entries, sg))
+        checked += 1
+        cache_checked += res.path == "cache"
+        want = {"before": "old", "during": "either"}.get(epoch, "new")
+        ok = {"old": old_ok, "new": new_ok, "either": old_ok or new_ok}[want]
+        bad[want] += not ok
+    breaker = fstats["breakers"][str(victim)]
+    cycle = [t["to"] for t in breaker["transitions"]]
+    out["fleet"] = {
+        "requests": n_requests, "served_ok": n_ok, "zero_lost":
+        n_ok == n_requests, "fleet_s": fleet_s, "update_s":
+        out["fleet_update_s"], "p50_ms": fstats["p50_ms"],
+        "p99_ms": fstats["p99_ms"],
+        "p99_before_ms": _quantile_ms(lat["before"], 0.99),
+        "p99_during_ms": _quantile_ms(lat["during"], 0.99),
+        "p99_after_ms": _quantile_ms(lat["after"], 0.99),
+        "paths": paths, "mismatches": bad, "checked": checked,
+        "patch_window": dict(window), "breaker_cycle": cycle,
+        "failovers": fstats["failovers"], "hedges": fstats["hedges"],
+        "restores": fstats["restores"], "rolls": fabric_stats["rolls"],
+        "resident_stream_copies": fabric_stats["resident_stream_copies"],
+        "stream_copies": fstats["stream_copies"],
+        "l1_hits": fabric_stats["l1_hits"], "l2_hits": fabric_stats["l2_hits"],
+        "dedup_hits": fabric_stats["dedup_hits"],
+        "dedup_computes": fabric_stats["dedup_computes"],
+        "launches": {k: v[0] for k, v in fleet_counts_d.items()},
+        "peak_gib": peak_gib(),
+    }
+    log(f"{config_name} fleet: {n_ok} of {n_requests} requests served in "
+        f"{fleet_s:.3f} s, p50 {fstats['p50_ms']:.3f} ms, p99 "
+        f"{fstats['p99_ms']:.3f} ms (before / during / after "
+        f"{out['fleet']['p99_before_ms']:.3f} / "
+        f"{out['fleet']['p99_during_ms']:.3f} / "
+        f"{out['fleet']['p99_after_ms']:.3f}); paths {paths}; update "
+        f"{out['fleet_update_s']:.3f} s, patch window {window}; fabric L1 "
+        f"{fabric_stats['l1_hits']}, L2 {fabric_stats['l2_hits']}, dedup "
+        f"{fabric_stats['dedup_hits']} of {fabric_stats['dedup_computes']} "
+        f"computes; failovers {fstats['failovers']}, hedges "
+        f"{fstats['hedges']}, breaker {cycle}; mismatches {bad}; launches "
+        f"{out['fleet']['launches']}")
+    lost = {}
+    for item in clients.tracked:
+        res = item[1].result
+        if res is None or not res.ok:
+            why = "no result" if res is None else (
+                f"{res.status}: {res.shed_reason or res.error}")
+            lost[why] = lost.get(why, 0) + 1
+    require(n_ok == n_requests, f"{n_requests - n_ok} requests lost: {lost}")
+    require(not any(bad.values()), f"served rows off their version: {bad}")
+    require(not cuda or (window["fallbacks"] >= 1 and window["b3"] >= 1),
+            f"no compute fallback ran B3 in the patch window: {window}")
+    require({"open", "half_open", "closed"} <= set(cycle),
+            f"the victim's breaker went {cycle}")
+    require(fabric_stats["rolls"] == 1 and fstats["stream_copies"] == 1
+            and fabric_stats["resident_stream_copies"] == 1,
+            f"rolls {fabric_stats['rolls']}, copies {fstats['stream_copies']}")
+
+    manifest = run_manifest(params={**params, "mode": "fleet"})
+    bit = {"checked": checked, "mismatches": sum(bad.values()),
+           "cache_path_checked": cache_checked}
+    per_replica = fstats["per_replica"]
+    fleet_record = {
+        "metric": f"{config_name} serve fleet ({n_requests} zipf requests "
+                  f"over {len({sg.off0 for sg in sgcs})} columns, "
+                  f"{FLEET_REPLICAS} replicas + cache fabric, facet update, "
+                  f"kill and restore, planar f32, {'gpu' if cuda else 'cpu'})",
+        "value": fleet_s, "unit": "s",
+        "throughput_rps": fstats["served"] / fleet_wall,
+        "p50_ms": fstats["p50_ms"], "p99_ms": fstats["p99_ms"],
+        "n_requests": fstats["requests"], "n_served": fstats["served"],
+        "bit_identical": bit,
+        "fleet": {
+            "n_replicas": FLEET_REPLICAS, "victim": victim,
+            "replica_deaths": 1, "restores": fstats["restores"],
+            "failovers": fstats["failovers"], "reroutes": fstats["reroutes"],
+            "hedges": fstats["hedges"], "zero_lost": n_ok == n_requests,
+            "p99_before_ms": out["fleet"]["p99_before_ms"],
+            "p99_during_ms": out["fleet"]["p99_during_ms"],
+            "p99_after_ms": out["fleet"]["p99_after_ms"],
+            "breaker_cycle": cycle, "breakers": fstats["breakers"],
+            "health_transitions": fstats["health"]["transitions"],
+            "brownout": fstats["brownout"], "per_replica": per_replica,
+            "stream_copies": fstats["stream_copies"],
+            "facet_updates": fstats.get("facet_updates", 0),
+        },
+        "cache": fabric_stats,
+        "fleet_telemetry": tower,
+        "manifest": manifest,
+    }
+    serve_blocks = []
+    for rid, replica in sorted(fleet.replicas.items()):
+        s = replica.service.stats()
+        serve_blocks.append({
+            **s, "manifest": manifest, "replica": rid,
+            "metric": f"{config_name} serve fleet replica {rid} "
+                      "(SubgridService over the fabric's view)",
+            "value": fleet_wall, "unit": "s",
+            "throughput_rps": s["n_served"] / fleet_wall,
+            "bit_identical": bit})
+    fleet_record["serve"] = serve_blocks
+    problems = validate_fleet_artifact(fleet_record)
+    for blk in serve_blocks:
+        problems += [f"serve block of replica {blk['replica']}: {p}"
+                     for p in validate_serve_artifact(blk)]
+    require(not problems, f"the fleet record: {problems}")
+
+    # -- gates of (e) -------------------------------------------------------
+    m = np.isfinite(handle.data)
+    served_uv, served_vis = np.atleast_2d(uv)[m], handle.data[m]
+    oracle = sv.vis_oracle(raw, served_uv, N)
+    out["vis"] = {
+        "samples": len(uv), "served_samples": int(m.sum()),
+        "seconds": out["vis_s"], "pumps": vstats["n_pumps"],
+        "rows_fetched": vstats["n_batches"],
+        "b4_launches": out["vis_b4_launches"],
+        "shed_reasons": vstats["shed_reasons"],
+        "oracle_rel_rms": float(
+            np.sqrt(np.mean(np.abs(served_vis - oracle) ** 2))
+            / np.sqrt(np.mean(np.abs(oracle) ** 2))),
+    }
+    log(f"{config_name} fleet vis: {out['vis']['served_samples']} of "
+        f"{len(uv)} samples served through FleetRowSource in "
+        f"{out['vis_s']:.3f} s ({vstats['n_batches']} rows in "
+        f"{vstats['n_pumps']} pumps, B4 launches "
+        f"{out['vis_b4_launches']}); oracle rel RMS "
+        f"{out['vis']['oracle_rel_rms']:.3e} (bound {sv.DEGRID_TOLERANCE})")
+    require(out["vis"]["oracle_rel_rms"] <= sv.DEGRID_TOLERANCE,
+            "fleet-served samples off the oracle")
+    require(not cuda or out["vis_b4_launches"] == vstats["n_pumps"] > 0,
+            f"B4 launched {out['vis_b4_launches']} times in "
+            f"{vstats['n_pumps']} pumps")
+    out["counts_fleet"] = fleet_counts
+    out["fleet_launches"] = {k: v[0] for k, v in fleet_counts.items()}
+    out["peak_gib"] = peak_gib()
+    out["phase_s"] = time.perf_counter() - t_phase
+    engine.spill.reset()
+    mark("phase 14 done")
+    return out
+
+
+def _delta_line(res):
+    """Phase 14's JSON record: every key but the per-shape launch counts
+    (the `kernels` line's ``paths`` holds them)."""
+    return {k: v for k, v in res.items() if not k.startswith("counts")}
+
+
 def _facet_rms(torch, got, ref):
     """RMS of a planar [..., 2] device tensor against a real one, in
     float64."""
@@ -4228,6 +5015,9 @@ def _args():
                    help="phase 2, then phase 6's round trip (warm and timed, "
                    "unprofiled) and phase 13 (the plan compiler and its "
                    "calibration loop)")
+    p.add_argument("--delta", action="store_true",
+                   help="phase 2, then phase 14 (incremental facet updates "
+                   "and the serving fleet) alone")
     p.add_argument("--serve-full", action="store_true",
                    help="phase 8 serves all its batches (default: the first "
                    f"{VIS_SERVED})")
@@ -4354,6 +5144,16 @@ def main():
         done("plan")
         log(json.dumps({"plan_32k": _plan_line(res)}))
         return 0
+    if args.delta:
+        res = delta_main(torch)
+        done("delta")
+        line = _delta_line(res)
+        line["kernels"] = _time_streamed_kernels(
+            torch, {"counts": res["counts_delta"]})
+        done("timing")
+        log(smi)
+        log(json.dumps({"delta_32k": line}))
+        return 0
     for dt in (torch.float32, torch.float64):
         for i, shape in enumerate(B3_RAGGED):
             check_cmatmul(torch, shape, dt, seed=i)
@@ -4393,6 +5193,9 @@ def main():
     plan13 = plan_main(torch, phase6=streamed)
     done("plan")
     gc_collect(torch)
+    delta = delta_main(torch)
+    done("delta")
+    gc_collect(torch)
     slabs = slabs_main(torch)
     done("slabs")
     gc_collect(torch)
@@ -4419,7 +5222,9 @@ def main():
     results = {"fused": fused, "streamed": streamed, "vis": vis,
                "128k": big, "residency": residency,
                "residency_bodies": residency["bodies"], "spill": spill,
-               "resume": resume, "plan": plan13}
+               "resume": resume, "plan": plan13,
+               "delta": {"counts": delta["counts_delta"]},
+               "fleet": {"counts": delta["counts_fleet"]}}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -4454,6 +5259,7 @@ def main():
     log(json.dumps({"resume_32k": _resume_line(resume)}))
     log(json.dumps({"streamed_128k": _big_line(big)}))
     log(json.dumps({"plan_32k": _plan_line(plan13)}))
+    log(json.dumps({"delta_32k": _delta_line(delta)}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",
         "submitted_samples", "serve_s", "samples_per_s", "p50_ms",

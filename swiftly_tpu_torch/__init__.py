@@ -13,6 +13,10 @@ a float64 numpy host reference (``backend="numpy"``). The JAX package
 ``swiftly_tpu`` is the reference this package is tested against; this
 package imports nothing of it, and no JAX.
 
+Incremental facet updates patch a recorded subgrid stream
+(``IncrementalForward``), served by ``SubgridService`` replicas of a
+``ServeFleet`` over one shared cache tier (``SharedStreamTier``).
+
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """
 
@@ -50,18 +54,48 @@ from .ops import (
     make_subgrid_from_sources,
 )
 from .parallel import StreamedBackward, StreamedForward, feed_backward_passes
+from .cache import FabricFeedView, SharedStreamTier
+from .delta import (
+    FacetDeltaLedger,
+    IncrementalForward,
+    config_hash,
+    facet_delta,
+    facet_hash,
+)
+from .serve import (
+    FleetAutoscaler,
+    FleetRequest,
+    HealthLease,
+    HealthMonitor,
+    Replica,
+    ServeFleet,
+    SubgridService,
+)
+from .vis import FleetRowSource
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "FabricFeedView",
     "FacetConfig",
+    "FacetDeltaLedger",
+    "FleetAutoscaler",
+    "FleetRequest",
+    "FleetRowSource",
     "FlightQueue",
+    "HealthLease",
+    "HealthMonitor",
+    "IncrementalForward",
     "LRUCache",
+    "Replica",
     "SWIFT_CONFIGS",
+    "ServeFleet",
+    "SharedStreamTier",
     "SparseRealFacet",
     "StreamedBackward",
     "StreamedForward",
     "SubgridConfig",
+    "SubgridService",
     "SwiftlyBackward",
     "SwiftlyConfig",
     "SwiftlyCore",
@@ -72,7 +106,10 @@ __all__ = [
     "check_subgrid",
     "cmatmul_stats",
     "colpass_stats",
+    "config_hash",
     "degrid_stats",
+    "facet_delta",
+    "facet_hash",
     "feed_backward_passes",
     "fold_stats",
     "grid_stats",

@@ -44,6 +44,7 @@ from .models.covers import (
     sparse_fov_cover_offsets,
 )
 from .ops.oracle import (
+    SparseRealFacet,
     make_facet_from_sources,
     make_real_facet_plane_from_sources,
     make_sparse_real_facet_from_sources,
@@ -425,13 +426,32 @@ class SwiftlyForward:
                  queue_size=20):
         self.config = swiftly_config
         self.core = swiftly_config.core
-        self.stack = _FacetStack([cfg for cfg, _ in facet_tasks])
-        self._facet_data = [data for _, data in facet_tasks]
-        self._BF_Fs = None
         self.lru = LRUCache(lru_forward)
         self.queue = FlightQueue(queue_size, stage="fwd.drain")
         # column intermediates computed (LRU misses of `_get_columns`)
         self.columns_extracted = 0
+        self._set_facets(facet_tasks)
+
+    def _set_facets(self, facet_tasks):
+        self.stack = _FacetStack([cfg for cfg, _ in facet_tasks])
+        # a sparse descriptor is densified when its facet is prepared
+        self._facet_data = [
+            data.densify if isinstance(data, SparseRealFacet) else data
+            for _, data in facet_tasks
+        ]
+        self._BF_Fs = None
+
+    def adopt_facet_tasks(self, facet_tasks):
+        """Swap in a new facet stack: drops the prepared facet planes
+        and the column LRU, and rebuilds the stack descriptors, so every
+        later subgrid computes from the new data. The serve path's update
+        hook (`serve.SubgridService.post_facet_update`) calls this so its
+        compute fallback — feed misses, evicted rows, stale feeds — never
+        serves a superseded stack. Callables stay lazy and sparse
+        descriptors are densified when their facet is prepared."""
+        self._set_facets(facet_tasks)
+        self.lru = LRUCache(self.lru.capacity)
+        return self
 
     def _get_BF_Fs(self):
         if self._BF_Fs is None:

@@ -150,6 +150,17 @@ EXEMPT_STAGE_TIMERS = {
                     "priced steady state",
     "vis.request": "a served request's submit-to-completion latency (the "
                    "SLO's metric), not a stage of work",
+    "serve.request": "a served subgrid request's submit-to-completion "
+                     "latency (the SLO's metric), not a stage of work",
+    "serve.cache_feed": "one recorded-row read of the serving path, "
+                        "outside the streamed modes the plan prices",
+    "serve.batch": "one coalesced compute dispatch of the serving path "
+                   "(the fused API's column program), outside the "
+                   "streamed modes the plan prices",
+    "delta.d2h": "the delta pass's correction copy; plan.plan_delta "
+                 "prices the update as a whole, not per stage",
+    "spill.patch": "the cache patch of an incremental update; "
+                   "plan.plan_delta prices the update as a whole",
 }
 
 

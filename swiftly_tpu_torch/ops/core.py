@@ -327,6 +327,13 @@ class SwiftlyCore:
             a = np.asarray(a)
             if not np.iscomplexobj(a) and a.shape and a.shape[-1] == 2:
                 return torch.as_tensor(a).to(device=self.device, dtype=self.dtype)
+            if a.dtype.kind == "f":
+                # a real plane: moved as it is, its zero imaginary plane
+                # made where it lies (the values `to_planar` gives, without
+                # the host's complex128 copy)
+                re = torch.from_numpy(np.ascontiguousarray(a)).to(
+                    device=self.device, dtype=self.dtype)
+                return torch.stack([re, torch.zeros_like(re)], -1)
             return plk.to_planar(a, self.dtype, self.device)
         if not isinstance(a, torch.Tensor):
             a = torch.as_tensor(np.asarray(a))

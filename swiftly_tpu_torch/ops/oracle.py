@@ -48,11 +48,15 @@ def make_facet_from_sources(
         if np.all((rel >= 0) & (rel < facet_size)):
             facet[tuple(rel)] += intensity
 
+    # the masks scale the pixels that hold a value, in the order and with
+    # the arithmetic of a whole-plane product (every other pixel is 0 and
+    # stays 0), without a pass over the plane per mask
+    hit = np.nonzero(facet)
+    vals = facet[hit]
     for axis, mask in enumerate(facet_masks or []):
         if mask is not None:
-            shape = [1] * ndim
-            shape[axis] = -1
-            facet = facet * np.reshape(np.asarray(mask), shape)
+            vals = vals * np.asarray(mask)[hit[axis]]
+    facet[hit] = vals
     return facet
 
 

@@ -2445,10 +2445,15 @@ class CachedColumnFeed:
     Version pinning: the feed captures the cache's ``stream_version`` at
     construction. Once a facet update moves the cache's version, every
     lookup raises LookupError — a feed indexed before the update can never
-    serve a row recorded for a different facet stack.
+    serve a row recorded for a different facet stack. While the cache is
+    mid-patch (``SpillCache.begin_patch``) every lookup raises too.
+    Refused lookups count into ``stale`` / ``evicted`` and into the
+    ``spill.feed_stale`` / ``spill.feed_evictions`` metrics, hits and
+    misses into ``spill.feed_hits`` / ``spill.feed_misses``, as the JAX
+    package's feed counts them.
     """
 
-    def __init__(self, spill):
+    def __init__(self, spill, *, index=None, stream_version=None):
         if not spill.complete:
             raise ValueError(
                 "CachedColumnFeed requires a COMPLETE spill cache "
@@ -2456,17 +2461,23 @@ class CachedColumnFeed:
                 "incomplete stream would silently miss-serve"
             )
         self._spill = spill
-        self.stream_version = int(spill.stream_version)
-        self._index = self._build_index(spill)
+        self.stream_version = int(
+            spill.stream_version if stream_version is None
+            else stream_version)
+        # views over one shared stream (`cache.SharedStreamTier`) pass a
+        # prebuilt index, so N replicas do not scan the metadata N times
+        self._index = self.build_index(spill) if index is None else index
         self.hits = 0
         self.misses = 0
         self.evicted = 0
         self.stale = 0
 
     @staticmethod
-    def _build_index(spill):
+    def build_index(spill):
         """``(off0, off1, size) -> (k, c, s, recorded config)`` over a
-        complete recorded stream — the per-subgrid lookup table."""
+        complete recorded stream — the per-subgrid lookup table. A patch
+        rewrites entry payloads in place, so the index survives it; only
+        a re-record (replay) invalidates it."""
         index = {}
         for k in range(len(spill)):
             for c, col in enumerate(spill.meta(k)):
@@ -2486,11 +2497,31 @@ class CachedColumnFeed:
                 return False
         return True
 
+    def _count_stale(self):
+        self.stale += 1
+        if _metrics.enabled():
+            _metrics.count("spill.feed_stale")
+
+    def _count_evicted(self):
+        self.evicted += 1
+        if _metrics.enabled():
+            _metrics.count("spill.feed_evictions")
+
     def _gate(self):
         """Raise LookupError unless the backing stream is safe to read at
-        this feed's pinned version (still complete, version unmoved)."""
+        this feed's pinned version (not mid-patch, still complete,
+        version unmoved). Views that front this feed with a hot-row L1
+        (`cache.FabricFeedView`) run the same gate before serving an L1
+        row."""
+        if self._spill.patching:
+            self._count_stale()
+            raise LookupError(
+                "cached stream is mid-update (a facet patch or replay "
+                "is rewriting its entries); fall back to compute and "
+                "rebuild the feed once the update lands"
+            )
         if not self._spill.complete:
-            self.evicted += 1
+            self._count_evicted()
             raise LookupError(
                 "recorded stream is no longer complete (a reset or "
                 "eviction dropped its entries since this feed was "
@@ -2498,7 +2529,7 @@ class CachedColumnFeed:
             )
         current = int(self._spill.stream_version)
         if current != self.stream_version:
-            self.stale += 1
+            self._count_stale()
             raise LookupError(
                 f"cached stream version moved "
                 f"({self.stream_version} -> {current}); this feed "
@@ -2510,23 +2541,29 @@ class CachedColumnFeed:
 
         Raises LookupError when the index hit an evicted entry or the
         whole recorded stream was dropped (a ``reset`` cleared
-        ``complete``), or when the cache's stream version moved since this
-        feed was built."""
+        ``complete``), when the cache's stream version moved since this
+        feed was built, or when the cache is mid-patch (a read that
+        races ``begin_patch`` bounces with `utils.spill.StreamMidPatch`,
+        a LookupError)."""
         self._gate()
         hit = self._index.get((config.off0, config.off1, config.size))
         if hit is None or not self._masks_match(config, hit[3]):
             self.misses += 1
+            if _metrics.enabled():
+                _metrics.count("spill.feed_misses")
             return None
         k, c, s, _cfg = hit
         try:
             row = self._spill.get_row(k, (c, s))
         except (IndexError, FileNotFoundError, OSError) as exc:
-            self.evicted += 1
+            self._count_evicted()
             raise LookupError(
                 f"recorded stream entry {k} for subgrid "
                 f"({config.off0}, {config.off1}) was evicted"
             ) from exc
         self.hits += 1
+        if _metrics.enabled():
+            _metrics.count("spill.feed_hits")
         return row
 
 

@@ -33,12 +33,13 @@ from .profiling import (
     probe_hbm_bytes,
     trace,
 )
-from .spill import SpillCache, spill_budget_bytes
+from .spill import SpillCache, StreamMidPatch, spill_budget_bytes
 
 __all__ = [
     "CorruptCheckpointError",
     "MemorySampler",
     "SpillCache",
+    "StreamMidPatch",
     "backward_batched_flops",
     "backward_sampled_flops",
     "bwd_column_pass_flops",

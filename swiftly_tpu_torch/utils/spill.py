@@ -31,20 +31,26 @@ and writes are ``spill.disk_read`` / ``spill.disk_write`` stages with
 their bytes, and evictions, disk reads and swept orphans are ``spill.*``
 counters.
 
-Not ported yet: ``patch_entry`` for incremental facet updates with the
-reader–writer patch gate it needs (``begin_patch`` / ``end_patch``,
-``StreamMidPatch``; ROADMAP A11), ``export_manifest`` for process-fleet
-readers (A12) and the compiled plan's ``policy`` stamp (A10).
+Incremental facet updates (`delta.IncrementalForward`) rewrite entries
+through ``patch_entry`` inside a ``begin_patch`` / ``end_patch`` window:
+a reader–writer gate drains in-flight row reads before the rewrite and
+bounces new ones with `StreamMidPatch` (a LookupError, the serving path's
+fall-back-to-compute signal) until the window closes.
+
+Not ported yet: ``export_manifest`` for process-fleet readers.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import glob
 import logging
 import os
 import shutil
 import tempfile
 import threading
+import time
 
 import numpy as np
 
@@ -54,13 +60,49 @@ from ..resilience import degrade as _degrade
 from ..resilience.faults import fault_point
 from ..resilience.retry import retry_transient
 
-__all__ = ["SpillCache", "spill_budget_bytes"]
+__all__ = ["SpillCache", "StreamMidPatch", "spill_budget_bytes"]
 
 logger = logging.getLogger(__name__)
+
+# begin_patch waits this long for in-flight readers to drain before
+# proceeding anyway (readers are single-row copies; a wait this long
+# means a reader thread died mid-read — blocking the patch forever
+# would wedge the whole update path behind a corpse)
+_PATCH_DRAIN_TIMEOUT_S = 5.0
+
+
+class StreamMidPatch(LookupError):
+    """A row read raced ``begin_patch``: the stream is mid-rewrite.
+
+    A LookupError subclass so serving-path consumers
+    (`parallel.streamed.CachedColumnFeed`, `serve.SubgridService`)
+    treat it exactly like a stale-feed bounce — fall back to compute,
+    retry once the patch window closes."""
 
 # chunk size for disk-backed writes: bounds the per-write dirty-page
 # burst while keeping the stream sequential (memmap-friendly)
 _DISK_CHUNK_BYTES = 256e6
+
+# a patch adds an entry's correction on this many host threads (numpy
+# releases the GIL in its loops)
+_PATCH_THREADS = max(1, min(8, os.cpu_count() or 1))
+
+
+def _parallel_add(a, b):
+    """``a + b`` into a new array, in chunks on `_PATCH_THREADS` threads
+    (the new pages are touched in parallel too): the values of
+    ``a + b``."""
+    out = np.empty(a.shape, np.result_type(a, b))
+    fa, fb, fo = a.reshape(-1), b.reshape(-1), out.reshape(-1)
+    step = max(1, -(-fo.size // _PATCH_THREADS))
+    spans = [(i, min(i + step, fo.size)) for i in range(0, fo.size, step)]
+    if len(spans) <= 1:
+        np.add(fa, fb, out=fo)
+        return out
+    with concurrent.futures.ThreadPoolExecutor(len(spans)) as pool:
+        list(pool.map(lambda ij: np.add(fa[ij[0]:ij[1]], fb[ij[0]:ij[1]],
+                                        out=fo[ij[0]:ij[1]]), spans))
+    return out
 
 
 def spill_budget_bytes():
@@ -124,14 +166,27 @@ class SpillCache:
         # refuse rows once it moves — a patched stream can never serve
         # through a feed indexed before the patch.
         self.stream_version = 0
-        # one lock guards entry/meta/counter mutation
-        self._lock = threading.Lock()
+        # True while a patcher rewrites entries (begin_patch/end_patch);
+        # feeds refuse lookups for the whole window, so a concurrent
+        # reader can never observe a partially-patched stream
+        self.patching = False
+        # one lock guards entry/meta/counter mutation; the condition is
+        # the reader–writer gate (`begin_patch` drains in-flight row
+        # reads, new reads bounce with `StreamMidPatch` until
+        # `end_patch`). The patcher's own thread passes the gate:
+        # `patch_entry` reads the base entry inside its window. Nothing
+        # holds the lock across a device sync: readers copy host rows.
+        self._lock = threading.RLock()
+        self._readers = threading.Condition(self._lock)
+        self._active_readers = 0
+        self._patcher_tid = None
         self.counters = {
             "writes": 0,
             "evictions": 0,
             "ram_reads": 0,
             "disk_reads": 0,
             "fills": 0,
+            "patches": 0,
         }
 
     # -- concurrency --------------------------------------------------------
@@ -140,6 +195,28 @@ class SpillCache:
         """Thread-safe counter increment."""
         with self._lock:
             self.counters[name] += n
+
+    @contextlib.contextmanager
+    def _read_gate(self):
+        """Row-read side of the reader–writer gate: registers the read
+        so `begin_patch` can drain it, and bounces reads that arrive
+        inside a patch window (`StreamMidPatch`, unless the reader is
+        the patcher, which reads base entries mid-window)."""
+        me = threading.get_ident()
+        with self._readers:
+            if self.patching and me != self._patcher_tid:
+                raise StreamMidPatch(
+                    "stream is mid-patch (begin_patch/end_patch window); "
+                    "fall back to compute and retry after the update"
+                )
+            self._active_readers += 1
+        try:
+            yield
+        finally:
+            with self._readers:
+                self._active_readers -= 1
+                if self._active_readers == 0:
+                    self._readers.notify_all()
 
     # -- fill ---------------------------------------------------------------
 
@@ -236,18 +313,19 @@ class SpillCache:
         retry transient failures with backoff; a read that stays failed
         raises (the streamed consumer then runs the forward instead: see
         `StreamedForward.stream_column_groups`)."""
-        kind, payload = self._entries[k]
+        with self._read_gate():
+            kind, payload = self._entries[k]
 
-        def read():
-            fault_point("spill.read")
-            if kind == "ram":
-                return payload
-            with _metrics.stage("spill.disk_read") as st:
-                arr = np.load(payload)
-                st.bytes_moved = int(arr.nbytes)
-            return arr
+            def read():
+                fault_point("spill.read")
+                if kind == "ram":
+                    return payload
+                with _metrics.stage("spill.disk_read") as st:
+                    arr = np.load(payload)
+                    st.bytes_moved = int(arr.nbytes)
+                return arr
 
-        out = retry_transient(read, site="spill.read")
+            out = retry_transient(read, site="spill.read")
         self._count_read(kind)
         return out
 
@@ -258,6 +336,13 @@ class SpillCache:
             self._bump("disk_reads")
             _metrics.count("spill.disk_reads")
 
+    def entry_shape(self, k):
+        """Entry k's array shape, without reading a disk entry's data."""
+        kind, payload = self._entries[k]
+        if kind == "ram":
+            return payload.shape
+        return np.load(payload, mmap_mode="r").shape
+
     def get_row(self, k, index):
         """One sub-array of entry k (e.g. ``(c, s)`` of a [G, S, ...]
         group stack) without materialising the whole entry.
@@ -266,22 +351,105 @@ class SpillCache:
         single subgrids out of recorded streams; RAM entries slice in
         place and disk entries go through a read-only memmap, so a
         one-subgrid request against a multi-GiB disk entry costs one
-        row's IO, not the entry's.
+        row's IO, not the entry's. A read that races `begin_patch`
+        raises `StreamMidPatch`, and the patch waits for in-flight reads.
         """
-        kind, payload = self._entries[k]
+        with self._read_gate():
+            kind, payload = self._entries[k]
 
-        def read():
-            fault_point("spill.get_row")
-            if kind == "ram":
-                return payload[index]
-            with _metrics.stage("spill.disk_read") as st:
-                row = np.array(np.load(payload, mmap_mode="r")[index])
-                st.bytes_moved = int(row.nbytes)
-            return row
+            def read():
+                fault_point("spill.get_row")
+                if kind == "ram":
+                    return payload[index]
+                with _metrics.stage("spill.disk_read") as st:
+                    row = np.array(np.load(payload, mmap_mode="r")[index])
+                    st.bytes_moved = int(row.nbytes)
+                return row
 
-        out = retry_transient(read, site="spill.get_row")
+            out = retry_transient(read, site="spill.get_row")
         self._count_read(kind)
         return out
+
+    # -- patch --------------------------------------------------------------
+
+    def begin_patch(self):
+        """Mark the cache mid-patch: feeds refuse lookups while the mark
+        is set, so a live feed never observes a partially-patched stream
+        (its consumers compute at their pinned version). The patcher
+        clears the mark with `end_patch` after re-stamping
+        ``stream_version``.
+
+        Writer side of the reader–writer gate: after raising the mark
+        (which bounces new row reads) it waits up to
+        ``_PATCH_DRAIN_TIMEOUT_S`` for in-flight reads to drain.
+        """
+        deadline = time.monotonic() + _PATCH_DRAIN_TIMEOUT_S
+        with self._readers:
+            self.patching = True
+            self._patcher_tid = threading.get_ident()
+            while self._active_readers:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    logger.warning(
+                        "begin_patch proceeding with %d reader(s) still "
+                        "in flight after %.1fs — a reader thread looks "
+                        "dead", self._active_readers,
+                        _PATCH_DRAIN_TIMEOUT_S,
+                    )
+                    break
+                self._readers.wait(timeout=remaining)
+        _trace.instant("spill.begin_patch", cat="spill")
+
+    def end_patch(self):
+        """Clear the mid-patch mark (see `begin_patch`)."""
+        with self._readers:
+            self.patching = False
+            self._patcher_tid = None
+            self._readers.notify_all()
+        _trace.instant("spill.end_patch", cat="spill")
+
+    def patch_entry(self, k, delta):
+        """Add ``delta`` into entry k (`delta.IncrementalForward`'s
+        cache patch).
+
+        Atomic and idempotent per entry: a RAM entry is patched out of
+        place (the retried closure reads the unmodified base, computes
+        ``base + delta`` fresh and swaps the entry reference under the
+        lock, so a retry can never apply twice); a disk entry is read,
+        added and rewritten through the fill's tmp sibling + rename, so
+        a crash mid-patch leaves the old entry intact. A failure that
+        outlives the retries raises; the caller degrades to a full
+        re-record.
+        """
+        with self._lock:
+            kind, payload = self._entries[k]
+        delta = np.asarray(delta)
+        base = self.get(k)
+        if base.shape != delta.shape:
+            raise ValueError(
+                f"patch shape {delta.shape} != entry {k} shape "
+                f"{base.shape}"
+            )
+        add = np.ascontiguousarray(delta.astype(base.dtype, copy=False))
+        if kind == "ram":
+
+            def write():
+                fault_point("spill.write")
+                with _metrics.stage("spill.patch") as st:
+                    new = _parallel_add(np.ascontiguousarray(payload), add)
+                    with self._lock:
+                        self._entries[k] = ("ram", new)
+                    st.bytes_moved = int(add.nbytes)
+
+            retry_transient(write, site="spill.write")
+        else:
+            with _metrics.stage("spill.patch") as st:
+                self._disk_write(k, base + add)
+                st.bytes_moved = int(add.nbytes)
+        self._bump("patches")
+        _metrics.count("spill.patches")
+        _trace.instant("spill.patch", cat="spill", entry=int(k),
+                       nbytes=int(add.nbytes))
 
     # -- maintenance --------------------------------------------------------
 

@@ -21,8 +21,8 @@ fractional (u, v) — and back:
   coalescing / cache-feed / compute-fallback / facet-update version
   gates, shared with `serve`;
 * `vis.oracle` — direct-DFT reference for accuracy audits.
-
-Not ported yet: ``FleetRowSource`` (with ``serve.fleet``, ROADMAP A12).
+* `vis.service.FleetRowSource` — the row fetch routed through a
+  `serve.fleet.ServeFleet`.
 """
 
 from .degrid import bucket_size, degrid_batch, degrid_rows, split_row_planes
@@ -30,11 +30,17 @@ from .grid import ADJOINT_TOLERANCE, VisGridder, grid_batch
 from .kernel import DEGRID_TOLERANCE, MAX_BAND, VisKernel, vis_kernel
 from .mapping import VisCoverIndex
 from .oracle import corrected_sources, vis_oracle
-from .service import VisHandle, VisibilityService, VisRequest
+from .service import (
+    FleetRowSource,
+    VisHandle,
+    VisibilityService,
+    VisRequest,
+)
 
 __all__ = [
     "ADJOINT_TOLERANCE",
     "DEGRID_TOLERANCE",
+    "FleetRowSource",
     "MAX_BAND",
     "VisCoverIndex",
     "VisGridder",

@@ -11,9 +11,9 @@ the 4096-sample cap) stays the reference's, and ``n_pumps`` counts the
 pumps that launched. The projected-device-memory admission
 (``hbm_budget_bytes``) and the ``obs.metrics`` / ``trace`` hooks are the
 reference's (``vis.row_fetch`` and ``vis.degrid`` stages, the request,
-sample, shed and cache counters, the ``vis.request`` latencies). Not
-ported yet: ``FleetRowSource`` (it needs ``serve.fleet``, ROADMAP A12;
-any ``row_source`` callable works).
+sample, shed and cache counters, the ``vis.request`` latencies).
+`FleetRowSource` routes the compute fallback through a
+`serve.fleet.ServeFleet`.
 
 The reference's serving stack answers *subgrid* requests (`serve.service`);
 radio-astronomy clients want *visibilities* — the sky transform sampled
@@ -174,6 +174,40 @@ class VisHandle:
             f"<VisHandle n={self.n_samples} status={self.status} "
             f"served={self._served} shed={len(self.shed_idx)}>"
         )
+
+
+class FleetRowSource:
+    """Row fetch routed through a `serve.fleet.ServeFleet`.
+
+    Passing one of these as ``row_source=`` puts the fleet's whole
+    resilience ladder — rendezvous routing, failover, brownout, hedged
+    retries — under visibility serving without either side changing:
+    the vis service just sees rows, the fleet just sees subgrid
+    requests. A row is returned as the fleet served it: a host array
+    from a replica's cache feed, a device tensor from its compute path
+    (degridded where it lies; the reference copies every row to the
+    host).
+    """
+
+    def __init__(self, fleet, priority=0, deadline_s=None):
+        self.fleet = fleet
+        self.priority = priority
+        self.deadline_s = deadline_s
+
+    def __call__(self, config):
+        req = self.fleet.submit(config, priority=self.priority,
+                                deadline_s=self.deadline_s)
+        # FleetRequest.wait returns the RequestResult (None on wait
+        # timeout), unlike SubgridRequest.wait which returns itself
+        result = req.wait(timeout=self.deadline_s)
+        if result is None or not result.ok:
+            status = getattr(result, "status", None)
+            raise RuntimeError(
+                f"fleet row fetch for column {config.off0} failed: "
+                f"{status}"
+            )
+        data = result.data
+        return data if isinstance(data, torch.Tensor) else np.asarray(data)
 
 
 class VisibilityService:

@@ -2,7 +2,7 @@
 
 For each sub-package of ``swiftly_tpu`` (``obs``, ``resilience``,
 ``parallel``, ``utils``, ``plan``, ``serve``, ``vis``, ``models``,
-``ops``), every name in its ``__all__`` is exported by the port's
+``ops``, ``delta``, ``cache``), every name in its ``__all__`` is exported by the port's
 counterpart in ``swiftly_tpu_torch``, or is listed below beside the
 ROADMAP step (section A) that will bring it. The JAX package's
 ``__all__`` is read by parsing its source with ``ast``: nothing of it is
@@ -29,19 +29,13 @@ PENDING = {
             "subgrids_from_columns_sharded",
         },
     },
-    "A12": {  # serving, the rest: fleet, health, autoscale, process fleet
-        "serve": {
-            "FleetAutoscaler", "FleetRequest", "HealthLease", "HealthMonitor",
-            "LIVE", "ProcessFleet", "REVOKED", "Replica", "SUSPECT",
-            "ServeFleet", "SharedSpillReader", "SubgridService",
-            "make_worker_spec",
-        },
+    "A12": {  # serving, the rest: the process fleet
+        "serve": {"ProcessFleet", "SharedSpillReader", "make_worker_spec"},
     },
-    "A13": {"vis": {"FleetRowSource"}},  # visibility, the rest
     "A15": {"utils": {"enable_compilation_cache"}},  # scripts, leftovers
 }
 SUBPACKAGES = ["obs", "resilience", "parallel", "utils", "plan", "serve",
-               "vis", "models", "ops"]
+               "vis", "models", "ops", "delta", "cache"]
 
 
 def _reference_all(sub):
@@ -104,3 +98,22 @@ def test_this_slice_is_exported():
                  "collective_bytes_forward", "column_collective_bytes",
                  "device_memory_stats", "trace"):
         assert name in utils.__all__, name
+
+
+def test_incremental_and_serving_slice_is_exported():
+    """The incremental-update and serving names, from the package's top
+    level, and the spill cache's and forward's new methods."""
+    import swiftly_tpu_torch as st
+
+    for name in ("IncrementalForward", "facet_delta", "FacetDeltaLedger",
+                 "config_hash", "facet_hash", "SharedStreamTier",
+                 "FabricFeedView", "SubgridService", "HealthLease",
+                 "HealthMonitor", "ServeFleet", "Replica", "FleetRequest",
+                 "FleetAutoscaler", "FleetRowSource"):
+        assert name in st.__all__ and hasattr(st, name), name
+    from swiftly_tpu_torch.utils import SpillCache, StreamMidPatch
+
+    for name in ("patch_entry", "begin_patch", "end_patch"):
+        assert callable(getattr(SpillCache, name)), name
+    assert issubclass(StreamMidPatch, LookupError)
+    assert callable(st.SwiftlyForward.adopt_facet_tasks)
