@@ -36,7 +36,11 @@ this checkout, and holds each kernel against its plain PyTorch version:
    and B4's f32 output digests (``B4_DIGESTS``), met by ``degrid`` and by
    ``degrid_rows``;
 4. float64 round trips at ``1k[1]-n512-256`` on the card against the
-   analytic oracle: fused and per subgrid, then streamed;
+   analytic oracle: fused and per subgrid, then streamed; (b) the same
+   round trip with ``backend="native"`` (the C++ host kernels, built with
+   g++, complex128 on the host) against the oracle and against
+   ``backend="torch"`` complex128 on the card, each within 3e-10 RMS,
+   with its seconds and the library's OpenMP threads;
 5. the fused round trip (``SwiftlyForward.all_subgrids`` then
    ``backward_all``) at ``32k[1]-n16k-512``, planar float32, from facets
    held as numpy arrays on the host, a warm run and a timed run, checked
@@ -233,7 +237,37 @@ this checkout, and holds each kernel against its plain PyTorch version:
    phase 8's first batch of 65,536 samples served through
    ``VisibilityService(row_source=FleetRowSource(fleet))``, gated on
    the oracle (``DEGRID_TOLERANCE``) and B4 launched once per pump that
-   served a sample. It prints the device peak after every step.
+   served a sample. It prints the device peak after every step;
+15. the process fleet at ``32k[1]-n16k-512``, planar f32 (run after phase
+   14), the twin of the JAX package's ``bench.py --procfleet``: the
+   stream recorded by ``IncrementalForward`` (B1) into a ``SpillCache``
+   with a temporary disk tier and exported (``export_manifest``, its
+   seconds and GB); the wreckage of a crashed fleet (a run dir of a dead
+   pid, a stale socket, a live decoy carrying the worker marker);
+   ``ProcessFleet`` of 3 workers (``make_worker_spec(max_depth=256,
+   max_batch=16)``, each a process with its own CUDA context rebuilding
+   its facets from the sources and serving the exported recording
+   through ``SharedSpillReader``; lease 0.02 s, miss 3 / 6, breakers 3,
+   0.3-4.0 s, 2 probes, restarts 0.2-2.0 s, boot deadline 240 s, worker
+   traces, a ``ControlTower``), each worker's boot seconds; four windows
+   of 48 zipf (s = 1.1, seed 1234) requests: before (the L2 gated off
+   through the stream-state file: the compute path, B3 in the workers),
+   kill (the hot column's preferred worker SIGKILLed mid-burst, still
+   compute), restart (the L2 back on; the victim restarted, its breaker
+   driven open -> half-open -> closed by its own columns first), and a
+   SIGKILL inside a ``CONTROL``-armed 1.5 s L2 read of a second worker;
+   gated on zero requests lost, every served row bit-equal to its path's
+   reference (the recording's bytes, or ``get_subgrid_task`` on a fresh
+   forward in this process) and within 1e-5 relative L2 of the
+   recording, both paths served, the breaker cycle, the mid-read kill's
+   row bit-identical, no revocation but the two victims', the sweep's 1
+   orphan and 1 socket, a merged trace over the router and every worker
+   pid, ``validate_procfleet_artifact`` and
+   ``validate_fleet_telemetry_artifact`` on a ``run_manifest`` record,
+   B3 launched in the workers (their ``kernel.cmatmul.launches``), and
+   no worker process nor run dir left after ``stop()``; it prints each
+   window's p50, p99 and requests/s, ``failover_ms``, the L2 rows read,
+   the paths' mix, each worker's device peak and the phase's wall.
 
 At phases 6, 10 (b), 11 (a) and 9 the streamed forward's sizer model
 (``parallel.streamed.stream_peak_bytes`` beside the backwards'
@@ -246,16 +280,19 @@ and read just after it. Every phase that fails ends the run with a non-zero exit
 code. The last lines are the ``residency_32k`` JSON record of phase
 10, the ``spill_32k`` record of phase 11, the ``resume_32k`` record of
 phase 12, the ``plan_32k`` record of phase 13, the ``delta_32k`` record
-of phase 14, the ``vis`` JSON record of phase 8, the
+of phase 14, the ``procfleet_32k`` record of phase 15, the ``native_1k``
+record of phase 4 (b), the ``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
 visibility path's for B4 and ``grid``; ``paths`` holds each path's
 launches, the 128k one's, phase 10's (``residency``, its part (a), and
 ``residency_bodies``, its part (c)), phase 11's (``spill``, its timed
 run (a)), phase 12's (``resume``, its observed run (a)) and phase 13's
-(``plan``, its calibrated run (c)) and phase 14's (``delta``, (a) to (c)
-and the exact update; ``fleet``, (d) and (e)) too, with the times at that
-path's shapes) and
+(``plan``, its calibrated run (c)), phase 14's (``delta``, (a) to (c)
+and the exact update; ``fleet``, (d) and (e)) and phase 15's
+(``procfleet``, the parent's recording; ``procfleet_workers``, the
+workers' launches, summed from their telemetry) too, with the times at
+that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -281,7 +318,9 @@ warm and timed round trips (unprofiled) and phase 12, and prints one
 timed round trips (unprofiled) and phase 13, and prints one ``plan_32k``
 JSON line; ``--delta`` runs phase 2 and phase 14 alone, and prints one
 ``delta_32k`` JSON line (with B1, B2 and B3 timed at the delta path's
-shapes).
+shapes); ``--procfleet`` runs phase 2 and phase 15 alone, and prints one
+``procfleet_32k`` JSON line (with B1 and B3 timed at the recording's and
+the workers' shapes).
 """
 
 from __future__ import annotations
@@ -869,6 +908,23 @@ def _sha(*tensors):
     return h.hexdigest()
 
 
+def _facet_digests(torch, facets, threads=4):
+    """The SHA-256 (hex) of each facet's host bytes (``facets[i]``, a
+    tensor on any device or a host array), four facets hashed at a time
+    on host threads (hashlib releases the GIL), without a bytes copy: the
+    digests of ``.cpu().numpy().tobytes()``."""
+    import concurrent.futures
+
+    def one(i):
+        f = facets[i]
+        a = f.cpu().numpy() if isinstance(f, torch.Tensor) else f
+        return hashlib.sha256(
+            memoryview(np.ascontiguousarray(a)).cast("B")).hexdigest()
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(one, range(len(facets))))
+
+
 def _report_digest(kernel, shape, seed, got, want):
     """Log a digest beside the recorded one; gate on it once recorded."""
     state = ("not recorded" if want is None
@@ -1378,6 +1434,58 @@ def roundtrip_small(torch, device="cuda"):
     return out
 
 
+def roundtrip_native_small(torch, device="cuda"):
+    """Phase 4 (b): the f64 round trip at SMALL_CONFIG with
+    ``backend="native"`` (the C++ host kernels, complex128 on the host)
+    against the oracle and against ``backend="torch"`` complex128 on
+    `device`, subgrids and facets within F64_ROUNDTRIP_RMS."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.native import load_library
+
+    params = st.SWIFT_CONFIGS[SMALL_CONFIG]
+    out, results = {}, {}
+    for backend, kw in (("native", {}),
+                        ("torch", {"dtype": torch.complex128,
+                                   "device": device})):
+        t0 = time.perf_counter()
+        cfg = st.SwiftlyConfig(backend=backend, **kw, **params)
+        fcs = st.make_full_facet_cover(cfg)
+        sgcs = st.make_full_subgrid_cover(cfg)
+        tasks = [(fc, st.make_facet(cfg.image_size, fc, SMALL_SOURCES))
+                 for fc in fcs]
+        subgrids = [cfg.core.as_complex(x) for x in
+                    st.SwiftlyForward(cfg, tasks).get_subgrid_tasks(sgcs)]
+        facets = cfg.core.as_complex(
+            st.backward_all(cfg, fcs, list(zip(sgcs, subgrids))))
+        out[f"{backend}_s"] = time.perf_counter() - t0
+        results[backend] = (subgrids, facets)
+    subgrids, facets = results["native"]
+    require(isinstance(facets, np.ndarray) and facets.dtype == np.complex128,
+            "the native backend did not return complex128 host arrays")
+
+    def rms(a, b):
+        return float(np.sqrt(np.mean(np.abs(np.asarray(a) - b) ** 2)))
+
+    out["facet_rms"] = max(
+        st.check_facet(cfg.image_size, fc, facets[i], SMALL_SOURCES)
+        for i, fc in enumerate(fcs))
+    out["subgrid_rms"] = max(
+        st.check_subgrid(cfg.image_size, sg, subgrids[i], SMALL_SOURCES)
+        for i, sg in enumerate(sgcs))
+    out["vs_torch_subgrid_rms"] = max(
+        rms(a, b) for a, b in zip(subgrids, results["torch"][0]))
+    out["vs_torch_facet_rms"] = max(
+        rms(a, b) for a, b in zip(facets, results["torch"][1]))
+    out["sw_num_threads"] = int(load_library().sw_num_threads())
+    log(f"{SMALL_CONFIG} f64 native round trip: {out}")
+    for key in ("facet_rms", "subgrid_rms", "vs_torch_subgrid_rms",
+                "vs_torch_facet_rms"):
+        require(out[key] < F64_ROUNDTRIP_RMS,
+                f"{SMALL_CONFIG} native {key} {out[key]:.3e} >= "
+                f"{F64_ROUNDTRIP_RMS}")
+    return out
+
+
 def roundtrip_main(torch, config_name=MAIN_CONFIG, device="cuda",
                    dtype=None, warm=True):
     """The main path: fused forward + backward round trip, planar."""
@@ -1454,8 +1562,12 @@ def roundtrip_main(torch, config_name=MAIN_CONFIG, device="cuda",
     sg_rms = [st.check_subgrid(N, sgcs[i], core.as_complex(subgrids[i]),
                                sources) for i in idxs]
     del subgrids
-    f_rms = [st.check_facet(N, fc, core.as_complex(facets[i]), sources)
-             for i, fc in enumerate(fcs)]
+    # on the card, in float64, against the oracle's exact real plane (the
+    # oracle facet's imaginary part is zero): the host's complex128 check
+    # took ~3-5 s a facet
+    f_rms = [_facet_rms(torch, facets[i], torch.as_tensor(
+        st.make_real_facet(N, fc, sources, dtype=np.float64),
+        device=facets.device)) for i, fc in enumerate(fcs)]
     out.update(n_subgrid_samples=len(idxs), max_subgrid_rms=max(sg_rms),
                subgrid_rms_bound=SUBGRID_REL_RMS * scale,
                max_facet_rms=max(f_rms), facet_rms_bound=FACET_RMS)
@@ -1613,10 +1725,7 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
     def one_run():
         facets, feed, total = round_trip()
         t_fwd = feed.forward_s()
-        digests = []
-        for i in range(F):  # one facet on the host at a time
-            digests.append(hashlib.sha256(
-                facets[i].cpu().numpy().tobytes()).hexdigest())
+        digests = _facet_digests(torch, facets)
         return (facets, feed.samples, t_fwd, total - t_fwd, feed.plan,
                 feed.n_groups, digests)
 
@@ -2113,7 +2222,7 @@ def residency_main(torch, config_name=MAIN_CONFIG, fold_group=4,
         return facets, samples, plan, stream_s, time.perf_counter() - t
 
     def digests(facets):
-        return [hashlib.sha256(f.data).hexdigest() for f in facets]
+        return _facet_digests(torch, facets)
 
     # (a) the host forward into the device backward, warm then timed
     warm_digests = None
@@ -2517,9 +2626,8 @@ def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
         gc_collect(torch)
         log(f"{config_name} spill: warm run done ({a_warm['seconds']:.3f} s)")
     if phase6_digests is not None and ref_host is not None:
-        out["reference_equal_phase6"] = [
-            hashlib.sha256(ref_host[i].numpy().tobytes()).hexdigest()
-            for i in range(F)] == list(phase6_digests)
+        out["reference_equal_phase6"] = _facet_digests(
+            torch, ref_host) == list(phase6_digests)
     acc = {"d2_ref": 0.0, "n": 0, "ref_scale": 0.0, "equal_ref": True,
            "oracle_d2": [0.0] * F, "oracle_n": [0] * F}
 
@@ -2792,8 +2900,7 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
         return fwd, bwd
 
     def digests(facets):
-        return [hashlib.sha256(facets[i].cpu().numpy().tobytes()).hexdigest()
-                for i in range(F)]
+        return _facet_digests(torch, facets)
 
     def round_trip(fwd, bwd, cover):
         """The feed and the finish in a window synchronised at both ends,
@@ -3107,8 +3214,7 @@ def plan_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
             torch.cuda.synchronize()
 
     def digests(facets):
-        return [hashlib.sha256(facets[i].cpu().numpy().tobytes()).hexdigest()
-                for i in range(F)]
+        return _facet_digests(torch, facets)
 
     def facet_rms(facets):
         return max(_facet_rms(torch, facets[i],
@@ -4080,6 +4186,532 @@ def _delta_line(res):
     return {k: v for k, v in res.items() if not k.startswith("counts")}
 
 
+PROCFLEET_WORKERS = 3
+PROCFLEET_WINDOW = 48  # requests a window (bench.py:3143's drill)
+PROCFLEET_SEED = 1234
+PROCFLEET_DWELL_S = 1.5
+PROCFLEET_BOOT_S = 240.0
+PROCFLEET_REL_L2 = 1e-5  # every served row against the recording's
+DEAD_PID = 2 ** 22 + 12345  # far above any default pid_max allocation
+
+
+def _zipf_workload(sgcs, n, seed, zipf_s=VIS_ZIPF_S):
+    """``bench.py:1315``'s draw: `n` requests zipf-distributed over the
+    subgrid columns (a shuffled popularity ranking, p ~ 1/rank^s), uniform
+    within a column; returns (configs, the hottest column's off0)."""
+    rng = np.random.default_rng(seed)
+    cols = sorted({sg.off0 for sg in sgcs})
+    by_col = {}
+    for sg in sgcs:
+        by_col.setdefault(sg.off0, []).append(sg)
+    order = rng.permutation(len(cols))
+    ranks = np.empty(len(cols), dtype=int)
+    ranks[order] = np.arange(len(cols))
+    p = 1.0 / (ranks + 1.0) ** zipf_s
+    p /= p.sum()
+    picks = rng.choice(len(cols), size=n, p=p)
+    reqs = [by_col[cols[c]][rng.integers(len(by_col[cols[c]]))]
+            for c in picks]
+    return reqs, cols[int(np.argmax(p))]
+
+
+def _wait_for(cond, timeout_s, poll_s=0.005):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(poll_s)
+    return False
+
+
+def procfleet_main(torch, config_name=MAIN_CONFIG, device="cuda",
+                   n_workers=PROCFLEET_WORKERS, per_phase=PROCFLEET_WINDOW,
+                   lease_s=0.02, miss_revoke=6, dwell_s=PROCFLEET_DWELL_S,
+                   boot_deadline_s=PROCFLEET_BOOT_S):
+    """Phase 15: the process fleet at `config_name`, planar f32, the twin
+    of the JAX package's ``bench.py --procfleet``: the stream recorded by
+    ``IncrementalForward`` (B1) and exported to disk, wreckage of a
+    crashed run for the startup sweep, `n_workers` ``ProcessFleet``
+    workers (each its own process and CUDA context over the exported
+    recording), and four windows of `per_phase` zipf requests: before
+    (the L2 gated off through the stream-state file: the compute path),
+    a SIGKILL of the hot column's preferred worker mid-burst (still
+    compute), the victim's restart with its breaker open -> half-open ->
+    closed (the cache path), and a SIGKILL inside a ``CONTROL``-armed L2
+    read of a second worker. Every served row audited; the drill's record
+    held to ``validate_procfleet_artifact``. The recording's temporary
+    disk tier is removed at the end, whatever the outcome."""
+    import shutil
+    import tempfile
+
+    spill_dir = tempfile.mkdtemp(prefix="swiftly_procfleet_spill_")
+    try:
+        return _procfleet_drill(torch, spill_dir, config_name, device,
+                                n_workers, per_phase, lease_s, miss_revoke,
+                                dwell_s, boot_deadline_s)
+    finally:
+        shutil.rmtree(spill_dir, ignore_errors=True)
+
+
+def _procfleet_drill(torch, spill_dir, config_name, device, n_workers,
+                     per_phase, lease_s, miss_revoke, dwell_s,
+                     boot_deadline_s):
+    """`procfleet_main`'s drill, recording into `spill_dir`."""
+    import collections
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.obs import (
+        ControlTower,
+        recorder,
+        run_manifest,
+        trace,
+        validate_procfleet_artifact,
+    )
+    from swiftly_tpu_torch.obs.tower import validate_fleet_telemetry_artifact
+    from swiftly_tpu_torch.parallel.streamed import CachedColumnFeed
+    from swiftly_tpu_torch.serve import ProcessFleet, make_worker_spec
+    from swiftly_tpu_torch.serve import procfleet as pf
+    from swiftly_tpu_torch.serve.fleet import _rendezvous_score
+    from swiftly_tpu_torch.utils.spill import SpillCache
+
+    cuda = device == "cuda"
+    t_phase = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def mark(step):
+        p = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
+        log(f"  [procfleet: {step} at {time.perf_counter() - t_phase:.1f} s"
+            + ("" if p is None else f", parent device peak {p:.2f} GiB")
+            + "]")
+
+    def preferred(off0):
+        return max(range(n_workers),
+                   key=lambda r: _rendezvous_score(off0, r))
+
+    params = dict(st.SWIFT_CONFIGS[config_name])
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **params)
+    N = cfg.image_size
+    sources = sources_for(N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    spec = make_worker_spec(params, sources, max_depth=256, max_batch=16,
+                            device=device)
+    out = {"config": config_name, "workers": n_workers,
+           "window_requests": per_phase, "lease_s": lease_s,
+           "miss_revoke": miss_revoke}
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    run_root = os.path.join(tempfile.gettempdir(),
+                            f"swiftly_procfleet_smoke_{os.getpid()}")
+    was_tracing, was_recording = trace.enabled(), recorder.enabled()
+    fleet = decoy = None
+    tracked, windows = [], {}
+    try:
+        # -- (1) the recording (B1), exported to its on-disk form ---------
+        spill = SpillCache(spill_dir=spill_dir)
+        reset_counts()
+        engine = st.IncrementalForward(
+            cfg, [(fc, st.make_sparse_facet(N, fc, sources)) for fc in fcs],
+            spill)
+        sync()
+        t0 = time.perf_counter()
+        engine.record(sgcs)
+        sync()
+        out["record_s"] = time.perf_counter() - t0
+        counts_record = read_counts()
+        out["counts_record"] = counts_record
+        out["record_launches"] = {k: v[0] for k, v in counts_record.items()}
+        if cuda:
+            require(counts_record["colpass"][0] > 0,
+                    "B1 was not launched in the parent's recording")
+        del engine  # the recording's device state, before the workers
+        gc_collect(torch)
+        t0 = time.perf_counter()
+        manifest = spill.export_manifest()
+        out["export_s"] = time.perf_counter() - t0
+        out["export_gb"] = spill.stats()["disk_bytes"] / 1e9
+        out["entries"] = len(manifest["entries"])
+        log(f"{config_name} procfleet: recorded {len(spill)} entries in "
+            f"{out['record_s']:.3f} s, exported {out['export_gb']:.3f} GB "
+            f"to disk in {out['export_s']:.3f} s")
+        mark("(1) recorded and exported")
+
+        # -- (2) the wreckage of a crashed fleet ---------------------------
+        stale = os.path.join(run_root, "run-stale-crashed")
+        os.makedirs(stale, exist_ok=True)
+        open(os.path.join(stale, "worker-0.g1.sock"), "w").close()
+        with open(os.path.join(stale, "fleet.pid"), "w") as fh:
+            fh.write(str(DEAD_PID))
+        decoy = subprocess.Popen(
+            [sys.executable, "-c", "import time; time.sleep(600)",
+             pf.WORKER_MARKER, "--worker"],
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        require(_wait_for(lambda: pf._cmdline_matches(decoy.pid), 10.0),
+                "the decoy worker never exec'd")
+        with open(os.path.join(stale, "worker-0.pid"), "w") as fh:
+            fh.write(str(decoy.pid))
+
+        # -- (3) the fleet -------------------------------------------------
+        trace.enable()
+        recorder.enable()
+        fleet = ProcessFleet(
+            spec, n_workers, stream_spill=spill, run_root=run_root,
+            lease_interval_s=lease_s, miss_suspect=3, miss_revoke=miss_revoke,
+            breaker_threshold=3, breaker_reopen_s=0.3,
+            breaker_max_reopen_s=4.0, half_open_probes=2,
+            restart_backoff_s=0.2, restart_backoff_max_s=2.0,
+            boot_deadline_s=boot_deadline_s, worker_trace=True)
+        tower = ControlTower()
+        fleet.register_tower(tower)
+        workload, hot = _zipf_workload(sgcs, per_phase, PROCFLEET_SEED)
+        t_fleet = time.perf_counter()
+        fleet.start()
+        out["start_s"] = time.perf_counter() - t_fleet
+        require(decoy.wait(timeout=10.0) == -signal.SIGKILL,
+                "the startup sweep did not reap the decoy worker")
+        orphans = {"orphans_reaped": fleet.counts["orphans_reaped"],
+                   "stale_sockets_swept": fleet.counts["stale_sockets_swept"],
+                   "decoy_reaped": True}
+        require(orphans["orphans_reaped"] == 1
+                and orphans["stale_sockets_swept"] == 1,
+                f"the startup sweep: {orphans}")
+        out["boot_s"] = {str(r): fleet.worker(r).boot_s[1]
+                         for r in range(n_workers)}
+        log(f"procfleet: {n_workers} workers booted in "
+            f"{out['start_s']:.3f} s (each: {out['boot_s']})")
+        mark("(3) booted")
+
+        def window(label, reqs, kill=None):
+            """Submit `reqs` (SIGKILLing worker kill[1] before request
+            kill[0]), drain, and keep the window's router-side numbers."""
+            n0 = len(fleet.latencies_s())
+            t0 = time.perf_counter()
+            frs, killed = [], None
+            for i, sg in enumerate(reqs):
+                if kill is not None and i == kill[0]:
+                    killed = fleet.kill_worker(kill[1], signal.SIGKILL)
+                frs.append(fleet.submit(sg, priority=1))
+            tracked.extend(zip(reqs, frs))
+            require(fleet.drain(timeout_s=300.0),
+                    f"the {label} window did not drain")
+            wall = time.perf_counter() - t0
+            lats = fleet.latencies_s()[n0:]
+            windows[label] = {
+                "requests": len(reqs), "wall_s": wall,
+                "p50_ms": _quantile_ms(lats, 0.5),
+                "p99_ms": _quantile_ms(lats, 0.99),
+                "requests_per_s": len(reqs) / wall,
+                "paths": dict(collections.Counter(
+                    fr.result.path if fr.result is not None else None
+                    for fr in frs))}
+            log(f"procfleet {label}: {windows[label]}")
+            return killed
+
+        # before: the L2 gated off through the stream-state file, so the
+        # workers compute (B3); then the kill burst on the compute path
+        fleet.publish_stream_state(patching=True)
+        window("before", workload)
+        victim = preferred(hot)
+        victim_pid = window("kill", workload,
+                            kill=(max(2, per_phase // 3), victim))
+        require(_wait_for(lambda: fleet.counts["worker_deaths"] >= 1, 15.0),
+                "the SIGKILLed worker's lease was never revoked")
+        require(_wait_for(lambda: fleet.counts["blackbox_exhumed"] >= 1,
+                          10.0), "the victim's black box was not exhumed")
+        kill_pm = recorder.post_mortem(
+            "WorkerSIGKILLed",
+            reason=f"worker {victim} pid {victim_pid} killed -9")
+        mark("kill window served")
+
+        # restart: the L2 back on; the victim re-earns its breaker
+        fleet.publish_stream_state()
+        require(_wait_for(lambda: fleet.worker(victim).ready
+                          and not fleet.worker(victim).dead
+                          and fleet.worker(victim).generation >= 2,
+                          boot_deadline_s, 0.01),
+                "the victim was not restarted")
+        victim_cols = [sg for sg in sgcs if preferred(sg.off0) == victim]
+        i = 0
+        deadline = time.monotonic() + 30.0
+        while (fleet.worker(victim).breaker.state != "closed"
+               and time.monotonic() < deadline):
+            sg = victim_cols[i % len(victim_cols)]
+            i += 1
+            tracked.append((sg, fleet.submit(sg, priority=1)))
+            fleet.drain(timeout_s=30.0)
+            time.sleep(0.02)
+        out["probe_requests"] = i
+        window("restart", workload)
+        mark("restart window served")
+
+        # a SIGKILL inside an L2 read of a second worker
+        require(fleet.drain(timeout_s=60.0) and fleet.wait_ready(60.0),
+                "the fleet did not settle before the mid-L2-read kill")
+        victim2 = next(r for r in range(n_workers) if r != victim)
+        col2 = next(sg for sg in sgcs if preferred(sg.off0) == victim2)
+        flag = fleet.dwell_flag_path(victim2)
+        if os.path.exists(flag):
+            os.unlink(flag)
+        fleet.set_control(victim2, dwell_l2_s=dwell_s)
+        time.sleep(0.05)  # the worker acks the CONTROL frame
+        n0 = len(fleet.latencies_s())
+        t0 = time.perf_counter()
+        fr2 = fleet.submit(col2, priority=1)
+        tracked.append((col2, fr2))
+        killed_mid_read = _wait_for(lambda: os.path.exists(flag), 30.0, 0.002)
+        if killed_mid_read:
+            fleet.kill_worker(victim2, signal.SIGKILL)
+        require(fleet.drain(timeout_s=120.0),
+                "the mid-L2-read kill did not drain")
+        lats = fleet.latencies_s()[n0:]
+        windows["mid_l2_kill"] = {
+            "requests": 1, "wall_s": time.perf_counter() - t0,
+            "p50_ms": _quantile_ms(lats, 0.5),
+            "p99_ms": _quantile_ms(lats, 0.99),
+            "requests_per_s": 1 / (time.perf_counter() - t0),
+            "paths": {str(fr2.result.path if fr2.result else None): 1}}
+        log(f"procfleet mid_l2_kill: {windows['mid_l2_kill']}")
+        feed = CachedColumnFeed(spill)
+        row_ref = feed.lookup(col2)
+        res2 = fr2.result
+        mid_l2_kill = {
+            "killed_mid_read": bool(killed_mid_read),
+            "row_bit_identical": bool(
+                res2 is not None and res2.ok and row_ref is not None
+                and np.asarray(res2.data).tobytes()
+                == np.asarray(row_ref).tobytes()),
+            "dwell_s": dwell_s, "victim": victim2,
+            "served_by_path": None if res2 is None else res2.path}
+        require(_wait_for(lambda: fleet.counts["blackbox_exhumed"] >= 2,
+                          15.0), "the second victim's black box was not "
+                "exhumed")
+        final_pm = recorder.post_mortem(
+            "WorkerSIGKILLedMidL2Read",
+            reason=f"worker {victim2} killed -9 inside an L2 read")
+        fleet.drain(timeout_s=60.0)
+        wall = time.perf_counter() - t_fleet
+        stats = fleet.stats(wall_s=wall)
+        lost = fleet.lost_requests()
+        fleet_telemetry = tower.fleet_telemetry()
+        alerts = tower.alerts_block()
+        time.sleep(0.6)  # one more trace publication from each worker
+        merged = fleet.merged_trace()
+        mark("mid-L2-read kill served")
+    finally:
+        if fleet is not None:
+            fleet.stop(drain=True)
+        if decoy is not None and decoy.poll() is None:
+            decoy.kill()
+            decoy.wait(timeout=5.0)
+        shutil.rmtree(run_root, ignore_errors=True)
+        if not was_tracing:
+            trace.disable()
+            trace.reset()
+        if not was_recording:
+            recorder.disable()
+    out["fleet_wall_s"] = wall
+    gone = [fleet.worker(r).proc is None or fleet.worker(r).proc.poll()
+            is not None for r in range(n_workers)]
+    require(all(gone), f"worker processes left after stop(): {gone}")
+    require(not os.path.exists(fleet.run_dir),
+            "the fleet's run dir is left after stop()")
+
+    # -- the audit: every served row against its path's reference ---------
+    t0 = time.perf_counter()
+    fwd_ref = st.SwiftlyForward(cfg, pf._worker_facet_tasks(cfg, spec),
+                                lru_forward=2, queue_size=64)
+    computed_ref = {}
+    checked = mismatches = cross = 0
+    max_rel = 0.0
+    paths = collections.Counter()
+    for sg, fr in tracked:
+        res = fr.result
+        require(res is not None and res.ok,
+                f"request {sg.off0, sg.off1} ended {res}")
+        got = np.asarray(res.data)
+        rec = np.asarray(feed.lookup(sg))
+        paths[res.path] += 1
+        if res.path == "cache":
+            want = rec
+        else:
+            key = (sg.off0, sg.off1)
+            if key not in computed_ref:
+                computed_ref[key] = fwd_ref.get_subgrid_task(sg).cpu().numpy()
+            want = computed_ref[key]
+        checked += 1
+        if got.dtype != want.dtype or got.tobytes() != want.tobytes():
+            mismatches += 1
+        rel = _rel_l2(got, rec)
+        max_rel = max(max_rel, rel)
+        if rel >= PROCFLEET_REL_L2:
+            cross += 1
+    del fwd_ref
+    gc_collect(torch)
+    out["audit_s"] = time.perf_counter() - t0
+    out["paths"] = dict(paths)
+    out["audit"] = {"checked": checked, "mismatches": mismatches,
+                    "beyond_rel_l2": cross, "max_rel_l2": max_rel,
+                    "computed_distinct": len(computed_ref)}
+    log(f"procfleet audit: {out['audit']}, paths {out['paths']}")
+
+    # -- the drill's record ----------------------------------------------
+    victim_cycle = [t["to"] for t in stats["breakers"][victim]["transitions"]]
+    revoked = sorted({t["owner"] for t in stats["health"]["transitions"]
+                      if t["to"] == "revoked"})
+    meta = (merged or {}).get("otherData") or {}
+    router_pid = os.getpid()
+    cross_requests = sum(
+        1 for ev in (merged or {}).get("traceEvents") or []
+        if isinstance(ev, dict) and ev.get("ph") == "X"
+        and (ev.get("args") or {}).get("xpid") == router_pid)
+    worker_pids = sorted({off["pid"] for r in range(n_workers)
+                          for off in fleet.worker(r).clock_offsets.values()})
+
+    def victim_event(pm, rid, name):
+        return any(isinstance(e, dict) and e.get("name") == name
+                   and f"[worker-{rid} " in str(e.get("detail", ""))
+                   for e in ((pm or {}).get("events") or []))
+
+    totals = fleet_telemetry.get("totals", {}).get("counters", {})
+    worker_launches = {k: totals.get(f"kernel.{k}.launches", 0)
+                       for k in ("cmatmul", "colpass", "fold", "degrid",
+                                 "grid")}
+    worker_shapes = {k: v for k, v in totals.items()
+                     if k.startswith("kernel.") and ".shape." in k}
+    counts_workers = {k: (n, {}) for k, n in worker_launches.items()}
+    for key, n in worker_shapes.items():
+        name, dims = key[len("kernel."):].split(".shape.")
+        counts_workers[name][1][tuple(int(d) for d in dims.split("x"))] = n
+    record = {
+        "metric": (f"{config_name} process-fleet SIGKILL drill "
+                   f"({len(tracked)} zipf requests, {n_workers} worker "
+                   f"processes, kill+restart+mid-L2-read kill, planar f32, "
+                   f"{device})"),
+        "value": wall,
+        "unit": "s",
+        "throughput_rps": stats["served"] / wall if wall else 0.0,
+        "p50_ms": stats["p50_ms"],
+        "p99_ms": stats["p99_ms"],
+        "n_requests": stats["requests"],
+        "n_served": stats["served"],
+        "n_shed": stats["shed"],
+        "bit_identical": {"checked": checked, "mismatches": mismatches,
+                          "cross_program_mismatches": cross},
+        "procfleet": {
+            "n_workers": n_workers, "victim": victim,
+            "victim_pid": victim_pid,
+            "worker_deaths": stats["worker_deaths"],
+            "restarts": stats["restarts"],
+            "failovers": stats["failovers"],
+            "reroutes": stats["reroutes"],
+            "lost_requests": lost,
+            "failover_ms": stats["failover_ms"],
+            "failover_episodes": stats["failover_episodes"],
+            "breaker_cycle": victim_cycle,
+            "health_transitions": stats["health"]["transitions"],
+            "per_worker": stats["per_worker"],
+            "orphans": orphans,
+            "mid_l2_kill": mid_l2_kill,
+            "wire": {"heartbeats": stats["heartbeats"]},
+            "telemetry": stats["telemetry"],
+            "clock_offsets": stats["clock_offsets"],
+            "trace_merge": {
+                "n_processes": meta.get("n_processes"),
+                "pids": meta.get("pids"),
+                "n_spans": meta.get("n_spans"),
+                "cross_process_requests": cross_requests},
+            "black_box": {
+                **stats["black_box"],
+                "victim_events_in_post_mortem": bool(
+                    victim_event(final_pm, victim2, "proc.l2_dwell")
+                    or victim_event(kill_pm, victim, "proc.request"))},
+        },
+        "fleet_telemetry": fleet_telemetry,
+        "alerts": alerts,
+        "manifest": run_manifest(
+            params={"config": config_name, "mode": "procfleet", **params}),
+    }
+    problems = validate_procfleet_artifact(record)
+    problems += validate_fleet_telemetry_artifact(record)
+    out.update({
+        "windows": windows,
+        "failover_ms": stats["failover_ms"],
+        "lost_requests": lost,
+        "worker_deaths": stats["worker_deaths"],
+        "restarts": stats["restarts"],
+        "failovers": stats["failovers"],
+        "breaker_cycle": victim_cycle,
+        "revoked_workers": revoked,
+        "victims": [victim, victim2],
+        "mid_l2_kill": mid_l2_kill,
+        "l2_rows_read": totals.get("proc.l2_rows_read", 0),
+        "worker_launches": worker_launches,
+        "worker_launches_by_shape": worker_shapes,
+        "counts_workers": counts_workers,
+        "restart_boot_s": {str(r): fleet.worker(r).boot_s.get(2)
+                           for r in (victim, victim2)},
+        "worker_device_peak_gib": {
+            str(row["id"]): (None if not row.get("last_stats") or
+                             row["last_stats"].get("device_peak_bytes")
+                             is None
+                             else row["last_stats"]["device_peak_bytes"]
+                             / 2**30)
+            for row in stats["per_worker"]},
+        "heartbeats": stats["heartbeats"],
+        "telemetry_coverage": stats["telemetry"]["coverage"],
+        "retired_generations": stats["telemetry"]["retired_generations"],
+        "trace_pids": meta.get("pids"),
+        "worker_pids": worker_pids,
+        "cross_process_requests": cross_requests,
+        "artifact_problems": problems,
+        "wall_s": time.perf_counter() - t_phase,
+    })
+    log(f"procfleet: failover {stats['failover_ms']} ms, lost {lost}, "
+        f"breaker {victim_cycle}, revoked {revoked}, L2 rows read "
+        f"{out['l2_rows_read']}, worker launches {worker_launches}, "
+        f"restart boots {out['restart_boot_s']}, worker device peaks "
+        f"{out['worker_device_peak_gib']} GiB, phase wall "
+        f"{out['wall_s']:.1f} s")
+
+    # -- the gates ------------------------------------------------------
+    require(lost == 0, f"{lost} request(s) lost")
+    require(mismatches == 0, f"bit-identity audit: {mismatches} of "
+            f"{checked} served rows differ from their path's reference")
+    require(cross == 0, f"{cross} served row(s) beyond {PROCFLEET_REL_L2} "
+            f"relative L2 of the recording (max {max_rel:.3e})")
+    require(paths.get("cache", 0) > 0 and sum(
+        n for p, n in paths.items() if p != "cache") > 0,
+        f"the drill did not serve both paths: {dict(paths)}")
+    require({"open", "half_open", "closed"} <= set(victim_cycle),
+            f"the victim's breaker cycle {victim_cycle}")
+    require(mid_l2_kill["killed_mid_read"]
+            and mid_l2_kill["row_bit_identical"],
+            f"the mid-L2-read kill: {mid_l2_kill}")
+    require(set(revoked) <= {victim, victim2},
+            f"workers other than the victims were revoked: {revoked}")
+    require(set(worker_pids) | {router_pid} <= set(meta.get("pids") or []),
+            f"the merged trace's pids {meta.get('pids')} miss the router "
+            f"{router_pid} or a worker of {worker_pids}")
+    require(not problems, f"the drill's record: {problems}")
+    if cuda:
+        require(worker_launches["cmatmul"] > 0,
+                f"B3 was not launched in the workers: {worker_launches}")
+    return out
+
+
+def _procfleet_line(res):
+    """Phase 15's JSON record, without the per-shape launch counts."""
+    return {k: v for k, v in res.items() if not k.startswith("counts")}
+
+
 def _facet_rms(torch, got, ref):
     """RMS of a planar [..., 2] device tensor against a real one, in
     float64."""
@@ -5015,6 +5647,8 @@ def _args():
                    help="phase 2, then phase 6's round trip (warm and timed, "
                    "unprofiled) and phase 13 (the plan compiler and its "
                    "calibration loop)")
+    p.add_argument("--procfleet", action="store_true",
+                   help="phase 2 and phase 15 (the process fleet) alone")
     p.add_argument("--delta", action="store_true",
                    help="phase 2, then phase 14 (incremental facet updates "
                    "and the serving fleet) alone")
@@ -5144,6 +5778,19 @@ def main():
         done("plan")
         log(json.dumps({"plan_32k": _plan_line(res)}))
         return 0
+    if args.procfleet:
+        res = procfleet_main(torch)
+        done("procfleet")
+        line = _procfleet_line(res)
+        line["kernels"] = {
+            "recording": _time_streamed_kernels(
+                torch, {"counts": res["counts_record"]}),
+            "workers": _time_streamed_kernels(
+                torch, {"counts": res["counts_workers"]})}
+        done("timing")
+        log(smi)
+        log(json.dumps({"procfleet_32k": line}))
+        return 0
     if args.delta:
         res = delta_main(torch)
         done("delta")
@@ -5181,6 +5828,7 @@ def main():
     done("kernels")
     roundtrip_small(torch)
     roundtrip_streamed_small(torch)
+    native = roundtrip_native_small(torch)
     done("small")
     fused = roundtrip_main(torch)
     done("fused")
@@ -5195,6 +5843,9 @@ def main():
     gc_collect(torch)
     delta = delta_main(torch)
     done("delta")
+    gc_collect(torch)
+    procfleet = procfleet_main(torch)
+    done("procfleet")
     gc_collect(torch)
     slabs = slabs_main(torch)
     done("slabs")
@@ -5224,7 +5875,9 @@ def main():
                "residency_bodies": residency["bodies"], "spill": spill,
                "resume": resume, "plan": plan13,
                "delta": {"counts": delta["counts_delta"]},
-               "fleet": {"counts": delta["counts_fleet"]}}
+               "fleet": {"counts": delta["counts_fleet"]},
+               "procfleet": {"counts": procfleet["counts_record"]},
+               "procfleet_workers": {"counts": procfleet["counts_workers"]}}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -5260,6 +5913,8 @@ def main():
     log(json.dumps({"streamed_128k": _big_line(big)}))
     log(json.dumps({"plan_32k": _plan_line(plan13)}))
     log(json.dumps({"delta_32k": _delta_line(delta)}))
+    log(json.dumps({"procfleet_32k": _procfleet_line(procfleet)}))
+    log(json.dumps({"native_1k": native}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",
         "submitted_samples", "serve_s", "samples_per_s", "p50_ms",

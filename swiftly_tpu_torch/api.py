@@ -495,9 +495,10 @@ class SwiftlyForward:
         `get_subgrid_task`, with far fewer launches. Returns the subgrids
         in input order.
         """
-        if self.core.backend == "numpy":
-            _record_dispatch_path("per-subgrid-loop",
-                                  "the numpy backend has no batched path")
+        if self.core.backend in ("numpy", "native"):
+            _record_dispatch_path(
+                "per-subgrid-loop",
+                f"the {self.core.backend} backend has no batched path")
             return [self.get_subgrid_task(sg) for sg in subgrid_configs]
         _record_dispatch_path("batched-column")
         groups = {}  # (off0, size) -> list of input indices
@@ -542,7 +543,7 @@ class SwiftlyForward:
             key=lambda item: item[1],
             require_one_size=True,
         )
-        if self.core.backend == "numpy":
+        if self.core.backend in ("numpy", "native"):
             tasks = self.get_subgrid_tasks(subgrid_configs)
             return np.stack([np.asarray(t) for t in tasks])
         size = subgrid_configs[0].size
@@ -616,7 +617,7 @@ class SwiftlyBackward:
 
     def _zeros(self, shape):
         core = self.core
-        if core.backend == "numpy":
+        if core.backend in ("numpy", "native"):
             return np.zeros(shape, dtype=complex)
         if core.backend == "planar":
             shape = shape + (2,)
@@ -646,7 +647,7 @@ class SwiftlyBackward:
         per column. Equivalent to mapping `add_new_subgrid_task`."""
         if self._finished:
             raise RuntimeError("finish() was already called")
-        if self.core.backend == "numpy":
+        if self.core.backend in ("numpy", "native"):
             for sg_config, data in tasks:
                 self.add_new_subgrid_task(sg_config, data)
             return
@@ -721,7 +722,7 @@ def backward_all(swiftly_config, facet_configs, subgrid_tasks):
         subgrid_tasks, key=lambda item: item[0]
     )
     sizes = {sg.size for sg, _ in subgrid_tasks}
-    if len(sizes) != 1 or core.backend == "numpy":
+    if len(sizes) != 1 or core.backend in ("numpy", "native"):
         bwd = SwiftlyBackward(swiftly_config, facet_configs)
         bwd.add_new_subgrid_tasks(subgrid_tasks)
         return bwd.finish()

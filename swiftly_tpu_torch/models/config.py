@@ -76,8 +76,8 @@ class SwiftlyConfig:
     :param xA_size: maximum (true) subgrid size
     :param xM_size: padded subgrid size (divides N)
     :param backend: numerical backend — "torch" (complex tensors),
-        "planar" (real pairs, matmul DFTs through the B3 kernel), or
-        "numpy" (host reference)
+        "planar" (real pairs, matmul DFTs through the B3 kernel),
+        "numpy" (host reference) or "native" (compiled C++ host kernels)
     :param dtype: forwarded to the core
     :param device: torch device of the tensor backends; None means the
         GPU, and raises on a host without CUDA

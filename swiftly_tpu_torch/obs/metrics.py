@@ -60,6 +60,7 @@ __all__ = [
     "event",
     "export",
     "reset",
+    "snapshot",
 ]
 
 _P99_RING = 8192  # per-stage sample capacity (see module docstring)
@@ -505,6 +506,20 @@ class MetricsRegistry:
                 out["jsonl_path"] = self._jsonl_path
             return out
 
+    def snapshot(self):
+        """Counters and each stage's count and total wall, without
+        reading a stage's CUDA events: never waits for the device (a
+        process fleet's worker ships this on its heartbeat cadence)."""
+        with self._lock:
+            return {
+                "counters": dict(self.counters),
+                "stages": {
+                    name: {"count": st.count,
+                           "total_s": round(st.total_s, 6)}
+                    for name, st in self.stages.items()
+                },
+            }
+
 
 # ---------------------------------------------------------------------------
 # The process-wide registry + module-level conveniences (the engine's
@@ -568,3 +583,7 @@ def event(kind, **fields):
 
 def export():
     return _REGISTRY.export()
+
+
+def snapshot():
+    return _REGISTRY.snapshot()

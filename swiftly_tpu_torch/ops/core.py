@@ -217,13 +217,16 @@ class SwiftlyCore:
       the JAX package's ``"jax"``); dtype complex64 (default) or complex128;
     * ``backend="planar"`` — complex data as (..., 2) real pairs, FFTs as
       matmuls through the B3 kernel; dtype float32 (default) or float64;
-    * ``backend="numpy"`` — eager float64 host reference.
+    * ``backend="numpy"`` — eager float64 host reference;
+    * ``backend="native"`` — compiled C++ host kernels (`native`),
+      complex128 numpy on the host with accumulate semantics, as the
+      JAX package's ``"native"``; raises where ``g++`` cannot build it.
 
     :param W: PSWF grid-space support parameter
     :param N: total (virtual) image size
     :param xM_size: padded subgrid size
     :param yN_size: padded facet size
-    :param backend: "torch", "planar" or "numpy"
+    :param backend: "torch", "planar", "numpy" or "native"
     :param dtype: torch or numpy dtype of the device data
     :param device: torch device of the tensor backends; None means the
         card, and raises where there is none
@@ -260,17 +263,16 @@ class SwiftlyCore:
         self.yN_size = yN_size
         self.xM_yN_size = xM_size * yN_size // N
         self.backend = backend
-        if backend == "numpy":
+        if backend in ("numpy", "native"):
             self._p = npk
             self.dtype = np.dtype(complex)
             self.device = None
             self._Fb, self._Fn = fb, fn
+            if backend == "native":
+                from ..native import NativeKernels
+
+                self._native = NativeKernels(N, xM_size, yN_size, fb, fn)
             return
-        if backend == "native":
-            raise NotImplementedError(
-                "backend='native' (compiled C++ host kernels) is not ported "
-                "yet: ROADMAP A14"
-            )
         if backend not in ("torch", "planar"):
             raise ValueError(f"Unknown SwiFTly backend: {backend}")
         self.device = resolve_device(device)
@@ -315,7 +317,7 @@ class SwiftlyCore:
     def _prep(self, a):
         """Any input (numpy or torch, complex or planar) in this core's
         layout, dtype and device."""
-        if self.backend == "numpy":
+        if self.backend in ("numpy", "native"):
             if isinstance(a, torch.Tensor):
                 a = a.detach().cpu().numpy()
             return np.asarray(a, dtype=complex)
@@ -365,6 +367,11 @@ class SwiftlyCore:
         Expensive (full-size iFFT); done once per facet and reused for
         every subgrid.
         """
+        if self.backend == "native":
+            return _apply_out(
+                self._native.prepare_facet(self._prep(facet), facet_off, axis),
+                out,
+            )
         return _apply_out(
             prepare_facet_math(self._p, self._Fb, self.yN_size,
                                self._prep(facet), facet_off, axis),
@@ -373,6 +380,12 @@ class SwiftlyCore:
 
     def extract_from_facet(self, prep_facet, subgrid_off, axis, out=None):
         """Extract a facet's compact contribution to one subgrid (per axis)."""
+        if self.backend == "native":
+            return _apply_out(
+                self._native.extract_from_facet(
+                    self._prep(prep_facet), subgrid_off, axis),
+                out,
+            )
         return _apply_out(
             extract_from_facet_math(self._p, self.xM_yN_size, self.N,
                                     self.yN_size, self._prep(prep_facet),
@@ -383,6 +396,11 @@ class SwiftlyCore:
     def add_to_subgrid(self, facet_contrib, facet_off, axis, out=None):
         """Turn a facet contribution into its padded-subgrid summand;
         with ``out`` given, adds onto it."""
+        if self.backend == "native":
+            # the native kernels accumulate into `out` in place themselves
+            return self._native.add_to_subgrid(
+                self._prep(facet_contrib), facet_off, axis, out=out
+            )
         return _apply_out(
             add_to_subgrid_math(self._p, self._Fn, self.xM_size, self.N,
                                 self._prep(facet_contrib), facet_off, axis),
@@ -394,6 +412,10 @@ class SwiftlyCore:
         """Finish a subgrid from summed contributions (all axes at once)."""
         data = self._prep(summed_contribs)
         offs = self._as_offsets(subgrid_off, self._p.ndim(data))
+        if self.backend == "native":
+            return _apply_out(
+                self._native.finish_subgrid(data, offs, subgrid_size), out
+            )
         return _apply_out(
             finish_subgrid_math(self._p, subgrid_size, data, offs), out
         )
@@ -404,10 +426,18 @@ class SwiftlyCore:
         """Embed + FFT a subgrid into image space (all axes at once)."""
         data = self._prep(subgrid)
         offs = self._as_offsets(subgrid_off, self._p.ndim(data))
+        if self.backend == "native":
+            return _apply_out(self._native.prepare_subgrid(data, offs), out)
         return _apply_out(prepare_subgrid_math(self._p, self.xM_size, data, offs), out)
 
     def extract_from_subgrid(self, prep_subgrid, facet_off, axis, out=None):
         """Extract a subgrid's windowed contribution to one facet (per axis)."""
+        if self.backend == "native":
+            return _apply_out(
+                self._native.extract_from_subgrid(
+                    self._prep(prep_subgrid), facet_off, axis),
+                out,
+            )
         return _apply_out(
             extract_from_subgrid_math(self._p, self._Fn, self.xM_yN_size,
                                       self.xM_size, self.N,
@@ -418,6 +448,10 @@ class SwiftlyCore:
     def add_to_facet(self, subgrid_contrib, subgrid_off, axis, out=None):
         """Turn a subgrid contribution into its padded-facet summand;
         with ``out`` given, adds onto it."""
+        if self.backend == "native":
+            return self._native.add_to_facet(
+                self._prep(subgrid_contrib), subgrid_off, axis, out=out
+            )
         return _apply_out(
             add_to_facet_math(self._p, self.yN_size, self.N,
                               self._prep(subgrid_contrib), subgrid_off, axis),
@@ -427,6 +461,12 @@ class SwiftlyCore:
 
     def finish_facet(self, summed, facet_off, facet_size, axis, out=None):
         """Finish a facet from summed subgrid contributions (per axis)."""
+        if self.backend == "native":
+            return _apply_out(
+                self._native.finish_facet(
+                    self._prep(summed), facet_off, facet_size, axis),
+                out,
+            )
         return _apply_out(
             finish_facet_math(self._p, self._Fb, facet_size,
                               self._prep(summed), facet_off, axis),

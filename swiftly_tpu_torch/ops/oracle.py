@@ -39,6 +39,7 @@ def make_facet_from_sources(
     facet = np.zeros(ndim * (facet_size,), dtype=complex)
     centre_of_facet = np.asarray(facet_offsets, dtype=int) - facet_size // 2
 
+    placed = set()
     for intensity, *coords in sources:
         if len(coords) != ndim:
             raise ValueError(
@@ -47,11 +48,13 @@ def make_facet_from_sources(
         rel = np.mod(np.asarray(coords, dtype=int) - centre_of_facet, image_size)
         if np.all((rel >= 0) & (rel < facet_size)):
             facet[tuple(rel)] += intensity
+            placed.add(tuple(int(r) for r in rel))
 
-    # the masks scale the pixels that hold a value, in the order and with
-    # the arithmetic of a whole-plane product (every other pixel is 0 and
-    # stays 0), without a pass over the plane per mask
-    hit = np.nonzero(facet)
+    # the masks scale the pixels a source was placed on, each with the
+    # arithmetic of a whole-plane product (every other pixel is 0 and
+    # stays 0), without a pass over the plane per mask or to find them
+    hit = (tuple(np.array(ax, dtype=np.intp) for ax in zip(*placed))
+           if placed else (np.zeros(0, dtype=np.intp),) * ndim)
     vals = facet[hit]
     for axis, mask in enumerate(facet_masks or []):
         if mask is not None:

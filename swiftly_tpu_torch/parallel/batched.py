@@ -59,7 +59,7 @@ __all__ = [
 
 def _is_host(core):
     """Host-eager backend: loop over the stack calling the core's methods."""
-    return core.backend == "numpy"
+    return core.backend in ("numpy", "native")
 
 
 def _index(core, values):

@@ -140,9 +140,11 @@ def is_oom(exc) -> bool:
 
 
 def backoff_delay(attempt, base_s=0.05, max_s=2.0, rng=None):
-    """Jittered exponential delay for retry number `attempt` (0-based)."""
+    """Jittered exponential delay for retry number `attempt` (0-based).
+    The exponent is capped (a float's ``2.0 ** attempt`` overflows past
+    1023: a connect loop under a long deadline gets that far)."""
     r = (rng or _rng).random()
-    return min(max_s, base_s * (2.0 ** attempt)) * (0.5 + 0.5 * r)
+    return min(max_s, base_s * (2.0 ** min(attempt, 63))) * (0.5 + 0.5 * r)
 
 
 def retry_transient(fn, site="", max_attempts=None, base_s=0.05,

@@ -16,10 +16,15 @@ The port of the JAX package's ``swiftly_tpu.serve``, in-process half:
   breakers, zero-loss failover, brownout and hedged sends; attach a
   `cache.SharedStreamTier` and they serve L1 views over one recorded
   stream;
-* `serve.autoscale.FleetAutoscaler` — queue-share-driven replica count.
-
-Not ported yet: the process fleet (``ProcessFleet``,
-``SharedSpillReader``, ``make_worker_spec``).
+* `serve.autoscale.FleetAutoscaler` — queue-share-driven replica count;
+* `serve.procfleet.ProcessFleet` — the same serving contract across
+  real process boundaries: each replica a spawned worker process (its
+  own CUDA context on the card, unless its spec asks for the CPU)
+  behind a front-door router, speaking `serve.ipc`'s versioned
+  length-prefixed frames, serving a recorded stream cross-process
+  through `SharedSpillReader` over `SpillCache.export_manifest`, and
+  restarting killed workers with capped backoff
+  (``chip_smoke.py --procfleet`` lands a real ``SIGKILL -9``).
 """
 
 from ..plan.model import projected_column_bytes, projected_request_bytes
@@ -27,6 +32,7 @@ from ..plan.model import projected_column_bytes, projected_request_bytes
 from .autoscale import FleetAutoscaler
 from .fleet import FleetRequest, Replica, ServeFleet
 from .health import LIVE, REVOKED, SUSPECT, HealthLease, HealthMonitor
+from .procfleet import ProcessFleet, SharedSpillReader, make_worker_spec
 from .queue import (
     STATUS_EXPIRED,
     STATUS_OK,
@@ -47,10 +53,12 @@ __all__ = [
     "HealthLease",
     "HealthMonitor",
     "LIVE",
+    "ProcessFleet",
     "Replica",
     "RequestResult",
     "REVOKED",
     "ServeFleet",
+    "SharedSpillReader",
     "SubgridRequest",
     "SubgridService",
     "SUSPECT",
@@ -59,6 +67,7 @@ __all__ = [
     "STATUS_QUARANTINED",
     "STATUS_SHED",
     "bucket_shape",
+    "make_worker_spec",
     "projected_column_bytes",
     "projected_request_bytes",
 ]

@@ -397,7 +397,7 @@ def _check_meta(meta, core, n_total, kind):
 def _place(core, arr):
     """A restored array in `core`'s form: numpy for the numpy backend, else
     a tensor on its device."""
-    if core.backend == "numpy":
+    if core.backend in ("numpy", "native"):
         return np.array(arr)
     return _to_device(arr, core.device)
 

@@ -37,7 +37,9 @@ a reader–writer gate drains in-flight row reads before the rewrite and
 bounces new ones with `StreamMidPatch` (a LookupError, the serving path's
 fall-back-to-compute signal) until the window closes.
 
-Not ported yet: ``export_manifest`` for process-fleet readers.
+``export_manifest`` forces every entry to its atomic on-disk form and
+describes the stream for a reader in another process
+(`serve.procfleet.SharedSpillReader`).
 """
 
 from __future__ import annotations
@@ -187,6 +189,7 @@ class SpillCache:
             "disk_reads": 0,
             "fills": 0,
             "patches": 0,
+            "exported_entries": 0,
         }
 
     # -- concurrency --------------------------------------------------------
@@ -478,6 +481,45 @@ class SpillCache:
         if self.policy is not None:
             out["policy"] = dict(self.policy)
         return out
+
+    def export_manifest(self):
+        """Describe this cache for a reader in ANOTHER process.
+
+        Forces every RAM-resident entry down to its atomic on-disk form
+        (`_disk_write`: tmp sibling + rename, so a reader can never map
+        a torn entry) and returns a picklable manifest —
+        ``{dir, entries, meta, stream_version}`` — that
+        `serve.procfleet.SharedSpillReader` turns back into a read-only
+        `get_row` surface over memory-mapped files. The entry files are
+        immutable once exported; liveness state (``patching`` /
+        ``complete`` / ``stream_version``) travels separately through
+        the fleet's stream-state file so the owning process can gate
+        cross-process readers exactly like in-process ones.
+        """
+        if not self.complete:
+            raise RuntimeError("export_manifest requires a complete cache")
+        if self.spill_dir is None:
+            raise RuntimeError(
+                "export_manifest requires a disk-backed cache (spill_dir)")
+        with self._lock:
+            if self.patching:
+                raise RuntimeError("export_manifest mid-patch")
+            for k, (kind, payload) in enumerate(self._entries):
+                if kind == "ram":
+                    path = self._disk_write(k, payload)
+                    self._entries[k] = ("disk", path)
+                    self.ram_bytes -= int(payload.nbytes)
+                    self.disk_bytes += int(payload.nbytes)
+                    self._bump("exported_entries")
+            entries = [payload for (_kind, payload) in self._entries]
+            meta = list(self._meta)
+        _metrics.count("spill.manifest_exports")
+        return {
+            "dir": self._own_dir,
+            "entries": entries,
+            "meta": meta,
+            "stream_version": int(self.stream_version),
+        }
 
     def _clear_entries(self):
         with self._lock:

@@ -2,7 +2,7 @@
 
 For each sub-package of ``swiftly_tpu`` (``obs``, ``resilience``,
 ``parallel``, ``utils``, ``plan``, ``serve``, ``vis``, ``models``,
-``ops``, ``delta``, ``cache``), every name in its ``__all__`` is exported by the port's
+``ops``, ``delta``, ``cache``, ``native``), every name in its ``__all__`` is exported by the port's
 counterpart in ``swiftly_tpu_torch``, or is listed below beside the
 ROADMAP step (section A) that will bring it. The JAX package's
 ``__all__`` is read by parsing its source with ``ast``: nothing of it is
@@ -29,13 +29,10 @@ PENDING = {
             "subgrids_from_columns_sharded",
         },
     },
-    "A12": {  # serving, the rest: the process fleet
-        "serve": {"ProcessFleet", "SharedSpillReader", "make_worker_spec"},
-    },
     "A15": {"utils": {"enable_compilation_cache"}},  # scripts, leftovers
 }
 SUBPACKAGES = ["obs", "resilience", "parallel", "utils", "plan", "serve",
-               "vis", "models", "ops", "delta", "cache"]
+               "vis", "models", "ops", "delta", "cache", "native"]
 
 
 def _reference_all(sub):
@@ -98,6 +95,16 @@ def test_this_slice_is_exported():
                  "collective_bytes_forward", "column_collective_bytes",
                  "device_memory_stats", "trace"):
         assert name in utils.__all__, name
+    # the process fleet (A12) and the native host backend (A14): the
+    # whole of the JAX package's serve and native surfaces
+    from swiftly_tpu_torch import native
+    from swiftly_tpu_torch.utils import SpillCache
+
+    assert set(_reference_all("serve")) <= set(serve.__all__)
+    for name in ("ProcessFleet", "SharedSpillReader", "make_worker_spec"):
+        assert name in serve.__all__ and hasattr(serve, name), name
+    assert set(_reference_all("native")) == set(native.__all__)
+    assert callable(SpillCache.export_manifest)
 
 
 def test_incremental_and_serving_slice_is_exported():

@@ -138,5 +138,8 @@ def test_mesh_is_not_ported_yet():
     p = jm.SWIFT_CONFIGS["1k[1]-n512-256"]
     with pytest.raises(NotImplementedError, match="A8"):
         tm.SwiftlyConfig(backend="torch", device="cpu", mesh=object(), **p)
-    with pytest.raises(NotImplementedError, match="A14"):
-        tm.SwiftlyConfig(backend="native", device="cpu", **p)
+    # the native host backend (A14) is ported: a host core, no device
+    cfg = tm.SwiftlyConfig(backend="native", device="cpu", **p)
+    assert cfg.core.backend == "native" and cfg.core.device is None
+    with pytest.raises(NotImplementedError, match="A8"):
+        tm.SwiftlyConfig(backend="native", mesh=object(), **p)
