@@ -49,9 +49,10 @@ this checkout, and holds each kernel against its plain PyTorch version:
    "device")`` fed by ``feed_backward_passes`` into a
    ``StreamedBackward(residency="sampled")`` and ``finish_device``, at
    ``32k[1]-n16k-512``, planar float32, from real facet planes on the
-   host; a warm run and a timed run, checked against the oracle on
-   sampled subgrids and on all facets, the two runs' facets bit-identical;
-   then one more round trip under torch.profiler, its device-busy time
+   host; a warm run and two timed runs (the card's SM clock, power draw
+   and temperature read after each), checked against the oracle on
+   sampled subgrids and on all facets, the three runs' facets
+   bit-identical; then one more round trip under torch.profiler, its device-busy time
    against its own synchronised window; then the slab paths at 32k: the
    forward with ``facet_group`` forced to 1 and 3, from dense real planes
    on the host (the pinned staging ring) and from sparse facets
@@ -100,9 +101,11 @@ this checkout, and holds each kernel against its plain PyTorch version:
    a ``StreamedBackward(residency="sampled", fold_group=4)`` over one
    2048-row slab that holds a source pixel, then ``finish_device``; one
    run synchronised at both ends, gated on the oracle RMS of >= 2% of the
-   subgrids from every column and on the slab's rows of all 9 facets
-   against ``synth_facet_device``, the forward under an ``obs.Heartbeat``
-   (progress and ETA every 30 s, gated on counting every subgrid); its
+   subgrids from every column (the direct-DFT oracle evaluated on the
+   card in float64, ``_subgrid_rms_device``) and on the slab's rows of
+   all 9 facets against ``synth_facet_device``, the forward under an
+   ``obs.Heartbeat`` (progress and ETA every 30 s, gated on counting
+   every subgrid); its
    plan, seconds, peak memory beside the slab sizer's model, and
    launches; then its first column group again under torch.profiler for
    the device's busy share and the time by stage;
@@ -160,10 +163,10 @@ this checkout, and holds each kernel against its plain PyTorch version:
    ``StreamedBackward(residency="sampled", fold_group=4)``, once
    unobserved (the new grouping's warm-up, its wall printed), then (a)
    with ``obs.metrics``, ``obs.trace`` and ``obs.recorder`` on, gated on
-   phase 6's facet SHA-256, a wall within 5% of phase 6's timed run, the
-   stage vocabulary with FLOPs and the export's MFU against
-   ``utils.peak_tflops``, a Chrome trace whose spans nest, and the HBM
-   gauge equal to ``torch.cuda.max_memory_allocated``; (b) with
+   phase 6's facet SHA-256, a wall within 5% of the lesser of phase 6's
+   two timed runs, the stage vocabulary with FLOPs and the export's MFU
+   against ``utils.peak_tflops``, a Chrome trace whose spans nest, and
+   the HBM gauge equal to ``torch.cuda.max_memory_allocated``; (b) with
    ``SWIFTLY_CKPT_KEEP=1``, an autosave after group 3 (30 columns, 2 of
    them pending a fold) and a ``FaultPlan`` killing the 4th ``bwd.feed``
    (``WorkerKilled``), then a fresh forward and backward restored from the
@@ -267,9 +270,44 @@ this checkout, and holds each kernel against its plain PyTorch version:
    B3 launched in the workers (their ``kernel.cmatmul.launches``), and
    no worker process nor run dir left after ``stop()``; it prints each
    window's p50, p99 and requests/s, ``failover_ms``, the L2 rows read,
-   the paths' mix, each worker's device peak and the phase's wall.
+   the paths' mix, each worker's device peak and the phase's wall;
+16. the facet mesh at ``32k[1]-n16k-512``, planar f32 (run after phase
+   15): ``make_facet_mesh(devices=[cuda:0] * 3)``, 3 virtual shards of
+   the one card (9 facets, 3 a shard, no padding), with metrics on: (a)
+   ``MeshStreamedForward`` (psum), recording its stream into a
+   ``SpillCache``, fed by ``feed_backward_passes`` into a
+   ``MeshStreamedBackward(fold_group=4)`` and a single-device
+   ``StreamedBackward`` together, then ``finish_device``; gated on the
+   mesh's facets bit-equal to the single-device backward's, shard by
+   shard, the oracle facet RMS, every 16th row of phase 6's facets
+   within ``MESH_FACET_REL`` (5e-5 of the largest value, the f32 bound
+   of ``tests/test_mesh_engine.py``'s 1k drill), the sizers' model
+   within ``SIZER_BAND`` of the measured peak, B1 (forward and adjoint)
+   and B2 launched at the shards' facet count and B3 launched, and one
+   ``mesh.psum`` a column moving ``collective_bytes_forward``'s bytes;
+   (b) at ``4k[1]-n2k-512`` over the same 3 virtual shards (moved from
+   32k to keep the whole script inside its time limit), the forward with
+   no backward under the psum and then under
+   ``SWIFTLY_MESH_COLLECTIVE=ring``, each of the ring's column groups
+   within ``MESH_GROUP_REL`` (1e-5 of its largest value) of the psum's,
+   one ``mesh.psum`` and one ``mesh.ring_step`` a column, the psum
+   moving the model's bytes; the stages' calls, host and device seconds
+   and bytes (at 32k and at 4k) printed beside the model; (c) the
+   elastic drill at ``4k[1]-n2k-512`` over 3 virtual shards
+   (``MESH_DRILL_CONFIG``: at 32k an autosave costs ~19 s): the
+   stream recorded, an undisturbed cache-fed pass, a cache-fed pass
+   under ``run_elastic_pass`` that loses a shard at the second group
+   (``mesh.shard_loss``), recovered onto 2 survivors (9 facets padded to
+   10) with the autosave migrated, gated bit-equal to the undisturbed
+   pass; then a recording pass under the ring with one
+   ``mesh.ring_step`` delayed 1.5 s past a 0.5 s
+   ``SWIFTLY_COLLECTIVE_TIMEOUT_S``, gated on the watchdog's
+   ``CollectiveStalledError``, the re-plan onto the survivors and the
+   facets within ``MESH_FACET_REL`` of the undisturbed pass. It prints
+   one ``mesh_32k`` line: walls, peaks, errors, the mesh facets' device
+   digests, the collectives, the recovery reports and the launches.
 
-At phases 6, 10 (b), 11 (a) and 9 the streamed forward's sizer model
+At phases 6, 10 (b), 11 (a), 16 (a) and 9 the streamed forward's sizer model
 (``parallel.streamed.stream_peak_bytes`` beside the backwards'
 ``device_bytes``) is printed beside the measured device peak
 (``torch.cuda.max_memory_allocated``) and gated to lie within 1.0 and
@@ -280,7 +318,8 @@ and read just after it. Every phase that fails ends the run with a non-zero exit
 code. The last lines are the ``residency_32k`` JSON record of phase
 10, the ``spill_32k`` record of phase 11, the ``resume_32k`` record of
 phase 12, the ``plan_32k`` record of phase 13, the ``delta_32k`` record
-of phase 14, the ``procfleet_32k`` record of phase 15, the ``native_1k``
+of phase 14, the ``procfleet_32k`` record of phase 15, the ``mesh_32k``
+record of phase 16, the ``native_1k``
 record of phase 4 (b), the ``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
@@ -291,8 +330,9 @@ run (a)), phase 12's (``resume``, its observed run (a)) and phase 13's
 (``plan``, its calibrated run (c)), phase 14's (``delta``, (a) to (c)
 and the exact update; ``fleet``, (d) and (e)) and phase 15's
 (``procfleet``, the parent's recording; ``procfleet_workers``, the
-workers' launches, summed from their telemetry) too, with the times at
-that path's shapes) and
+workers' launches, summed from their telemetry) and phase 16's
+(``mesh``, its part (a): the mesh's shards and the single-device twin)
+too, with the times at that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
 
@@ -320,7 +360,9 @@ JSON line; ``--delta`` runs phase 2 and phase 14 alone, and prints one
 ``delta_32k`` JSON line (with B1, B2 and B3 timed at the delta path's
 shapes); ``--procfleet`` runs phase 2 and phase 15 alone, and prints one
 ``procfleet_32k`` JSON line (with B1 and B3 timed at the recording's and
-the workers' shapes).
+the workers' shapes); ``--mesh`` runs phase 2, phase 6's warm and timed
+round trips (unprofiled) and phase 16, and prints one ``mesh_32k`` JSON
+line (with B1, B2 and B3 timed at phase 16 (a)'s shapes).
 """
 
 from __future__ import annotations
@@ -908,21 +950,64 @@ def _sha(*tensors):
     return h.hexdigest()
 
 
-def _facet_digests(torch, facets, threads=4):
+def _facet_digests(torch, facets, threads=8, chunk_mb=256, n_buf=8):
     """The SHA-256 (hex) of each facet's host bytes (``facets[i]``, a
-    tensor on any device or a host array), four facets hashed at a time
-    on host threads (hashlib releases the GIL), without a bytes copy: the
-    digests of ``.cpu().numpy().tobytes()``."""
+    tensor on any device or a host array), without a bytes copy: the
+    digests of ``.cpu().numpy().tobytes()``. Host facets are hashed whole,
+    `threads` at a time (hashlib releases the GIL). Facets on the card
+    are copied in `chunk_mb` chunks through `n_buf` pinned buffers on a
+    side stream, and each chunk is hashed on a host thread while the next
+    ones copy; a facet's chunks update its hash in order."""
     import concurrent.futures
 
-    def one(i):
-        f = facets[i]
-        a = f.cpu().numpy() if isinstance(f, torch.Tensor) else f
-        return hashlib.sha256(
-            memoryview(np.ascontiguousarray(a)).cast("B")).hexdigest()
+    on_card = [isinstance(f, torch.Tensor) and f.is_cuda for f in facets]
+    if not any(on_card):
+        def one(i):
+            f = facets[i]
+            a = f.numpy() if isinstance(f, torch.Tensor) else f
+            return hashlib.sha256(
+                memoryview(np.ascontiguousarray(a)).cast("B")).hexdigest()
+
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            return list(pool.map(one, range(len(facets))))
+    require(all(on_card), "_facet_digests: facets on the card and the host")
+    step = chunk_mb << 20
+    bufs = [torch.empty(step, dtype=torch.uint8, pin_memory=True)
+            for _ in range(n_buf)]
+    stream = torch.cuda.Stream()
+    hashers = [hashlib.sha256() for _ in facets]
+    hashing = [None] * n_buf  # the hash of each buffer's last chunk
+    last = [None] * len(facets)  # each facet's last chunk's hash
+
+    def update(h, buf, m, ready, prev):
+        ready.synchronize()
+        if prev is not None:
+            prev.result()
+        h.update(memoryview(buf.numpy())[:m])
 
     with concurrent.futures.ThreadPoolExecutor(threads) as pool:
-        return list(pool.map(one, range(len(facets))))
+        k = 0
+        for i, f in enumerate(facets):
+            flat = f.contiguous().reshape(-1).view(torch.uint8)
+            # the copies wait for the facet's producer, and its memory is
+            # not reused before they end
+            stream.wait_stream(torch.cuda.current_stream())
+            flat.record_stream(stream)
+            for c0 in range(0, flat.numel(), step):
+                m = min(step, flat.numel() - c0)
+                if hashing[k] is not None:
+                    hashing[k].result()
+                with torch.cuda.stream(stream):
+                    bufs[k][:m].copy_(flat[c0:c0 + m], non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(stream)
+                hashing[k] = last[i] = pool.submit(
+                    update, hashers[i], bufs[k], m, ready, last[i])
+                k = (k + 1) % n_buf
+        for fut in last:
+            if fut is not None:
+                fut.result()
+    return [h.hexdigest() for h in hashers]
 
 
 def _report_digest(kernel, shape, seed, got, want):
@@ -1739,6 +1824,7 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
     reset_counts()
     facets, samples, t_fwd, t_bwd, plan, n_groups, digests = one_run()
     counts = read_counts()
+    card = [_card_state()]
     n_cols = n // S
     fwd_flops = (sampled_facet_pass_flops(core, F, yB, n_cols * m, True)
                  + n_cols * column_pass_flops(core, F, S, xA, plan["colpass"]))
@@ -1784,7 +1870,10 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
                max_facet_rms=max(f_rms), facet_rms_bound=FACET_RMS,
                bit_identical_to_warm_run=(None if warm_digests is None
                                           else digests == warm_digests),
-        facet_digests=digests)
+        facet_digests=digests,
+        # every MESH_ROW_STRIDE-th row of the facets, on the host, for
+        # phase 16's mesh to be held to
+        facet_rows=facets[:, ::MESH_ROW_STRIDE].cpu())
     log(f"{config_name} streamed accuracy: max subgrid RMS {max(sg_rms):.3e} "
         f"over {len(idxs)} samples (bound {SUBGRID_REL_RMS * scale:.3e}), "
         f"max facet RMS {max(f_rms):.3e} over {F} facets (bound "
@@ -1798,6 +1887,22 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
     require(max(f_rms) <= FACET_RMS, "streamed facet RMS over bound")
     require(warm_digests is None or digests == warm_digests,
             "the warm and timed runs' facets differ")
+    del facets
+    # a second timed run: the unobserved wall that phase 12 holds its
+    # observed run to is the lesser of the two, since a run disturbed from
+    # outside the process (the host's other work, the card's clocks) is
+    # only ever slower
+    again, feed_again, wall_again = round_trip()
+    card.append(_card_state())
+    again_digests = _facet_digests(torch, again)
+    del again, feed_again
+    out["roundtrip_runs_s"] = [t_fwd + t_bwd, wall_again]
+    out["reference_roundtrip_s"] = min(out["roundtrip_runs_s"])
+    out["card_state"] = card
+    log(f"{config_name} streamed: timed runs "
+        f"{t_fwd + t_bwd:.3f} s and {wall_again:.3f} s (card after each: "
+        f"{card}), facets bit-identical: {again_digests == digests}")
+    require(again_digests == digests, "the two timed runs' facets differ")
     if device == "cuda":
         missing = [k for k in ("cmatmul", "colpass", "fold")
                    if out["launches"][k] == 0]
@@ -2038,6 +2143,19 @@ def slabs_main(torch, config_name=MAIN_CONFIG, fold_group=4,
     log(f"{config_name} slabs: " + json.dumps(
         {k: v for k, v in out.items() if k != "forwards"}))
     return out
+
+
+def _card_state():
+    """The card's SM clock, power draw and temperature now, as nvidia-smi
+    prints them: read beside the timed windows, so that a slow one can be
+    told apart from a throttled card (None where nvidia-smi cannot
+    answer)."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (r.stdout.strip().splitlines() or [None])[0] if r.returncode == 0 \
+        else None
 
 
 def _reset_peak(torch):
@@ -2919,7 +3037,9 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
     # run, and its wall is printed beside it
     facets, plain_s = round_trip(*executors(), sgcs)
     if phase6 is None:
-        phase6 = {"facet_digests": digests(facets), "roundtrip_s": plain_s}
+        phase6 = {"facet_digests": digests(facets), "roundtrip_s": plain_s,
+                  "reference_roundtrip_s": plain_s}
+    ref_s = phase6["reference_roundtrip_s"]
     del facets
     gc_collect(torch)
 
@@ -2938,6 +3058,7 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
         _reset_peak(torch)
         reset_counts()
         facets, wall = round_trip(*executors(), sgcs)
+        card = _card_state() if cuda else None
         out["counts"] = read_counts()
         dig_a = digests(facets)
         del facets
@@ -2951,8 +3072,9 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
         trace.reset()
         stages = exp["stages"]
         a = {
-            "roundtrip_s": wall, "phase6_roundtrip_s": phase6["roundtrip_s"],
-            "wall_ratio": wall / phase6["roundtrip_s"],
+            "roundtrip_s": wall, "phase6_roundtrip_s": ref_s,
+            "phase6_runs_s": phase6.get("roundtrip_runs_s"),
+            "wall_ratio": wall / ref_s, "card_state": card,
             "unobserved_roundtrip_s": plain_s,
             "wall_ratio_to_unobserved": wall / plain_s,
             "bits_equal_phase6": dig_a == phase6["facet_digests"],
@@ -2970,8 +3092,9 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
         }
         out["a"] = a
         log(f"{config_name} resume (a): observed round trip {wall:.3f} s "
-            f"(phase 6 {phase6['roundtrip_s']:.3f} s, ratio "
-            f"{a['wall_ratio']:.4f}; unobserved at col_group {col_group} "
+            f"(phase 6 {ref_s:.3f} s, the lesser of "
+            f"{a['phase6_runs_s']}; ratio {a['wall_ratio']:.4f}; card after "
+            f"it {card}; unobserved at col_group {col_group} "
             f"{plain_s:.3f} s), {a['wall_tflops']:.2f} TFLOP/s over the "
             f"wall, bits equal phase 6: "
             f"{a['bits_equal_phase6']}, {n_spans} spans, HBM gauge "
@@ -2992,7 +3115,9 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
         if cuda:
             require(abs(a["wall_ratio"] - 1) <= RESUME_WALL_TOL,
                     f"resume (a): wall {wall:.3f} s against phase 6's "
-                    f"{phase6['roundtrip_s']:.3f} s")
+                    f"{ref_s:.3f} s (its timed runs "
+                    f"{a['phase6_runs_s']}, the card after each "
+                    f"{phase6.get('card_state')}, after this run {card})")
             require(a["peak_tflops"] and "mfu_pct" in exp["total"],
                     f"resume (a): no MFU ({exp['total']})")
             require(a["hbm_gauge_peak"] == peak_a,
@@ -4712,6 +4837,463 @@ def _procfleet_line(res):
     return {k: v for k, v in res.items() if not k.startswith("counts")}
 
 
+# -- phase 16: the facet mesh at 32k over virtual shards --------------------
+
+MESH_SHARDS = 3  # virtual shards on the one card: 9 facets, 3 a shard
+# the config of (b) and of the elastic drill: at 32k each autosave costs
+# ~19 s (phase 12), and (b) moved to it to keep the script in its limit
+MESH_DRILL_CONFIG = "4k[1]-n2k-512"
+MESH_DRILL_COL_GROUP = 3  # 10 columns: 4 groups, the loss in the second
+# facets of two f32 round trips whose facet sums run in another order,
+# relative to the largest value (tests/test_mesh_engine.py's 1k drill)
+MESH_FACET_REL = 5e-5
+# subgrids of the ring against the psum, relative to the group's largest
+# value: f32 sums of 3 partials in another order (the sum-reorder bound
+# of tests/test_pallas.py)
+MESH_GROUP_REL = 1e-5
+MESH_ROW_STRIDE = 16  # phase 6's facet rows kept on the host for phase 16
+MESH_STALL_TIMEOUT_S = 0.5  # the drill's collective watchdog
+MESH_STALL_DELAY_S = 1.5  # the latency injected into one mesh.ring_step
+
+
+def _stage_record(export, name):
+    """One stage of a metrics export: count, host wall, device time and
+    bytes (None where it did not run)."""
+    st = export["stages"].get(name)
+    if st is None:
+        return None
+    return {k: st.get(k) for k in ("count", "total_s", "device_s",
+                                   "device_count", "bytes")}
+
+
+def _mesh_drill(torch, config_name, device, fold_group, n_shards):
+    """Phase 16 (c): the elastic drill over `n_shards` virtual shards: the
+    stream recorded, an undisturbed cache-fed pass, a cache-fed pass under
+    `run_elastic_pass` that loses a shard mid-pass (recovered onto the
+    survivors with the autosave migrated; bit-equal to the undisturbed
+    pass), then a stalled ``mesh.ring_step`` under the collective watchdog
+    in a recording pass (re-planned onto the survivors; within
+    `MESH_FACET_REL` of the undisturbed pass)."""
+    import tempfile
+
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import mesh as smesh
+    from swiftly_tpu_torch.plan import PlanInputs
+    from swiftly_tpu_torch.resilience import FaultPlan, faults
+    from swiftly_tpu_torch.utils.spill import SpillCache
+
+    t0 = time.perf_counter()
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    tasks = [(fc, st.make_real_facet(N, fc, sources_for(N),
+                                     dtype=np.float32)) for fc in fcs]
+    mesh = smesh.make_facet_mesh(devices=[torch.device(device)] * n_shards)
+    inputs = PlanInputs.from_cover(cfg, fcs, sgcs, n_devices=n_shards)
+
+    def forward():
+        fwd = smesh.MeshStreamedForward(cfg, tasks, mesh=mesh)
+        fwd.col_group = MESH_DRILL_COL_GROUP
+        return fwd
+
+    def backward():
+        return smesh.MeshStreamedBackward(cfg, fcs, mesh=mesh,
+                                          fold_group=fold_group)
+
+    out = {"config": config_name, "shards": n_shards,
+           "col_group": MESH_DRILL_COL_GROUP}
+    with _env("SWIFTLY_MESH_COLLECTIVE", "psum"):
+        fwd = forward()
+        spill = SpillCache()
+        rec = backward()
+        st.feed_backward_passes(fwd, sgcs, [rec], spill=spill)
+        recorded = rec.finish_device().gather()
+        und = backward()
+        st.feed_backward_passes(fwd, sgcs, [und], spill=spill)
+        want = und.finish_device().gather()
+        require(torch.equal(want, recorded),
+                "mesh drill: the cache-fed pass's facets differ from the "
+                "recording pass's")
+        with tempfile.TemporaryDirectory(prefix="swiftly_mesh_") as tmp:
+            plan = FaultPlan(faults=[
+                {"site": "mesh.shard_loss", "kind": "shard_loss", "at": 1}])
+            t1 = time.perf_counter()
+            with faults.active(plan):
+                fwd2, bwd2, report = smesh.run_elastic_pass(
+                    fwd, backward(), sgcs, spill, f"{tmp}/elastic.npz",
+                    plan_inputs=inputs)
+            got = bwd2.finish_device().gather()
+            out["elastic_wall_s"] = time.perf_counter() - t1
+            out["elastic"] = report
+            out["elastic_bit_equal"] = bool(torch.equal(got, want))
+            out["survivor_padded_facets"] = int(bwd2.stack.n_total)
+            require(plan.stats()["total"] == 1,
+                    "mesh drill: the shard loss was not injected")
+            require(report["events"] == 1
+                    and report["shards_after"] == n_shards - 1
+                    and report["recoveries"][0]["migrated"],
+                    f"mesh drill: no recovery onto the survivors: {report}")
+            require(out["elastic_bit_equal"],
+                    "mesh drill: the recovered facets differ from the "
+                    "undisturbed pass's")
+            del got, bwd2, fwd2
+            with _env("SWIFTLY_MESH_COLLECTIVE", "ring"), _env(
+                    "SWIFTLY_COLLECTIVE_TIMEOUT_S", str(MESH_STALL_TIMEOUT_S)):
+                stall = FaultPlan(faults=[
+                    {"site": "mesh.ring_step", "kind": "latency", "at": 1,
+                     "delay_s": MESH_STALL_DELAY_S}])
+                t1 = time.perf_counter()
+                with faults.active(stall):
+                    _, bwd3, report3 = smesh.run_elastic_pass(
+                        forward(), backward(), sgcs, SpillCache(),
+                        f"{tmp}/stall.npz", plan_inputs=inputs)
+                got = bwd3.finish_device().gather()
+                out["stall_wall_s"] = time.perf_counter() - t1
+            out["stall"] = report3
+            scale = float(want.abs().max().item())
+            out["stall_rel"] = float((got - want).abs().max().item()) / scale
+            info = report3["recoveries"][0] if report3["recoveries"] else {}
+            require(stall.stats()["by_site"] == {"mesh.ring_step": 1},
+                    f"mesh drill: the stall was not injected: "
+                    f"{stall.stats()}")
+            require(info.get("detected_via") == "CollectiveStalledError"
+                    and report3["shards_after"] == n_shards - 1,
+                    f"mesh drill: the stalled ring did not re-plan onto the "
+                    f"survivors: {report3}")
+            require(out["stall_rel"] <= MESH_FACET_REL,
+                    f"mesh drill: the stalled run's facets are "
+                    f"{out['stall_rel']:.3e} from the undisturbed pass's")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"{config_name} mesh drill: shard loss recovered "
+        f"{n_shards} -> {n_shards - 1} in "
+        f"{report['recovery_wall_s']:.3f} s (pass {out['elastic_wall_s']:.2f}"
+        f" s), bit-equal; ring stall caught by the watchdog and re-planned "
+        f"({out['stall_wall_s']:.2f} s), {out['stall_rel']:.2e} from the "
+        f"undisturbed pass; drill {out['wall_s']:.1f} s")
+    return out
+
+
+def _log_collectives(config_name, rec):
+    """Print each collective stage of `rec` (``{stage: record,
+    "model_bytes": B}``) beside ``collective_bytes_forward``'s model."""
+    for name in ("psum", "ring_step"):
+        stage = rec.get(name)
+        if stage is not None:
+            log(f"{config_name} mesh: mesh.{name} {stage['count']} calls, "
+                f"host {stage['total_s']:.3f} s, device "
+                f"{stage.get('device_s') or 0:.3f} s, "
+                f"{stage['bytes'] / 1e9:.6f} GB (model "
+                f"{rec['model_bytes'] / 1e9:.6f} GB)")
+
+
+def _mesh_ring(torch, config_name, device, n_shards):
+    """Phase 16 (b): the forward at `config_name` over `n_shards` virtual
+    shards (no backward), once under the psum and once under the ring,
+    each of the ring's column groups held to the psum's within
+    `MESH_GROUP_REL`, both collectives' stages beside
+    ``collective_bytes_forward``'s model."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import mesh as smesh
+    from swiftly_tpu_torch.obs import metrics
+    from swiftly_tpu_torch.utils.profiling import collective_bytes_forward
+
+    cuda = device == "cuda"
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    n_cols = len({sg.off0 for sg in sgcs})
+    tasks = [(fc, st.make_real_facet(N, fc, sources_for(N),
+                                     dtype=np.float32)) for fc in fcs]
+    mesh = smesh.make_facet_mesh(devices=[torch.device(device)] * n_shards)
+    out = {"config": config_name, "col_group": MESH_DRILL_COL_GROUP}
+    groups = {}
+    metrics.reset()
+    metrics.enable()
+    try:
+        for coll in ("psum", "ring"):
+            with _env("SWIFTLY_MESH_COLLECTIVE", coll):
+                fwd = smesh.MeshStreamedForward(cfg, tasks, mesh=mesh)
+                fwd.col_group = MESH_DRILL_COL_GROUP
+                feed = _TimedFeed(torch, fwd, []) if cuda else fwd
+                groups[coll] = []
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _, group in feed.stream_column_groups(sgcs):
+                    groups[coll].append(group.clone())
+                if cuda:
+                    torch.cuda.synchronize()
+                out[coll] = {"wall_s": time.perf_counter() - t0,
+                             "forward_device_s": (feed.forward_s() if cuda
+                                                  else None)}
+                require(fwd.last_plan["collective"] == coll,
+                        f"mesh (b): ran {fwd.last_plan['collective']}, "
+                        f"not {coll}")
+                del fwd, feed
+        export = metrics.export()
+    finally:
+        metrics.disable()
+        metrics.reset()
+    require(len(groups["ring"]) == len(groups["psum"]),
+            f"mesh (b): {len(groups['ring'])} ring groups, "
+            f"{len(groups['psum'])} psum groups")
+    worst = max(float((r - p).abs().max().item())
+                / float(p.abs().max().item())
+                for r, p in zip(groups["ring"], groups["psum"]))
+    del groups
+    rec = {"psum": _stage_record(export, "mesh.psum"),
+           "ring_step": _stage_record(export, "mesh.ring_step"),
+           "model_bytes": len(sgcs) * collective_bytes_forward(
+               cfg.core.xM_size, n_shards, dtype=np.float32, planar=True)}
+    out.update(max_group_rel=worst, group_rel_bound=MESH_GROUP_REL,
+               collective=rec)
+    _log_collectives(config_name, rec)
+    log(f"{config_name} mesh (b): psum forward {out['psum']['wall_s']:.3f} "
+        f"s, ring forward {out['ring']['wall_s']:.3f} s, groups "
+        f"{worst:.3e} from the psum's (bound {MESH_GROUP_REL:.0e})")
+    require(rec["psum"]["count"] == n_cols
+            and rec["ring_step"]["count"] == n_cols,
+            f"mesh (b): {rec['psum']['count']} psums and "
+            f"{rec['ring_step']['count']} rings for {n_cols} columns")
+    require(rec["psum"]["bytes"] == rec["model_bytes"],
+            f"mesh (b): psum moved {rec['psum']['bytes']} B, model "
+            f"{rec['model_bytes']}")
+    require(worst <= MESH_GROUP_REL, "mesh (b): ring over tolerance")
+    return out
+
+
+def mesh_main(torch, phase6=None, config_name=MAIN_CONFIG, device="cuda",
+              fold_group=4, n_shards=MESH_SHARDS,
+              drill_config=MESH_DRILL_CONFIG):
+    """Phase 16: the facet mesh (module docstring): (a) the 32k round trip
+    over `n_shards` virtual shards of one card, psum, recorded, into a
+    mesh backward and a single-device twin; (b) the ring against the psum
+    and (c) the elastic drill, both at `drill_config`."""
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import mesh as smesh
+    from swiftly_tpu_torch.obs import metrics
+    from swiftly_tpu_torch.parallel import streamed as sm
+    from swiftly_tpu_torch.parallel.mesh import shard_bounds
+    from swiftly_tpu_torch.utils.profiling import collective_bytes_forward
+    from swiftly_tpu_torch.utils.spill import SpillCache
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    core = cfg.core
+    N = cfg.image_size
+    sources = sources_for(N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    F, xA = len(fcs), sgcs[0].size
+    n = len(sgcs)
+    S = n // len({sg.off0 for sg in sgcs})
+    n_cols = n // S
+    t0 = time.perf_counter()
+    facets_in = [st.make_real_facet(N, fc, sources, dtype=np.float32)
+                 for fc in fcs]
+    setup_s = time.perf_counter() - t0
+    tasks = list(zip(fcs, facets_in))
+    mesh = smesh.make_facet_mesh(devices=[torch.device(device)] * n_shards)
+    out = {"config": config_name, "shards": n_shards,
+           "devices": [str(d) for d in mesh.devices],
+           "facet_setup_s": setup_s}
+    log(f"{config_name} mesh: {F} facets over {n_shards} virtual shards of "
+        f"{mesh.distinct_devices[0]}; facets made in {setup_s:.1f} s")
+
+    # (a) the round trip over the mesh, psum: one forward, recorded, into
+    # the mesh backward and a single-device backward fed the same stream
+    gc_collect(torch)
+    metrics.reset()
+    metrics.enable()
+    try:
+        with _env("SWIFTLY_MESH_COLLECTIVE", "psum"):
+            before = _reset_peak(torch)
+            reset_counts()
+            mfwd = smesh.MeshStreamedForward(cfg, tasks, mesh=mesh)
+            mbwd = smesh.MeshStreamedBackward(cfg, fcs, mesh=mesh,
+                                              fold_group=fold_group)
+            sbwd = st.StreamedBackward(cfg, fcs, residency="sampled",
+                                       fold_group=fold_group)
+            resting, active = _consumers([mbwd, sbwd], S, xA)
+            mfwd.hbm_headroom = active
+            spill = SpillCache()
+            feed = _TimedFeed(torch, mfwd, []) if cuda else mfwd
+            sync()
+            t0 = time.perf_counter()
+            n_groups = st.feed_backward_passes(feed, sgcs, [mbwd, sbwd],
+                                               spill=spill)
+            mfacets = mbwd.finish_device()
+            sfacets = sbwd.finish_device()
+            sync()
+            wall_a = time.perf_counter() - t0
+            counts = read_counts()
+            peak = _peak(torch)
+            plan = dict(mfwd.last_plan)
+            model = sm.stream_peak_bytes(mfwd, n_cols, S, xA, resting,
+                                         active) + before
+        out["a"] = {
+            "wall_s": wall_a,
+            "forward_device_s": feed.forward_s() if cuda else None,
+            "col_group": plan["col_group"], "n_groups": n_groups,
+            "colpass": plan["colpass"], "collective": plan["collective"],
+            "launches": {k: v[0] for k, v in counts.items()},
+            "recorded_gb": (spill.stats()["ram_bytes"]
+                            + spill.stats()["disk_bytes"]) / 1e9,
+        }
+        if cuda:
+            out["a"]["peak_memory_gib"] = peak / 2**30
+            out["a"]["sizer"] = _sizer_record(f"{config_name} mesh",
+                                              model, peak)
+        # the mesh backward's facets, bit-equal to the twin's, shard by
+        # shard
+        equal = True
+        for k, (lo, hi) in enumerate(shard_bounds(mfwd.stack.n_total, mesh)):
+            hi = min(hi, F)
+            if hi > lo:
+                equal &= bool(torch.equal(mfacets.shards[k][:hi - lo],
+                                          sfacets[lo:hi]))
+        out["a"]["bit_equal_single_device"] = equal
+        del sfacets
+        f_rms, digests = [], []
+        for k, (lo, hi) in enumerate(shard_bounds(mfwd.stack.n_total, mesh)):
+            for j in range(lo, min(hi, F)):
+                got = mfacets.shards[k][j - lo]
+                ref = torch.as_tensor(facets_in[j], device=got.device)
+                f_rms.append(_facet_rms(torch, got, ref))
+                digests.append(_device_digest(torch, got))
+                del ref
+        out["a"].update(max_facet_rms=max(f_rms), facet_rms_bound=FACET_RMS,
+                        facet_digests=digests)
+        rows = None if phase6 is None else phase6.get("facet_rows")
+        if rows is not None:
+            mrows = torch.cat([t[:, ::MESH_ROW_STRIDE].cpu()
+                               for t in mfacets.shards])[:F]
+            scale = float(rows.abs().max())
+            out["a"]["phase6_rel"] = float(
+                (mrows - rows).abs().max()) / scale
+            out["a"]["phase6_rows_bit_equal"] = bool(torch.equal(mrows,
+                                                                 rows))
+            del mrows
+        del mfacets, mbwd, sbwd
+        log(f"{config_name} mesh (a): round trip over {n_shards} shards in "
+            f"{wall_a:.3f} s (forward {out['a']['forward_device_s'] or 0:.3f}"
+            f" s on the device, both backwards fed), G {plan['col_group']}, "
+            f"body {plan['colpass']}, facets bit-equal to the single-device "
+            f"backward's: {equal}, max facet RMS {max(f_rms):.3e}, against "
+            f"phase 6 {out['a'].get('phase6_rel', float('nan')):.3e}; "
+            f"launches {out['a']['launches']}")
+        require(equal, "mesh: the mesh backward's facets differ from the "
+                       "single-device backward's fed the same stream")
+        require(max(f_rms) <= FACET_RMS, "mesh: facet RMS over bound")
+        require(rows is None or out["a"]["phase6_rel"] <= MESH_FACET_REL,
+                f"mesh: facets {out['a'].get('phase6_rel')} from phase 6's, "
+                f"over {MESH_FACET_REL}")
+        if cuda:
+            keys = counts["colpass"][1]
+            fwd_b1 = sum(v for key, v in keys.items()
+                         if key[-1] and key[1] == F // n_shards)
+            bwd_b1 = sum(v for key, v in keys.items()
+                         if not key[-1] and key[1] == F // n_shards)
+            b2 = sum(v for key, v in counts["fold"][1].items()
+                     if key[0] == F // n_shards)
+            out["a"]["shard_launches"] = {"b1_forward": fwd_b1,
+                                          "b1_backward": bwd_b1, "b2": b2}
+            require(fwd_b1 > 0 and bwd_b1 > 0 and b2 > 0
+                    and counts["cmatmul"][0] > 0,
+                    f"mesh: B1/B2/B3 not launched at the shards' shapes: "
+                    f"{out['a']['shard_launches']}, B3 "
+                    f"{counts['cmatmul'][0]}")
+
+        psum_rec = _stage_record(metrics.export(), "mesh.psum")
+    finally:
+        metrics.disable()
+        metrics.reset()
+    spill.reset()
+    del spill, mfwd
+    gc_collect(torch)
+    model_bytes = n * collective_bytes_forward(core.xM_size, n_shards,
+                                               dtype=np.float32, planar=True)
+    out["collective"] = {"psum": psum_rec, "model_bytes": model_bytes}
+    _log_collectives(config_name, out["collective"])
+    require(psum_rec["count"] == n_cols,
+            f"mesh: {psum_rec['count']} psums for {n_cols} columns")
+    require(psum_rec["bytes"] == model_bytes,
+            f"mesh: psum moved {psum_rec['bytes']} B, model {model_bytes}")
+
+    # (b) the ring against the psum, at the drill's config
+    out["b"] = _mesh_ring(torch, drill_config, device, n_shards)
+
+    # (c) the elastic drill
+    out["drill"] = _mesh_drill(torch, drill_config, device, fold_group,
+                               n_shards)
+    out["counts"] = counts
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _mesh_line(res):
+    """Phase 16's JSON record, without the per-shape launch counts."""
+    return {k: v for k, v in res.items() if k != "counts"}
+
+
+def _subgrid_rms_device(torch, N, configs, approx, sources, chunk=64):
+    """``st.check_subgrid`` of each planar subgrid ``approx[i]`` [xA, xA,
+    2] against the direct-DFT source model of ``configs[i]``, on the
+    subgrids' device in float64, `chunk` subgrids at a time, in the
+    oracle's order of operations (``ops.oracle.make_subgrid_from_sources``:
+    per source the separable phases, then the masks): the list of RMS
+    errors. Phase 9 checks 1753 subgrids; on the host that took ~20 s."""
+    dev = approx[0].device
+    f64 = torch.float64
+    xA = approx[0].shape[0]
+    base = torch.arange(-(xA // 2), (xA + 1) // 2, dtype=f64, device=dev)
+    k = 2 * np.pi / N
+
+    def axis(offs, x):
+        # exp(2 pi i u x / N) as numpy forms it: ((2 pi / N) * u) * x
+        u = torch.as_tensor(offs, dtype=f64, device=dev)[:, None] + base
+        return torch.polar(torch.ones_like(u), (k * u) * x)
+
+    def masks(ms):
+        if all(m is None for m in ms):
+            return None
+        return torch.stack([torch.ones(xA, dtype=f64, device=dev)
+                            if m is None else torch.as_tensor(
+                                np.asarray(m), dtype=f64, device=dev)
+                            for m in ms])
+
+    out = []
+    for c0 in range(0, len(configs), chunk):
+        cfgs = configs[c0:c0 + chunk]
+        ref = torch.zeros((len(cfgs), xA, xA), dtype=torch.complex128,
+                          device=dev)
+        for intensity, x, y in sources:
+            p0 = axis([c.off0 for c in cfgs], x) * (intensity / N**2)
+            ref += p0[:, :, None] * axis([c.off1 for c in cfgs], y)[:, None]
+        m0 = masks([c.mask0 for c in cfgs])
+        m1 = masks([c.mask1 for c in cfgs])
+        if m0 is not None:
+            ref *= m0[:, :, None]
+        if m1 is not None:
+            ref *= m1[:, None, :]
+        got = torch.stack(list(approx[c0:c0 + chunk])).double()
+        d2 = (ref.real - got[..., 0]) ** 2 + (ref.imag - got[..., 1]) ** 2
+        out += d2.mean(dim=(1, 2)).sqrt().tolist()
+        del ref, got, d2
+    return out
+
+
 def _facet_rms(torch, got, ref):
     """RMS of a planar [..., 2] device tensor against a real one, in
     float64."""
@@ -4811,8 +5393,8 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
     scale = sum(abs(s[0]) for s in sources) / N**2
     require(sorted(feed.samples) == idxs, "sampled subgrids missing")
     t0 = time.perf_counter()
-    sg_rms = [st.check_subgrid(N, sgcs[i], core.as_complex(feed.samples[i]),
-                               sources) for i in idxs]
+    sg_rms = _subgrid_rms_device(torch, N, [sgcs[i] for i in idxs],
+                                 [feed.samples[i] for i in idxs], sources)
     feed.samples.clear()
     cols = {sgcs[i].off0 for i in idxs}
     f_rms = []
@@ -5649,6 +6231,9 @@ def _args():
                    "calibration loop)")
     p.add_argument("--procfleet", action="store_true",
                    help="phase 2 and phase 15 (the process fleet) alone")
+    p.add_argument("--mesh", action="store_true",
+                   help="phase 2, phase 6 unprofiled and phase 16 (the "
+                   "facet mesh) alone, B1/B2/B3 timed at its shapes")
     p.add_argument("--delta", action="store_true",
                    help="phase 2, then phase 14 (incremental facet updates "
                    "and the serving fleet) alone")
@@ -5791,6 +6376,18 @@ def main():
         log(smi)
         log(json.dumps({"procfleet_32k": line}))
         return 0
+    if args.mesh:
+        streamed = streamed_main(torch, profile=False)
+        done("streamed")
+        gc_collect(torch)
+        res = mesh_main(torch, phase6=streamed)
+        done("mesh")
+        line = _mesh_line(res)
+        line["kernels"] = _time_streamed_kernels(torch, res)
+        done("timing")
+        log(smi)
+        log(json.dumps({"mesh_32k": line}))
+        return 0
     if args.delta:
         res = delta_main(torch)
         done("delta")
@@ -5832,6 +6429,7 @@ def main():
     done("small")
     fused = roundtrip_main(torch)
     done("fused")
+    gc_collect(torch)
     streamed = streamed_main(torch)
     done("streamed")
     gc_collect(torch)
@@ -5846,6 +6444,10 @@ def main():
     gc_collect(torch)
     procfleet = procfleet_main(torch)
     done("procfleet")
+    gc_collect(torch)
+    mesh = mesh_main(torch, phase6=streamed)
+    done("mesh")
+    del streamed["facet_rows"]
     gc_collect(torch)
     slabs = slabs_main(torch)
     done("slabs")
@@ -5877,7 +6479,8 @@ def main():
                "delta": {"counts": delta["counts_delta"]},
                "fleet": {"counts": delta["counts_fleet"]},
                "procfleet": {"counts": procfleet["counts_record"]},
-               "procfleet_workers": {"counts": procfleet["counts_workers"]}}
+               "procfleet_workers": {"counts": procfleet["counts_workers"]},
+               "mesh": {"counts": mesh["counts"]}}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -5905,7 +6508,7 @@ def main():
         "colpass_seconds", "fold_seconds", "facet_upload_s", "sampled_pass_s",
         "profiled_window_s", "profiled_forward_s", "profiled_device_busy_s",
         "profiled_idle_share", "max_subgrid_rms", "max_facet_rms",
-        "bit_identical_to_warm_run")}}))
+        "bit_identical_to_warm_run", "roundtrip_runs_s", "card_state")}}))
     log(json.dumps({"slabs_32k": slabs}))
     log(json.dumps({"residency_32k": _residency_line(residency)}))
     log(json.dumps({"spill_32k": _spill_line(spill)}))
@@ -5914,6 +6517,7 @@ def main():
     log(json.dumps({"plan_32k": _plan_line(plan13)}))
     log(json.dumps({"delta_32k": _delta_line(delta)}))
     log(json.dumps({"procfleet_32k": _procfleet_line(procfleet)}))
+    log(json.dumps({"mesh_32k": _mesh_line(mesh)}))
     log(json.dumps({"native_1k": native}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",

@@ -51,7 +51,14 @@ from .ops.oracle import (
     make_subgrid_from_sources,
 )
 from .obs import metrics as _metrics
-from .parallel import batched
+from .parallel import batched, sharded
+from .parallel.mesh import (
+    ShardedStack,
+    mesh_size,
+    pad_to_shards,
+    place_facet_sharded,
+    shard_core,
+)
 
 log = logging.getLogger(__name__)
 
@@ -324,10 +331,12 @@ class FlightQueue:
 class _FacetStack:
     """Stacked facet metadata: offsets and realised masks as arrays.
 
-    ``n_real`` and ``n_total`` count the facets (equal: the port runs on
-    one device, so the stack is never padded to a mesh size)."""
+    On a mesh the stack is zero-padded to a multiple of the mesh size
+    (``pad_to``): ``n_real`` counts the facets, ``n_total`` the padded
+    stack; the padding facets have zero masks and offsets 0 and add exact
+    zeros to every (linear) accumulation."""
 
-    def __init__(self, facet_configs):
+    def __init__(self, facet_configs, pad_to: int = 1):
         if not facet_configs:
             raise ValueError("At least one facet is required")
         sizes = {cfg.size for cfg in facet_configs}
@@ -335,18 +344,50 @@ class _FacetStack:
             raise ValueError("All facets must share one size")
         self.size = sizes.pop()
         self.configs = list(facet_configs)
-        self.n_real = self.n_total = len(self.configs)
+        self.n_real = len(self.configs)
+        self.n_total = pad_to_shards(self.n_real, pad_to)
+        n_pad = self.n_total - self.n_real
 
         def mask_row(mask):
             return np.ones(self.size) if mask is None else np.asarray(mask)
 
-        self.offs0 = np.array([c.off0 for c in facet_configs])
-        self.offs1 = np.array([c.off1 for c in facet_configs])
-        self.masks0 = np.stack([mask_row(c.mask0) for c in facet_configs])
-        self.masks1 = np.stack([mask_row(c.mask1) for c in facet_configs])
+        zero = np.zeros(self.size)
+        self.offs0 = np.array([c.off0 for c in facet_configs] + [0] * n_pad)
+        self.offs1 = np.array([c.off1 for c in facet_configs] + [0] * n_pad)
+        self.masks0 = np.stack([mask_row(c.mask0) for c in facet_configs]
+                               + [zero] * n_pad)
+        self.masks1 = np.stack([mask_row(c.mask1) for c in facet_configs]
+                               + [zero] * n_pad)
+
+    def padded_configs(self):
+        """The facet configs of the whole padded stack: the padding ones
+        zero-masked at offset 0."""
+        zero = np.zeros(self.size)
+        return self.configs + [FacetConfig(0, 0, self.size, zero, zero)
+                               for _ in range(self.n_total - self.n_real)]
 
     def __len__(self):
-        return len(self.configs)
+        return self.n_total
+
+
+def _place(mesh, arr):
+    """A facet-stacked host array facet-sharded over `mesh` (the arrays of
+    the padded stack), or unchanged with no mesh (the batched bodies move
+    it to the core's device)."""
+    if mesh is None:
+        return arr
+    return place_facet_sharded(np.asarray(arr), mesh)
+
+
+def _use_shard_map(config):
+    return getattr(config, "spmd_mode", "shard_map") == "shard_map"
+
+
+def _mesh_collective(config):
+    """The facet sum's schedule on a mesh: ``shard_map`` follows
+    ``SWIFTLY_MESH_COLLECTIVE``; ``gspmd`` (where XLA would infer the
+    collective) always takes the psum XLA would insert."""
+    return None if _use_shard_map(config) else "psum"
 
 
 def _subgrid_masks(sg_config):
@@ -420,12 +461,20 @@ class SwiftlyForward:
         time when they are first prepared.
     :param lru_forward: number of column intermediates kept resident
     :param queue_size: in-flight computation cap
+
+    With a mesh on the config (``SwiftlyConfig(mesh=...)``) the facet
+    stack is padded to the mesh size and each shard prepares its own
+    facets on its device; ``spmd_mode="shard_map"`` runs the
+    `parallel.sharded` programs (one collective per column, by
+    ``SWIFTLY_MESH_COLLECTIVE``), ``"gspmd"`` the same per-shard bodies
+    with the psum a compiler would insert.
     """
 
     def __init__(self, swiftly_config, facet_tasks, lru_forward=1,
                  queue_size=20):
         self.config = swiftly_config
         self.core = swiftly_config.core
+        self.mesh = getattr(swiftly_config, "mesh", None)
         self.lru = LRUCache(lru_forward)
         self.queue = FlightQueue(queue_size, stage="fwd.drain")
         # column intermediates computed (LRU misses of `_get_columns`)
@@ -433,13 +482,16 @@ class SwiftlyForward:
         self._set_facets(facet_tasks)
 
     def _set_facets(self, facet_tasks):
-        self.stack = _FacetStack([cfg for cfg, _ in facet_tasks])
+        self.stack = _FacetStack([cfg for cfg, _ in facet_tasks],
+                                 pad_to=mesh_size(self.mesh))
         # a sparse descriptor is densified when its facet is prepared
         self._facet_data = [
             data.densify if isinstance(data, SparseRealFacet) else data
             for _, data in facet_tasks
         ]
         self._BF_Fs = None
+        self._offs0 = _place(self.mesh, self.stack.offs0)
+        self._offs1 = _place(self.mesh, self.stack.offs1)
 
     def adopt_facet_tasks(self, facet_tasks):
         """Swap in a new facet stack: drops the prepared facet planes
@@ -456,17 +508,30 @@ class SwiftlyForward:
     def _get_BF_Fs(self):
         if self._BF_Fs is None:
             with _metrics.stage("fwd.prepare_facets"):
-                self._BF_Fs = batched.prepare_facets_batch(
-                    self.core, self._facet_data, self.stack.offs0
-                )
+                if self.mesh is None:
+                    self._BF_Fs = batched.prepare_facets_batch(
+                        self.core, self._facet_data, self.stack.offs0
+                    )
+                else:
+                    size = self.stack.size
+                    zero = np.zeros((size, size), dtype=complex)
+                    pad = [zero] * (self.stack.n_total - self.stack.n_real)
+                    self._BF_Fs = sharded.prepare_facets_sharded(
+                        self.core, self.mesh, self._facet_data + pad,
+                        self.stack.offs0)
         return self._BF_Fs
 
     def _get_columns(self, off0):
         cols = self.lru.get(off0)
         if cols is None:
-            cols = batched.extract_columns_batch(
-                self.core, self._get_BF_Fs(), off0, self.stack.offs1
-            )
+            if self.mesh is None:
+                cols = batched.extract_columns_batch(
+                    self.core, self._get_BF_Fs(), off0, self.stack.offs1
+                )
+            else:
+                cols = sharded.extract_columns_sharded(
+                    self.core, self.mesh, self._get_BF_Fs(), off0,
+                    self._offs1)
             self.columns_extracted += 1
             self.lru.set(off0, cols)
         return cols
@@ -474,16 +539,24 @@ class SwiftlyForward:
     def get_subgrid_task(self, subgrid_config):
         """Compute one subgrid (an asynchronous device tensor)."""
         cols = self._get_columns(subgrid_config.off0)
-        subgrid = batched.subgrid_from_columns_batch(
-            self.core,
-            cols,
-            self.stack.offs0,
-            self.stack.offs1,
-            subgrid_config.off0,
-            subgrid_config.off1,
-            subgrid_config.size,
-            _subgrid_masks(subgrid_config),
-        )
+        if self.mesh is not None:
+            subgrid = sharded.subgrid_from_columns_sharded(
+                self.core, self.mesh, cols, self._offs0, self._offs1,
+                subgrid_config.off0, subgrid_config.off1,
+                subgrid_config.size, _subgrid_masks(subgrid_config),
+                _mesh_collective(self.config),
+            )
+        else:
+            subgrid = batched.subgrid_from_columns_batch(
+                self.core,
+                cols,
+                self.stack.offs0,
+                self.stack.offs1,
+                subgrid_config.off0,
+                subgrid_config.off1,
+                subgrid_config.size,
+                _subgrid_masks(subgrid_config),
+            )
         self.queue.admit([subgrid])
         return subgrid
 
@@ -492,15 +565,21 @@ class SwiftlyForward:
 
         Groups the requests by column offset (off0) and computes each
         column's subgrids in one call — same results as mapping
-        `get_subgrid_task`, with far fewer launches. Returns the subgrids
-        in input order.
+        `get_subgrid_task`, with far fewer launches. On a mesh with
+        ``spmd_mode="shard_map"`` each column is one sharded call with one
+        collective (path ``"sharded-column"``). Returns the subgrids in
+        input order.
         """
         if self.core.backend in ("numpy", "native"):
             _record_dispatch_path(
                 "per-subgrid-loop",
                 f"the {self.core.backend} backend has no batched path")
             return [self.get_subgrid_task(sg) for sg in subgrid_configs]
-        _record_dispatch_path("batched-column")
+        _record_dispatch_path(
+            "sharded-column"
+            if self.mesh is not None and _use_shard_map(self.config)
+            else "batched-column"
+        )
         groups = {}  # (off0, size) -> list of input indices
         for i, sg in enumerate(subgrid_configs):
             groups.setdefault((sg.off0, sg.size), []).append(i)
@@ -512,10 +591,16 @@ class SwiftlyForward:
                 for i in idxs
             ]
             masks = [_subgrid_masks(subgrid_configs[i]) for i in idxs]
-            stacked = batched.subgrids_from_columns_batch(
-                self.core, cols, self.stack.offs0, self.stack.offs1, sg_offs,
-                size, masks,
-            )
+            if self.mesh is not None:
+                stacked = sharded.subgrids_from_columns_sharded(
+                    self.core, self.mesh, cols, self._offs0, self._offs1,
+                    sg_offs, size, masks, _mesh_collective(self.config),
+                )
+            else:
+                stacked = batched.subgrids_from_columns_batch(
+                    self.core, cols, self.stack.offs0, self.stack.offs1,
+                    sg_offs, size, masks,
+                )
             # One queue slot per subgrid, not per call.
             self.queue.admit([stacked] * len(idxs))
             for k, i in enumerate(idxs):
@@ -573,10 +658,17 @@ class SwiftlyForward:
             _metrics.count("fwd.subgrids", len(subgrid_configs))
         BF_Fs = self._get_BF_Fs()
         with _metrics.stage("fwd.fused_forward", flops=fused_flops):
-            stacked = batched.forward_all_batch(
-                self.core, BF_Fs, self.stack.offs0, self.stack.offs1,
-                col_offs0, sg_offs1, size, masks0, masks1,
-            )
+            if self.mesh is not None:
+                stacked = sharded.forward_all_sharded(
+                    self.core, self.mesh, BF_Fs, self._offs0, self._offs1,
+                    col_offs0, sg_offs1, size, masks0, masks1,
+                    _mesh_collective(self.config),
+                )
+            else:
+                stacked = batched.forward_all_batch(
+                    self.core, BF_Fs, self.stack.offs0, self.stack.offs1,
+                    col_offs0, sg_offs1, size, masks0, masks1,
+                )
         flat = stacked.reshape((len(col_offs0) * max_S,) + stacked.shape[2:])
         n = len(subgrid_configs)
         order = [rows[i] for i in range(n)]
@@ -603,13 +695,23 @@ class SwiftlyBackward:
     :param facets_config_list: FacetConfigs describing the output facets
     :param lru_backward: number of column accumulators kept live
     :param queue_size: in-flight computation cap
+
+    With a mesh on the config the accumulators are facet-sharded
+    (`parallel.mesh.ShardedStack`) and every fold is local to its shard:
+    the backward has no collective.
     """
 
     def __init__(self, swiftly_config, facets_config_list, lru_backward=1,
                  queue_size=20):
         self.config = swiftly_config
         self.core = swiftly_config.core
-        self.stack = _FacetStack(facets_config_list)
+        self.mesh = getattr(swiftly_config, "mesh", None)
+        self.stack = _FacetStack(facets_config_list,
+                                 pad_to=mesh_size(self.mesh))
+        self._offs0 = _place(self.mesh, self.stack.offs0)
+        self._offs1 = _place(self.mesh, self.stack.offs1)
+        self._masks0 = _place(self.mesh, self.stack.masks0)
+        self._masks1 = _place(self.mesh, self.stack.masks1)
         self.lru = LRUCache(lru_backward)
         self.queue = FlightQueue(queue_size, stage="bwd.drain")
         self._MNAF_BMNAFs = None
@@ -621,6 +723,9 @@ class SwiftlyBackward:
             return np.zeros(shape, dtype=complex)
         if core.backend == "planar":
             shape = shape + (2,)
+        if self.mesh is not None:
+            return place_facet_sharded(
+                torch.zeros(shape, dtype=core.dtype), self.mesh)
         return torch.zeros(shape, dtype=core.dtype, device=core.device)
 
     def add_new_subgrid_task(self, subgrid_config, subgrid_data):
@@ -629,13 +734,20 @@ class SwiftlyBackward:
             raise RuntimeError("finish() was already called")
         core, stack = self.core, self.stack
         off0, off1 = subgrid_config.off0, subgrid_config.off1
-        NAF_NAFs = batched.split_subgrid_batch(
-            core, subgrid_data, off0, off1, stack.offs0, stack.offs1
-        )
         col = self.lru.get(off0)
         if col is None:
             col = self._zeros((len(stack), core.xM_yN_size, core.yN_size))
-        col = batched.accumulate_column_batch(core, NAF_NAFs, off1, col)
+        if self.mesh is not None:
+            NAF_NAFs = sharded.split_subgrid_sharded(
+                core, self.mesh, subgrid_data, off0, off1, self._offs0,
+                self._offs1)
+            col = sharded.accumulate_column_sharded(core, self.mesh,
+                                                    NAF_NAFs, off1, col)
+        else:
+            NAF_NAFs = batched.split_subgrid_batch(
+                core, subgrid_data, off0, off1, stack.offs0, stack.offs1
+            )
+            col = batched.accumulate_column_batch(core, NAF_NAFs, off1, col)
         evicted_off0, evicted = self.lru.set(off0, col)
         if evicted is not None:
             self._fold_column(evicted_off0, evicted)
@@ -661,11 +773,15 @@ class SwiftlyBackward:
             col = self.lru.get(off0)
             if col is None:
                 col = self._zeros((len(stack), core.xM_yN_size, core.yN_size))
-            col = batched.split_accumulate_batch(
-                core, [d for _, d in group],
-                [(sg.off0, sg.off1) for sg, _ in group],
-                stack.offs0, stack.offs1, col,
-            )
+            data = [d for _, d in group]
+            sg_offs = [(sg.off0, sg.off1) for sg, _ in group]
+            if self.mesh is not None:
+                col = sharded.split_accumulate_sharded(
+                    core, self.mesh, data, sg_offs, self._offs0,
+                    self._offs1, col)
+            else:
+                col = batched.split_accumulate_batch(
+                    core, data, sg_offs, stack.offs0, stack.offs1, col)
             evicted_off0, evicted = self.lru.set(off0, col)
             if evicted is not None:
                 self._fold_column(evicted_off0, evicted)
@@ -677,15 +793,25 @@ class SwiftlyBackward:
             self._MNAF_BMNAFs = self._zeros(
                 (len(stack), core.yN_size, stack.size)
             )
-        self._MNAF_BMNAFs = batched.accumulate_facet_batch(
-            core, col, off0, stack.offs1, stack.masks1, stack.size,
-            self._MNAF_BMNAFs,
-        )
-        self.queue.admit([self._MNAF_BMNAFs])
+        if self.mesh is None:
+            batched.accumulate_facet_batch(
+                core, col, off0, stack.offs1, stack.masks1, stack.size,
+                self._MNAF_BMNAFs,
+            )
+            self.queue.admit([self._MNAF_BMNAFs])
+            return
+        for i, (c, o1, m1, acc) in enumerate(zip(
+                col.shards, self._offs1.shards, self._masks1.shards,
+                self._MNAF_BMNAFs.shards)):
+            batched.accumulate_facet_batch(
+                shard_core(core, self.mesh.devices[i]), c, off0, o1, m1,
+                stack.size, acc)
+        self.queue.admit(self._MNAF_BMNAFs.shards)
 
     def finish(self):
         """Drain accumulators and return the finished facet stack
-        [F, yB, yB]."""
+        [F, yB, yB] (on a mesh gathered, without the padding, on the
+        first shard's device)."""
         for off0, col in self.lru.pop_all():
             self._fold_column(off0, col)
         if self._MNAF_BMNAFs is None:
@@ -693,10 +819,20 @@ class SwiftlyBackward:
                 (len(self.stack), self.core.yN_size, self.stack.size)
             )
         with _metrics.stage("bwd.finish"):
-            facets = batched.finish_facets_batch(
-                self.core, self._MNAF_BMNAFs, self.stack.offs0,
-                self.stack.masks0, self.stack.size,
-            )
+            if self.mesh is None:
+                facets = batched.finish_facets_batch(
+                    self.core, self._MNAF_BMNAFs, self.stack.offs0,
+                    self.stack.masks0, self.stack.size,
+                )
+            else:
+                facets = ShardedStack([
+                    batched.finish_facets_batch(
+                        shard_core(self.core, self.mesh.devices[i]), acc,
+                        o0.tolist(), m0, self.stack.size)
+                    for i, (acc, o0, m0) in enumerate(zip(
+                        self._MNAF_BMNAFs.shards, self._offs0.shards,
+                        self._masks0.shards))],
+                    self.mesh).gather()[: self.stack.n_real]
         self.queue.drain()
         self._MNAF_BMNAFs = None
         self._finished = True
@@ -714,9 +850,12 @@ def backward_all(swiftly_config, facet_configs, subgrid_tasks):
     `SwiftlyBackward` (every accumulation is a sum of linear
     contributions). Ragged covers are padded with zero-data subgrids
     (exact); mixed subgrid sizes and the numpy backend take the streaming
-    path.
+    path. On a mesh each shard runs the whole cover on its local facets
+    (no collective) and the facets are gathered on the first shard's
+    device.
     """
     core = swiftly_config.core
+    mesh = getattr(swiftly_config, "mesh", None)
     subgrid_tasks = list(subgrid_tasks)
     groups, rectangular = _group_columns(
         subgrid_tasks, key=lambda item: item[0]
@@ -735,7 +874,7 @@ def backward_all(swiftly_config, facet_configs, subgrid_tasks):
                 SubgridConfig(off0, first[0].off1, size), zero_data
             ),
         )
-    stack = _FacetStack(facet_configs)
+    stack = _FacetStack(facet_configs, pad_to=mesh_size(mesh))
     subgrids = [[d for _, d in groups[off0]] for off0 in groups]
     sg_offs = [
         [(sg.off0, sg.off1) for sg, _ in groups[off0]] for off0 in groups
@@ -751,6 +890,11 @@ def backward_all(swiftly_config, facet_configs, subgrid_tasks):
             subgrid_size=subgrid_tasks[0][0].size,
         )
     with _metrics.stage("bwd.fused_backward", flops=fused_flops):
+        if mesh is not None:
+            return sharded.backward_all_sharded(
+                core, mesh, subgrids, sg_offs, stack.offs0, stack.offs1,
+                stack.masks0, stack.masks1, stack.size,
+            ).gather()[: stack.n_real]
         return batched.backward_all_batch(
             core, subgrids, sg_offs, stack.offs0, stack.offs1, stack.masks0,
             stack.masks1, stack.size,

@@ -81,7 +81,14 @@ class SwiftlyConfig:
     :param dtype: forwarded to the core
     :param device: torch device of the tensor backends; None means the
         GPU, and raises on a host without CUDA
-    :param mesh: multi-device meshes are not ported yet (ROADMAP A8)
+    :param mesh: optional `parallel.mesh.FacetMesh`; the streaming API
+        then pads the facet stack to the mesh size, gives each shard its
+        facets on its device, and sums the facets' contributions over the
+        shards with one collective per column (`parallel.sharded`)
+    :param spmd_mode: how the mesh's facet sum is expressed:
+        "shard_map" (the `parallel.sharded` programs, the collective by
+        ``SWIFTLY_MESH_COLLECTIVE``; the default) or "gspmd" (the same
+        per-shard bodies with the psum a compiler would insert)
     :param core_state: optional (Fb, Fn) window constants as numpy float64
         arrays (e.g. the JAX core's ``_Fb``/``_Fn``), taken as they are
         instead of recomputed (``SwiftlyCore.from_numpy_state``)
@@ -100,14 +107,19 @@ class SwiftlyConfig:
         dtype=None,
         device=None,
         mesh=None,
+        spmd_mode: str = "shard_map",
         core_state=None,
         **_other,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "device meshes are not ported yet (ROADMAP A8): the port "
-                "runs on one device"
+        if mesh is not None and backend in ("numpy", "native"):
+            raise ValueError(
+                f"backend={backend!r} runs on the host; a device mesh "
+                "requires the 'torch' or 'planar' backend"
             )
+        if spmd_mode not in ("shard_map", "gspmd"):
+            raise ValueError(f"Unknown spmd_mode: {spmd_mode!r}")
+        self.mesh = mesh
+        self.spmd_mode = spmd_mode
         self._W = W
         self._fov = fov
         self._N = N

@@ -83,7 +83,8 @@ CALIBRATED_SOURCES = ("measured", "ledger")
 # whichever of them fired. Keys must cover everything
 # `plan.model.price_forward` / `price_backward` / the compiler's
 # ``mesh.psum`` pricing can emit (the port's tests compile plans and
-# assert it). The ``mesh.*`` timers come with the mesh engine (A8).
+# assert it). The ``mesh.*`` timers are the mesh's collectives
+# (`parallel.sharded.collective_sum`).
 PLAN_STAGE_TIMERS = {
     "fwd.sampled_facet_pass": ("fwd.sampled_facet_pass", "fwd.facet_pass"),
     "fwd.column_pass": ("fwd.column_pass", "fwd.slab_step"),

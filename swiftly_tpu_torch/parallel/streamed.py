@@ -108,13 +108,26 @@ and the pinned chunks released on the way out. `StreamedBackward`
 snapshots itself (`utils.checkpoint`) through ``enable_autosave``, at
 group boundaries.
 
-Not ported yet: meshes (ROADMAP A8; ``SwiftlyConfig(mesh=...)`` raises
-``NotImplementedError``).
+On a mesh (``SwiftlyConfig(mesh=...)``, `parallel.mesh`; the engines of
+`swiftly_tpu_torch.mesh`) the facet stack is zero-padded to the mesh
+size and each shard is an executor of this module over its own facets,
+on its device, with a copy of the core there (`mesh.shard_core`). The
+forward runs each shard's sampled facet pass (or, ``"host"``, its FFT
+facet pass into its own row buffer) and column partials on its local
+facets, with the body ``resolve_colpass`` picks for the shard-local
+facet count, and sums the partials over the shards with one
+`parallel.sharded.collective_sum` per column, the only collective of the
+pipeline, before one finish on the first shard's device. Every backward
+stage (column passes, folds, finishes) runs in each shard's own executor
+with no collective, so per facet the mesh backward's bits are the
+single-device backward's. Facet slabs (``facet_group``) are refused on a
+mesh, and sparse facets are densified, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import functools
 import logging
 import math
@@ -153,6 +166,14 @@ from .batched import (
     facet_contrib_to_subgrid,
     finish_masked_subgrid,
 )
+from .mesh import (
+    ShardedStack,
+    mesh_size,
+    resolve_collective,
+    shard_bounds,
+    shard_core,
+)
+from .sharded import collective_sum
 
 logger = logging.getLogger(__name__)
 
@@ -273,7 +294,8 @@ class _StreamedBase:
             )
         plk.set_matmul_precision()  # full f32 products: no TF32
         self.residency = residency
-        self.stack = _FacetStack(facet_configs)
+        self.mesh = getattr(swiftly_config, "mesh", None)
+        self.stack = _FacetStack(facet_configs, pad_to=mesh_size(self.mesh))
         # the host/device residencies' facet-column blocks: yB_pad is the
         # facet width rounded up to whole blocks (the pad columns are zero)
         self.col_block = int(col_block)
@@ -289,6 +311,20 @@ class _StreamedBase:
                                            device=dev)
         self._masks1_dev = torch.as_tensor(self.stack.masks1, dtype=rdt,
                                            device=dev)
+
+    def shard_parts(self):
+        """[(config, facet configs, (lo, hi))] of each shard on the mesh:
+        the config on the shard's device (no mesh; the core copied there)
+        and the shard's slice of the padded stack."""
+        configs = self.stack.padded_configs()
+        parts = []
+        for dev, (lo, hi) in zip(self.mesh.devices,
+                                 shard_bounds(self.stack.n_total, self.mesh)):
+            cfg = copy.copy(self.config)
+            cfg.mesh = None
+            cfg.core = shard_core(self.core, dev)
+            parts.append((cfg, configs[lo:hi], (lo, hi)))
+        return parts
 
     def _alloc_buffer(self, n_cols):
         """A host row buffer [n_cols, F, m, yB_pad(,2)], pinned when the
@@ -832,7 +868,7 @@ def _fold_row_block(F, yB, itemsize):
     return max(1, (B // 128) * 128 or B)
 
 
-def _bwd_sampled_fold(core, acc, rows, e0, krows, row0=0):
+def _bwd_sampled_fold(core, acc, rows, e0, krows, row0=0, F_block=None):
     """``acc [F, Rs, yB(,2)] += `` the adjoint sampled fold of rows
     [F, R, yB(,2)], in place, for the facets' output rows
     [row0, row0 + Rs) (the whole facet: row0 = 0, Rs = yB).
@@ -847,7 +883,8 @@ def _bwd_sampled_fold(core, acc, rows, e0, krows, row0=0):
     fold gives those rows. The body is ``resolve_fold_kernel``'s: for the
     planar backend each block is one call of B2, which updates the block
     where it lies in the accumulator; for the complex backend one complex
-    product.
+    product. `F_block` (default the accumulator's facets) is the facet
+    count the row block is sized for.
     """
     yN = core.yN_size
     F, Rs = acc.shape[0], acc.shape[1]
@@ -865,7 +902,7 @@ def _bwd_sampled_fold(core, acc, rows, e0, krows, row0=0):
         Ri2 = Ri * p_cos - Rr * p_sin
     else:
         rows2 = rows * torch.complex(p_cos, -p_sin)
-    B = min(_fold_row_block(F, yB, acc.element_size()), Rs)
+    B = min(_fold_row_block(F_block or F, yB, acc.element_size()), Rs)
     n_blk = -(-Rs // B)
     for i0 in range(0, n_blk * B, B):
         start = min(i0, Rs - B)
@@ -908,16 +945,17 @@ def _fft_fold_chunk(core, F, yB) -> int:
     return max(1, (C // 128) * 128 or C)
 
 
-def _bwd_fft_fold(core, acc, rows, col_offs0, foffs0):
+def _bwd_fft_fold(core, acc, rows, col_offs0, foffs0, F_block=None):
     """``acc [F, yB, yB(,2)] +=`` the FFT fold of the concatenated rows
     [F, g*m, yB(,2)] of the columns at `col_offs0`, in place, chunk by
     chunk of the pass-through axis; `foffs0` [F] are the facets' axis-0
     offsets. The accumulator contract is the sampled fold's (Fb applied,
-    the axis-0 masks left to the finish)."""
+    the axis-0 masks left to the finish). `F_block` (default the
+    accumulator's facets) is the facet count the chunk is sized for."""
     p = core._p
     m, yN = core.xM_yN_size, core.yN_size
     F, yB = acc.shape[0], acc.shape[1]
-    Cj = min(_fft_fold_chunk(core, F, yB), yB)
+    Cj = min(_fft_fold_chunk(core, F_block or F, yB), yB)
     for j0 in range(0, yB, Cj):
         start = min(j0, yB - Cj)
         spec = acc.new_zeros((F, yN, Cj) + _tail(core))
@@ -985,7 +1023,7 @@ def _ct_fold_width(yB, all_planes_bytes) -> int:
     return 1
 
 
-def _bwd_ct_fold(core, acc, rows, e0, krows, col_offs0):
+def _bwd_ct_fold(core, acc, rows, e0, krows, col_offs0, F_block=None):
     """``acc [F, yB, yB(,2)] +=`` the CT-factored adjoint sampled fold of
     the concatenated rows [F, g*m, yB(,2)] of the columns at `col_offs0`,
     in place, one j-window and one facet at a time. `e0` [F] are the
@@ -993,7 +1031,8 @@ def _bwd_ct_fold(core, acc, rows, e0, krows, col_offs0):
     spectral indices (as for the sampled fold). Every phase is a lookup in
     the float64 table of the yN angles (``_sampled_phases``), at residues
     reduced exactly (``_mulmod``); both backends run the same real
-    products on (re, im) planes."""
+    products on (re, im) planes. `F_block` (default the accumulator's
+    facets) is the facet count the j-window is sized for."""
     yN = core.yN_size
     F, yB = acc.shape[0], acc.shape[1]
     dev = acc.device
@@ -1001,7 +1040,8 @@ def _bwd_ct_fold(core, acc, rows, e0, krows, col_offs0):
     Q, P, kmax, r_idx, a_vals = _ct_fold_tables(core, col_offs0)
     g = r_idx.shape[0]
     itemsize = _np_dtype(core).itemsize
-    planes = 2 * F * yN * yB * (itemsize if _planar(core) else itemsize // 2)
+    planes = 2 * (F_block or F) * yN * yB * (
+        itemsize if _planar(core) else itemsize // 2)
     W = _ct_fold_width(yB, planes)
     Qi = -(-yB // P)  # output rows i = q*P + p, q < Qi
 
@@ -1241,7 +1281,10 @@ class _StreamRecorder:
     group's) and puts it in the cache, in stream order. The worker holds
     the stack until its copy has landed; `put` waits for the previous
     group's recording before handing over the next, so at most one stack
-    is held back (the sizers price it: ``spill_out_stacks``). Entries are
+    is held back (the sizers price it: ``spill_out_stacks``). With `sync`
+    (the mesh engine's wait on a group's collective) the worker first runs
+    ``sync(ready)``, `ready` the group's CUDA event (None on the CPU,
+    where `put` runs it inline). Entries are
     ordinary host arrays, as ``get_row`` and the disk tier expect. After an
     eviction (``gave_up``) nothing more is copied. On the CPU each group is
     copied and put inline.
@@ -1252,8 +1295,9 @@ class _StreamRecorder:
     reaches the consumer at the next `put` or at `close`; `close` joins the
     worker and releases the pinned chunks either way."""
 
-    def __init__(self, spill, device):
+    def __init__(self, spill, device, sync=None):
         self._spill = spill
+        self._sync = sync
         self._cuda = device.type == "cuda"
         self._fut = None
         self._tctx = _trace.current()
@@ -1271,6 +1315,8 @@ class _StreamRecorder:
         self._stats["bytes"] += out_g.numel() * out_g.element_size()
         if not self._cuda:
             t0 = time.perf_counter()
+            if self._sync is not None:
+                self._sync(None)
 
             def pull():
                 fault_point("transfer.d2h")
@@ -1303,6 +1349,8 @@ class _StreamRecorder:
         if _trace.current() != self._tctx:
             _trace.adopt(self._tctx)
         t0 = time.perf_counter()
+        if self._sync is not None:
+            self._sync(ready)
         host = torch.empty(out_g.shape, dtype=out_g.dtype)
 
         def pull():
@@ -1370,8 +1418,6 @@ class StreamedForward:
 
     def __init__(self, swiftly_config, facet_tasks, col_block=512,
                  residency="host", col_group=None, facet_group=None):
-        from ..ops.oracle import SparseRealFacet
-
         if residency == "sampled":
             raise ValueError(
                 "residency='sampled' is a StreamedBackward strategy; the "
@@ -1382,6 +1428,61 @@ class StreamedForward:
             residency)
         core = self.core = self._base.core
         self.stack = self._base.stack
+        self._shards = None
+        if self._base.mesh is not None:
+            self._init_shards(facet_tasks)
+        else:
+            self._init_facets(facet_tasks, residency)
+        self._slab_pixels = {}  # (i0, i1) -> device (flat index, value)
+        self._nmbf = None  # ("host") the row buffer [K, F, m, yB_pad(,2)]
+        self._col_index = None  # ("host") off0 -> its index in the buffer
+        self._pass_stats = None  # ("host") the facet pass's seconds, bytes
+        self.col_group = col_group
+        self.facet_group = facet_group
+        self._dev_facets = None
+        self._ops = None
+        self.last_plan = None
+        # device bytes the CALLER keeps resident while streaming (e.g. a
+        # backward's accumulator): subtracted from the budget the
+        # column-group sizer sees
+        self.hbm_headroom = 0
+        # extra finished [G, S, xA, xA] stacks the sizers must price: a
+        # recording stream holds one back until its copy to the host lands
+        self.spill_out_stacks = 0
+        # the last stream_column_groups(spill=...) call: what it did with
+        # the cache, its groups and bytes, and its host seconds
+        self.last_spill = None
+
+    def _init_shards(self, facet_tasks):
+        """On a mesh: one single-device executor a shard, over its slice
+        of the padded stack (zero real planes for the padding facets;
+        sparse facets densified), on the shard's device."""
+        from ..ops.oracle import SparseRealFacet
+
+        base = self._base
+        dt = _np_dtype(self.core)
+        yB = self.stack.size
+        data = []
+        for _, d in facet_tasks:
+            data.append(lambda d=d: (
+                lambda raw: raw.densify(dt)
+                if isinstance(raw, SparseRealFacet) else raw)(
+                    d() if callable(d) else d))
+        zero = np.zeros((yB, yB), dt if _planar(self.core) else np.float64)
+        data += [zero] * (self.stack.n_total - self.stack.n_real)
+        self._shards = [
+            StreamedForward(cfg, list(zip(fcs, data[lo:hi])),
+                            base.col_block, base.residency)
+            for cfg, fcs, (lo, hi) in base.shard_parts()
+        ]
+        self._facets_real = all(s._facets_real for s in self._shards)
+        self._facets_sparse = False
+        self._facet_data = None
+
+    def _init_facets(self, facet_tasks, residency):
+        from ..ops.oracle import SparseRealFacet
+
+        core = self.core
         # Facet data held on the host in device layout, one array per facet.
         # All-real facets (planar) are kept as single real planes: half the
         # host memory and upload, and the sampled pass skips the zero
@@ -1423,25 +1524,6 @@ class StreamedForward:
                     pair[..., 0] = s
                     store[i] = pair
         self._facet_data = store
-        self._slab_pixels = {}  # (i0, i1) -> device (flat index, value)
-        self._nmbf = None  # ("host") the row buffer [K, F, m, yB_pad(,2)]
-        self._col_index = None  # ("host") off0 -> its index in the buffer
-        self._pass_stats = None  # ("host") the facet pass's seconds, bytes
-        self.col_group = col_group
-        self.facet_group = facet_group
-        self._dev_facets = None
-        self._ops = None
-        self.last_plan = None
-        # device bytes the CALLER keeps resident while streaming (e.g. a
-        # backward's accumulator): subtracted from the budget the
-        # column-group sizer sees
-        self.hbm_headroom = 0
-        # extra finished [G, S, xA, xA] stacks the sizers must price: a
-        # recording stream holds one back until its copy to the host lands
-        self.spill_out_stacks = 0
-        # the last stream_column_groups(spill=...) call: what it did with
-        # the cache, its groups and bytes, and its host seconds
-        self.last_spill = None
 
     # -- sparse synthesis --------------------------------------------------
 
@@ -1487,7 +1569,14 @@ class StreamedForward:
         """Move the facet stack to the device once: real planes [F, yB, yB]
         (synthesised on the device from sparse facets), planar (re, im)
         planes as two such tensors (the sampled pass never slices planes
-        out of a stacked tensor), or complex facets."""
+        out of a stacked tensor), or complex facets. On a mesh each shard
+        uploads its own to its device."""
+        if self._shards is not None:
+            for sub in self._shards:
+                sub._upload_resident_facets()
+            self._dev_facets = tuple(t for sub in self._shards
+                                     for t in sub._dev_facets)
+            return
         core = self.core
         yB = self.stack.size
         F = len(self.stack)
@@ -1527,7 +1616,8 @@ class StreamedForward:
 
         held = 0
         if self._dev_facets is not None:
-            held = sum(t.numel() * t.element_size() for t in self._dev_facets)
+            held = sum(t.numel() * t.element_size() for t in self._dev_facets
+                       if t.device == self.core.device)
         return hbm_budget_bytes(headroom=self.hbm_headroom,
                                 device=self.core.device,
                                 honor_env_on_cpu=False, held=held)
@@ -1561,8 +1651,19 @@ class StreamedForward:
     def _sampled_generator(self, groups, size, whole_groups=False):
         """The resident generator, or the facet-slab one when `facet_group`
         is below the facet count or (None) the stack does not fit the
-        budget: the one place that choice is made."""
+        budget: the one place that choice is made. A mesh shards the
+        stack instead of streaming it: its generator is the resident one
+        on every shard, and an explicit `facet_group` is refused."""
         fg = self.facet_group
+        if self._shards is not None:
+            if fg is not None and fg < self._base.stack.n_total:
+                raise ValueError(
+                    "facet_group streaming is a single-device strategy; on "
+                    "a mesh the facet stack is already sharded across "
+                    "devices - add devices instead of slabs"
+                )
+            return self._mesh_device_columns(groups, size,
+                                             whole_groups=whole_groups)
         if fg is None and not self._facet_stack_fits():
             fg = 1
         if fg is not None and fg < self._base.stack.n_total:
@@ -1630,6 +1731,165 @@ class StreamedForward:
                 continue
             for gi, off0 in enumerate(grp):
                 yield _real_items(groups[off0]), out_g[gi]
+
+    # -- mesh: each shard's partials, one collective a column ---------------
+
+    def _out_device(self):
+        """Where a group's finished subgrids land: the first shard's
+        device on a mesh, else the core's."""
+        if self._shards is not None:
+            return self._shards[0].core.device
+        return self.core.device
+
+    def _mesh_plan(self, mode):
+        """The mesh stream's plan entries: the body resolved for the
+        shard-local facet count (each shard's column pass sees its own
+        facets only) and the collective resolved now, so the plan names
+        what runs."""
+        base = self._base
+        n = mesh_size(base.mesh)
+        colpass = resolve_colpass(self.core, base.stack.n_total // n)
+        return {"mode": mode, "colpass": colpass, "mesh_shards": n,
+                "collective": resolve_collective(n)}
+
+    def _mesh_column(self, plan, shard_rows, tensors, g, subgrid_size):
+        """Column g of a group on the mesh: each shard's partials from its
+        prepared rows, one collective, the finish on the first shard's
+        device. `shard_rows(k)` gives shard k's rows [Fs, m, yB(,2)];
+        `tensors` maps each device to its `_group_tensors`."""
+        colpass = plan["colpass"]
+        parts = []
+        for k, sub in enumerate(self._shards):
+            sb = sub._base
+            ops = sub._operators() if colpass != "fft" else None
+            NMBF_BF = _prepare_rows(sub.core, shard_rows(k), sb._foffs1)
+            parts.append(_column_partials(
+                sub.core, colpass, ops, NMBF_BF, sb._foffs0, sb._foffs1,
+                tensors[sub.core.device][1][g]))
+            del NMBF_BF
+        summed = collective_sum(parts, self._base.mesh, plan["collective"])
+        del parts
+        c0 = self._shards[0].core
+        _, sg_offs, m0, m1 = tensors[c0.device]
+        return _finish_partials(c0, colpass, summed[0], sg_offs[g],
+                                subgrid_size, m0[g], m1[g])
+
+    def _mesh_tensors(self, groups, grp):
+        """`_group_tensors` of a column group on each device of the mesh."""
+        out = {}
+        for sub in self._shards:
+            if sub.core.device not in out:
+                out[sub.core.device] = _group_tensors(sub.core, groups, grp)
+        return out
+
+    def _mesh_device_columns(self, groups, subgrid_size, whole_groups=False):
+        """The facets-resident sampled stream on a mesh: per column group,
+        each shard's sampled facet pass into its [Fs, G*m, yB] rows, then
+        per column the shards' partials, one collective and the finish
+        (`_mesh_column`)."""
+        from ..api import FlightQueue
+
+        base = self._base
+        core = base.core
+        yB = base.stack.size
+        subs = self._shards
+        if self._dev_facets is None:
+            self._upload_resident_facets()
+        e0 = [torch.as_tensor(
+            (np.asarray(sub.stack.offs0) - yB // 2).astype(np.int64),
+            device=sub.core.device) for sub in subs]
+        col_offs0 = list(groups)
+        G = self.col_group or self._auto_col_group(len(col_offs0))
+        plan = self.last_plan = dict(self._mesh_plan("resident"),
+                                     col_group=G)
+        S = len(next(iter(groups.values())))
+        m = core.xM_yN_size
+        fp_flops = cp_flops = 0
+        if _metrics.enabled():
+            _metrics.gauge("fwd.plan", dict(plan))
+            F = base.stack.n_real
+            fp_flops = _flops.sampled_facet_pass_flops(
+                core, F, yB, m, self._facets_real)
+            cp_flops = _flops.column_pass_flops(core, F, S, subgrid_size,
+                                                plan["colpass"])
+        inflight = FlightQueue(1, stage="fwd.drain")
+        dev0 = self._out_device()
+        for g0 in range(0, len(col_offs0), G):
+            grp = col_offs0[g0:g0 + G]
+            with _trace.span("fwd.column_group", cat="fwd", group=g0 // G,
+                             n_cols=len(grp)):
+                tensors = self._mesh_tensors(groups, grp)
+                with _metrics.stage("fwd.sampled_facet_pass",
+                                    flops=fp_flops * len(grp)):
+                    bufs = [_facet_pass_sampled(
+                        sub.core, sub._dev_facets, e0[k],
+                        tensors[sub.core.device][0], sub._facets_real)
+                        for k, sub in enumerate(subs)]
+                with _metrics.stage("fwd.column_pass",
+                                    flops=cp_flops * len(grp)):
+                    out_g = torch.empty(
+                        (len(grp), S, subgrid_size, subgrid_size)
+                        + _tail(core), dtype=core.dtype, device=dev0)
+                    for g in range(len(grp)):
+                        out_g[g] = self._mesh_column(
+                            plan, lambda k: bufs[k][:, g * m:(g + 1) * m],
+                            tensors, g, subgrid_size)
+                del bufs
+                inflight.admit([out_g])
+            self._count_group(groups, grp)
+            if whole_groups:
+                yield [_real_items(groups[off0]) for off0 in grp], out_g
+                continue
+            for gi, off0 in enumerate(grp):
+                yield _real_items(groups[off0]), out_g[gi]
+
+    def _mesh_host_columns(self, groups, subgrid_size):
+        """The host residency's stream on a mesh: each shard's FFT facet
+        pass into its own host row buffer (once per executor and column
+        set), then per column each shard's rows uploaded to its device,
+        its partials, one collective and the finish."""
+        from ..api import FlightQueue
+
+        base = self._base
+        core = base.core
+        yB = base.stack.size
+        col_offs0 = list(groups)
+        for sub in self._shards:
+            if sub._nmbf is None or any(int(o) not in sub._col_index
+                                        for o in col_offs0):
+                sub._pass_stats = sub._build_nmbf(col_offs0)
+        stats = [sub._pass_stats for sub in self._shards]
+        plan = self.last_plan = dict(
+            self._mesh_plan("host"), col_block=base.col_block,
+            n_blocks=base._n_blocks, column_uploads=0, column_upload_bytes=0,
+            facet_pass_s=sum(st["facet_pass_s"] for st in stats),
+            facet_h2d_bytes=sum(st["facet_h2d_bytes"] for st in stats),
+            facet_d2h_bytes=sum(st["facet_d2h_bytes"] for st in stats))
+        cp_flops = 0
+        if _metrics.enabled():
+            _metrics.gauge("fwd.plan", dict(plan))
+            cp_flops = _flops.column_pass_flops(
+                core, base.stack.n_real, len(next(iter(groups.values()))),
+                subgrid_size, plan["colpass"])
+        inflight = FlightQueue(2, stage="fwd.drain")
+        for off0 in col_offs0:
+            rows = []
+            for sub in self._shards:
+                host = sub._nmbf[sub._col_index[int(off0)]]
+                dev = sub.core.device
+                with _metrics.stage("fwd.h2d", bytes_moved=_nbytes(host)):
+                    rows.append(host.to(dev, non_blocking=dev.type == "cuda")
+                                [:, :, :yB])
+                plan["column_uploads"] += 1
+                plan["column_upload_bytes"] += _nbytes(host)
+            tensors = self._mesh_tensors(groups, [off0])
+            with _metrics.stage("fwd.column_pass", flops=cp_flops):
+                out = self._mesh_column(plan, lambda k: rows[k], tensors, 0,
+                                        subgrid_size)
+            del rows
+            inflight.admit([out])
+            self._count_group(groups, [off0])
+            yield _real_items(groups[off0]), out
 
     @staticmethod
     def _count_group(groups, grp):
@@ -2060,7 +2320,8 @@ class StreamedForward:
             return
         # the sizers price the stack held back until its copy lands
         self.spill_out_stacks = 1
-        recorder = _StreamRecorder(spill, self.core.device)
+        recorder = _StreamRecorder(spill, self._out_device(),
+                                   sync=self._record_sync())
         try:
             spill.begin_fill(tag=spill_tag)
             for per_col, out_g in self._sampled_generator(groups, size,
@@ -2073,6 +2334,13 @@ class StreamedForward:
             self.spill_out_stacks = 0
             recorder.close(wait=False)
             self.last_spill = recorder.stats()
+
+    def _record_sync(self):
+        """A callable(ready) the recorder runs before it copies a group,
+        `ready` the group's CUDA event (None on the CPU), or None: the
+        mesh engine (`mesh.MeshStreamedForward`) waits there on the
+        group's collective."""
+        return None
 
     def cached_feed(self, spill):
         """A `CachedColumnFeed` over a stream this forward recorded (one
@@ -2094,7 +2362,7 @@ class StreamedForward:
         its group is due, after the previous group was yielded, so the
         caller's fallback resumes at exactly that group. On the CPU each
         group is a copy of its entry."""
-        dev = self.core.device
+        dev = self._out_device()
         cuda = dev.type == "cuda"
         n = len(spill)
         use_thread = (os.environ.get("SWIFTLY_SPILL_PREFETCH", "1") != "0"
@@ -2173,6 +2441,8 @@ class StreamedForward:
         _metrics.count("fwd.passes")
         if self._base.residency == "device":
             gen = self._sampled_generator(groups, size)
+        elif self._shards is not None:
+            gen = self._mesh_host_columns(groups, size)
         else:
             gen = self._host_columns(groups, size)
 
@@ -2264,6 +2534,27 @@ def _sampled_transients(core, F, yB):
     return m * yB * (2 * 8 + 2 * rsize) + 3 * F * m * yB * dsize
 
 
+def _resident_transients(base, S, subgrid_size, yB):
+    """Device bytes of the resident stream's transients beside its facets
+    and group buffers: the larger of one column pass's and the sampled
+    pass's. On a mesh the shards run one after another on their local
+    facets, so a shard's transients beside the partials [S, xM, xM(,2)]
+    the shards before it hold until the collective, or the collective's
+    own buffers: the psum's n partials and sum; the ring's n partials,
+    their zero-padded flat copies, n gathered copies and the rotations'
+    chunks (the virtual shards of one device, all on it)."""
+    core = base.core
+    n = mesh_size(base.mesh)
+    F = base.stack.n_total // n
+    T = max(_column_transients(core, F, S, subgrid_size, yB),
+            _sampled_transients(core, F, yB))
+    if n == 1:
+        return T
+    part = S * core.xM_size * core.xM_size * _sizes(core)[0]
+    held = n + 1 if resolve_collective(n) == "psum" else 3 * n + 2
+    return max(T + (n - 1) * part, held * part)
+
+
 def resident_working_set(base, real=False, extra_out_stacks=0):
     """(flat bytes, bytes per unit G) of the facets-resident stream's
     device working set, as ``col_group_for_budget`` prices it: flat, the
@@ -2281,8 +2572,7 @@ def resident_working_set(base, real=False, extra_out_stacks=0):
     xA = base.config.max_subgrid_size
     S = -(-core.N // xA)
     flat = (facet_stack_bytes(base, real) + _RESERVE_BYTES
-            + max(_column_transients(core, F, S, xA, yB),
-                  _sampled_transients(core, F, yB)))
+            + _resident_transients(base, S, xA, yB))
     col_b = (F * m * yB + (2 + extra_out_stacks) * S * xA * xA) * dsize
     col_b += S * (2 * xA * rsize + 16)  # masks and offsets
     return flat, col_b
@@ -2390,8 +2680,7 @@ def stream_peak_bytes(forward, n_cols, S, subgrid_size, resting=0, active=0,
         F = base.stack.n_total
         buf_c = F * m * yB * dsize
         facets = facet_stack_bytes(base, real) + _RESERVE_BYTES
-        T = max(_column_transients(core, F, S, xA, yB),
-                _sampled_transients(core, F, yB))
+        T = _resident_transients(base, S, xA, yB)
         phases = [facets + T + g * (buf_c + out_c + tens_c)
                   + (sizes[k - 1] * out_c + resting if k else 0)
                   for k, g in enumerate(sizes)]
@@ -2677,6 +2966,11 @@ class StreamedBackward:
         same subgrid stream (one forward feeds them all through
         ``feed_backward_passes``). The finished slabs, concatenated along
         axis 1, are the whole-facet backward.
+
+    On a mesh each shard is a backward of its own over its slice of the
+    padded stack, on its device, fed the same subgrids: every fold is
+    local to its shard, so the state is the shards' (``_shards``), and
+    ``finish_device`` returns a `parallel.mesh.ShardedStack`.
     """
 
     def __init__(self, swiftly_config, facet_configs, col_block=512,
@@ -2687,6 +2981,18 @@ class StreamedBackward:
                                    residency)
         self.core = self._base.core
         self.stack = self._base.stack
+        # the facet count the folds' blocks are sized for (None: this
+        # stack's): a mesh's shards take the whole stack's, so that each
+        # facet folds in the blocks, and to the bits, of one device
+        self._block_facets = None
+        self._shards = None
+        if self._base.mesh is not None:
+            self._shards = [
+                StreamedBackward(cfg, fcs, col_block, residency, fold_group,
+                                 row_slab)
+                for cfg, fcs, _ in self._base.shard_parts()]
+            for sub in self._shards:
+                sub._block_facets = self.stack.n_real
         self._naf = {}  # ("host", "device") off0 -> rows [F, m, yB_pad(,2)]
         self._fold_mode = resolve_fold_mode()  # sampled | ct | fft
         self._row_slab = None
@@ -2778,7 +3084,14 @@ class StreamedBackward:
         the column pass's transients, or the fold's conjugated rows and
         its row block's tables. Host: one column's rows and transients at
         work, nothing between. Device: the rows it keeps now, and one
-        column's more at work."""
+        column's more at work. On a mesh: the shards on the first shard's
+        device, one at work at a time."""
+        if self._shards is not None:
+            dev = self._shards[0].core.device
+            parts = [sub.device_bytes(S, subgrid_size) for sub in self._shards
+                     if sub.core.device == dev]
+            resting = sum(r for r, _ in parts)
+            return resting, resting + max(a - r for r, a in parts)
         base = self._base
         core = base.core
         dsize, rsize = _sizes(core)
@@ -2798,7 +3111,7 @@ class StreamedBackward:
         acc = F * (r1 - r0) * yB * dsize
         row = F * m * yB * dsize
         cap = self._fold_group
-        B = min(_fold_row_block(F, yB, rsize), r1 - r0)
+        B = min(_fold_row_block(self._block_facets or F, yB, rsize), r1 - r0)
         fold = 4 * cap * row + cap * m * B * (2 * 8 + 2 * rsize)
         return acc + (cap - 1) * row, acc + max((2 * cap - 1) * row + T, fold)
 
@@ -2858,14 +3171,23 @@ class StreamedBackward:
         if self._finished:
             raise RuntimeError("finish() was already called")
         fault_point("bwd.feed")
-        base = self._base
-        core = base.core
         off0s = {sg.off0 for sg in sg_configs}
         if len(off0s) != 1:
             raise ValueError(
                 f"add_subgrid_stack takes ONE column, got offsets {off0s}"
             )
-        key = int(off0s.pop())
+        _metrics.count("bwd.subgrids_folded", len(sg_configs))
+        for sub in self._shards or [self]:
+            sub._feed_stack(sg_configs, subgrids)
+        self.processed.extend((sg.off0, sg.off1) for sg in sg_configs)
+        self._autosave_tick(len(sg_configs))
+
+    def _feed_stack(self, sg_configs, subgrids):
+        """`add_subgrid_stack`'s column pass and fold, on this executor's
+        device (no fault site, ledger or autosave)."""
+        base = self._base
+        core = base.core
+        key = int(sg_configs[0].off0)
         yB = base.stack.size
         m = core.xM_yN_size
         subgrids = self._device_subgrids(subgrids)
@@ -2877,14 +3199,12 @@ class StreamedBackward:
         alloc = torch.empty if width == yB else torch.zeros
         rows = alloc((len(base.stack), m, width) + _tail(core),
                      dtype=subgrids.dtype, device=subgrids.device)
-        _metrics.count("bwd.subgrids_folded", len(sg_configs))
         with _metrics.stage(
                 "bwd.column_pass",
                 flops=self._bwd_cp_flops(len(sg_configs), sg_configs[0].size)):
             _column_pass_bwd(core, yB, mode, self._operators(mode), subgrids,
                              sg_offs, base._foffs0, base._foffs1,
                              base._masks1_dev, rows[:, :, :yB])
-        self.processed.extend((sg.off0, sg.off1) for sg in sg_configs)
         if sampled:
             self._rows_inflight.admit([rows])
             self._pending_rows.append((key, rows))
@@ -2901,7 +3221,6 @@ class StreamedBackward:
                 self._naf[key].add_(host)
             else:
                 self._naf[key] = host
-        self._autosave_tick(len(sg_configs))
 
     def _ensure_acc(self):
         base = self._base
@@ -2928,14 +3247,15 @@ class StreamedBackward:
                 device=core.device)
         if self._fold_mode == "fft":
             with _metrics.stage("bwd.fft_fold"):
-                _bwd_fft_fold(core, self._acc, rows_cat, offs, base._foffs0)
+                _bwd_fft_fold(core, self._acc, rows_cat, offs, base._foffs0,
+                              self._block_facets)
         else:
             krows = torch.as_tensor(sampled_row_indices(core, offs),
                                     device=core.device)
             if self._fold_mode == "ct":
                 with _metrics.stage("bwd.ct_fold"):
                     _bwd_ct_fold(core, self._acc, rows_cat, self._e0, krows,
-                                 offs)
+                                 offs, self._block_facets)
             else:
                 fold_flops = 0
                 if _metrics.enabled():
@@ -2948,7 +3268,8 @@ class StreamedBackward:
                 with _metrics.stage("bwd.sampled_fold", flops=fold_flops):
                     _bwd_sampled_fold(core, self._acc, rows_cat, self._e0,
                                       krows,
-                                      row0=(self._row_slab or (0, 0))[0])
+                                      row0=(self._row_slab or (0, 0))[0],
+                                      F_block=self._block_facets)
         self._fold_inflight.admit([self._acc])
 
     def _flush_folds(self):
@@ -2987,18 +3308,35 @@ class StreamedBackward:
                 "add_subgrid_group requires residency='sampled'"
             )
         fault_point("bwd.feed")
-        core = base.core
-        yB = base.stack.size
-        subgrids_group = self._device_subgrids(subgrids_group)
-        S = subgrids_group.shape[1]
-        offs, sg_offs = [], []
         for col in col_sg_lists:
             off0s = {sg.off0 for sg in col}
             if len(off0s) != 1:
                 raise ValueError(
                     f"each group entry must be ONE column, got {off0s}"
                 )
-            off0 = off0s.pop()
+        _metrics.count("bwd.subgrids_folded",
+                       len(col_sg_lists) * subgrids_group.shape[1])
+        for sub in self._shards or [self]:
+            sub._feed_group(col_sg_lists, subgrids_group)
+        # the whole group folded or pending: the ledger and the autosave at
+        # group boundaries only, so a resumed feed skips whole groups
+        n_group = 0
+        for col in col_sg_lists:
+            self.processed.extend((sg.off0, sg.off1) for sg in col)
+            n_group += len(col)
+        self._autosave_tick(n_group)
+
+    def _feed_group(self, col_sg_lists, subgrids_group):
+        """`add_subgrid_group`'s column passes and folds, on this
+        executor's device (no fault site, ledger or autosave)."""
+        base = self._base
+        core = base.core
+        yB = base.stack.size
+        subgrids_group = self._device_subgrids(subgrids_group)
+        S = subgrids_group.shape[1]
+        offs, sg_offs = [], []
+        for col in col_sg_lists:
+            off0 = col[0].off0
             offs.append(int(off0))
             pairs = [(sg.off0, sg.off1) for sg in col]
             pairs += [(off0, 0)] * (S - len(pairs))  # zero-pad rows
@@ -3015,7 +3353,6 @@ class StreamedBackward:
             # group, whose own remainder waits for the next; so the folds,
             # and the bits, do not depend on how the stream was grouped
             g = min(cap - len(self._pending_rows), len(offs) - j)
-            _metrics.count("bwd.subgrids_folded", g * S)
             with _metrics.stage(
                     "bwd.column_pass",
                     flops=g * self._bwd_cp_flops(S, subgrids_group.shape[2])):
@@ -3035,13 +3372,6 @@ class StreamedBackward:
                     self._flush_folds()
             del rows_cat
             j += g
-        # the whole group folded or pending: the ledger and the autosave at
-        # group boundaries only, so a resumed feed skips whole groups
-        n_group = 0
-        for col in col_sg_lists:
-            self.processed.extend((sg.off0, sg.off1) for sg in col)
-            n_group += len(col)
-        self._autosave_tick(n_group)
 
     def finish_device(self):
         """("sampled") the finished facet stack [F, yB, yB(,2)] as a device
@@ -3051,6 +3381,12 @@ class StreamedBackward:
             raise ValueError("finish_device() requires residency='sampled'")
         if self._finished:
             raise RuntimeError("finish() was already called")
+        if self._shards is not None:
+            out = ShardedStack([sub.finish_device() for sub in self._shards],
+                               self._base.mesh,
+                               n_pad=self.stack.n_total - self.stack.n_real)
+            self._finished = True
+            return out
         self._flush_folds()
         if self._acc is None:
             raise RuntimeError("No subgrids were added")
@@ -3076,9 +3412,16 @@ class StreamedBackward:
         host two deep (`_HostPipe`)."""
         base = self._base
         if base.residency == "sampled":
-            return self.finish_device()[: self.stack.n_real].cpu().numpy()
+            out = self.finish_device()
+            if self._shards is not None:
+                return out.numpy()
+            return out[: self.stack.n_real].cpu().numpy()
         if self._finished:
             raise RuntimeError("finish() was already called")
+        if self._shards is not None:
+            facets = np.concatenate([sub.finish() for sub in self._shards])
+            self._finished = True
+            return facets[: self.stack.n_real]
         core = base.core
         dev = core.device
         cuda = dev.type == "cuda"

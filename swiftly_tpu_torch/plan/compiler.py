@@ -14,8 +14,8 @@ is the one source for the decisions the executors and services take:
 * the forward's column/facet grouping, predicted through the port's own
   streamed sizers (`PlanInputs.base()`): the executors still make the
   binding choice at dispatch time, and a test holds the two equal;
-* the `MeshLayout`, priced for the planned device count (its execution
-  is ROADMAP A8).
+* the `MeshLayout`, priced for the planned device count and bound by the
+  mesh-streamed engines (`swiftly_tpu_torch.mesh`) that execute it.
 
 Selection policy: with default coefficients the compiler keeps the seed
 heuristics' choices (the fold group the inputs carry), so default plans

@@ -386,8 +386,9 @@ _DEFAULT_BYTES_PER_S = {
     # the feed-once/fold-many feed: phase 11's cache-fed feeds, the
     # 8.792 GB stream in 3.8-3.9 s, three passes folded meanwhile
     "bwd.feed_group": 8.792e9 / 3.85,
-    # one card has no collective to measure (ROADMAP A8): half the
-    # 450 GB/s one-direction NVLink 4 peak of an H100 SXM
+    # half the 450 GB/s one-direction NVLink 4 peak of an H100 SXM: the
+    # one card's virtual shards copy through its own memory, which says
+    # nothing of the link between cards (no multi-card mesh measured)
     "mesh.psum": 0.5 * 450e9,
     "mesh.ring_step": 0.5 * 450e9,
 }
@@ -395,7 +396,7 @@ _DEFAULT_BYTES_PER_S = {
 _DEFAULT_DISPATCH_S = 7e-5
 
 # Fraction of the ring collective's wire wall hidden behind compute. Not
-# measured on one card (A8), so none is assumed: the ring prices as the
+# measured between cards, so none is assumed: the ring prices as the
 # psum until a measured mesh.ring_step rate (the exposed wall) refits it.
 RING_OVERLAP_DISCOUNT = 0.0
 

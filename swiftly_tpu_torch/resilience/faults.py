@@ -68,8 +68,9 @@ unchanged in behaviour: the same (spec, seed) fires at the same site
 calls in both packages. The port's executors call the sites
 ``spill.write``, ``spill.read``, ``spill.get_row``, ``transfer.h2d``,
 ``transfer.d2h``, ``checkpoint.save``, ``checkpoint.save.done``,
-``checkpoint.restore`` and ``bwd.feed``; the others wait for the fleet
-(ROADMAP A12) and the mesh (A8).
+``checkpoint.restore`` and ``bwd.feed``; the fleet's serve sites and the
+mesh engine's ``mesh.shard_loss``, ``mesh.feed``, ``mesh.psum`` and
+``mesh.ring_step`` (`swiftly_tpu_torch.mesh`) the others.
 """
 
 from __future__ import annotations

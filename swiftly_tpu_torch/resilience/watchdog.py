@@ -32,8 +32,9 @@ process after recovery re-plans around it — there is no portable way
 to cancel a blocked device sync, and recovery does not need to.
 
 The port of the JAX package's ``swiftly_tpu/resilience/watchdog.py``,
-unchanged in behaviour; its user, the mesh engine on
-``torch.distributed``, is ROADMAP A8.
+unchanged in behaviour; its user is the mesh engine
+(`swiftly_tpu_torch.mesh`), whose recording waits for each group's
+collective under it.
 """
 
 from __future__ import annotations

@@ -51,9 +51,18 @@ place where the port's snapshot holds more than the JAX package's.
 
 Config-mismatch errors (wrong params, backend, kind or version) are not
 retried against older generations: every generation was written by the
-same session, so a mismatch is a caller's bug and surfaces loudly. A
-snapshot whose ``mesh`` records more than one device is refused: the
-port has no mesh yet (ROADMAP A8).
+same session, so a mismatch is a caller's bug and surfaces loudly.
+
+**Meshes.** A streamed snapshot records the mesh layout it was written
+on in its meta (``mesh``: shard count and axis; None on one device), and
+holds every facet-stacked array gathered over the shards, padded stack
+and all. A restore onto the same layout splits them back onto the
+shards' devices; onto another layout (another shard count, or one
+device) it migrates them: the real facets kept, the zero padding regrown
+for the new shard count (`_migrate_stack`, exact: padding facets fold to
+zero on any layout), re-placed, counted as ``ckpt.migrations`` and
+recorded in the degradation ledger (``checkpoint / migrate_layout``).
+The elastic recovery of `swiftly_tpu_torch.mesh` resumes through it.
 """
 
 from __future__ import annotations
@@ -70,6 +79,13 @@ from ..obs import metrics as _metrics
 from ..resilience import degrade as _degrade
 from ..resilience.faults import fault_point
 from ..resilience.retry import retry_transient
+from ..parallel.mesh import (
+    FACET_AXIS,
+    ShardedStack,
+    mesh_size,
+    place_facet_sharded,
+    shard_bounds,
+)
 
 __all__ = [
     "CorruptCheckpointError",
@@ -134,10 +150,14 @@ def _pinned_pair(dtype, n):
 
 
 def _to_host(x):
-    """A host numpy array of `x` (a tensor on any device, or an array).
-    CUDA tensors copy through two pinned chunk buffers on the current
-    stream, double-buffered: a chunk's device copy runs while the host
-    copies the other buffer out."""
+    """A host numpy array of `x` (a tensor on any device, a
+    `parallel.mesh.ShardedStack`, gathered with its padding, or an
+    array). CUDA tensors copy through two pinned chunk buffers on the
+    current stream, double-buffered: a chunk's device copy runs while the
+    host copies the other buffer out."""
+    if isinstance(x, ShardedStack):
+        return np.concatenate([_to_host(t) for t in x.shards],
+                              axis=x.facet_axis)
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
     x = x.detach()
@@ -364,7 +384,7 @@ def _params(core):
     return [core.W, core.N, core.xM_size, core.yN_size]
 
 
-def _check_meta(meta, core, n_total, kind):
+def _check_meta(meta, core, n_total, kind, n_real=None):
     if meta["version"] not in _SUPPORTED_VERSIONS:
         raise ValueError(f"Unsupported checkpoint version {meta['version']}")
     # legacy files (written before "kind" existed) default to "backward",
@@ -380,25 +400,52 @@ def _check_meta(meta, core, n_total, kind):
             f"{meta['backend']!r}; this session has {expect} backend "
             f"{core.backend!r}"
         )
-    if meta["n_total"] != n_total:
+    if n_real is not None:
+        # a migration across layouts: the padded stack size belongs to the
+        # layout, so only the real facet count must match
+        if meta.get("n_real") != n_real:
+            raise ValueError("Facet stack size mismatch")
+    elif meta["n_total"] != n_total:
         raise ValueError("Facet stack size mismatch")
-    n_devices = (meta.get("mesh") or {}).get("n_devices", 1)
-    if n_devices != 1:
-        raise ValueError(
-            f"Checkpoint was written on a {n_devices}-device mesh; the port "
-            "has no device meshes yet (ROADMAP A8) and restores "
-            "single-device snapshots only"
+
+
+def _migrate_stack(arr, n_real, n_total):
+    """A saved facet-stacked array (axis 0 the facets, padded for the
+    saving layout) for another layout: its `n_real` real facets, zero
+    padded to `n_total`. Exact: padding facets are zero-masked and fold
+    to zero on any layout, so no real accumulator byte changes."""
+    arr = np.asarray(arr)
+    if arr.shape[0] < n_real:
+        raise CorruptCheckpointError(
+            f"facet-stacked array holds {arr.shape[0]} facets; "
+            f"{n_real} real facets expected"
         )
+    arr = arr[:n_real]
+    if arr.shape[0] < n_total:
+        pad = np.zeros((n_total - arr.shape[0],) + arr.shape[1:],
+                       dtype=arr.dtype)
+        arr = np.concatenate([arr, pad], axis=0)
+    return arr
+
+
+def _mesh_meta(mesh):
+    """The meta's record of the layout a snapshot was written on."""
+    if mesh is None:
+        return None
+    n = int(mesh_size(mesh))
+    return {"n_devices": n, "facet_shards": n, "axis": FACET_AXIS}
 
 
 # -- SwiftlyBackward -----------------------------------------------------------
 
 
-def _place(core, arr):
-    """A restored array in `core`'s form: numpy for the numpy backend, else
-    a tensor on its device."""
+def _place(core, arr, mesh=None):
+    """A restored array in `core`'s form: numpy for the numpy backend, a
+    `ShardedStack` over `mesh`, else a tensor on the core's device."""
     if core.backend in ("numpy", "native"):
         return np.array(arr)
+    if mesh is not None:
+        return place_facet_sharded(np.asarray(arr), mesh)
     return _to_device(arr, core.device)
 
 
@@ -446,12 +493,14 @@ def _restore_backward_one(path, backward):
     with data:
         core = backward.core
         _check_meta(meta, core, backward.stack.n_total, "backward")
+        mesh = getattr(backward, "mesh", None)
         if meta["has_mnaf"]:
             backward._MNAF_BMNAFs = _place(
-                core, _load_array(data, meta, "MNAF_BMNAFs", path))
+                core, _load_array(data, meta, "MNAF_BMNAFs", path), mesh)
         for key in meta["lru_keys"]:
             backward.lru.set(
-                key, _place(core, _load_array(data, meta, f"lru_{key}", path))
+                key, _place(core, _load_array(data, meta, f"lru_{key}",
+                                              path), mesh)
             )
         return [tuple(p) for p in meta["processed"]]
 
@@ -471,6 +520,9 @@ def save_streamed_backward_state(path, backward, processed_subgrids=None):
     :param processed_subgrids: optional list of (off0, off1) already folded
         in, stored for the caller to skip on resume; default the
         backward's own ``processed`` ledger
+
+    On a mesh the state is the shards': each array is gathered over them
+    (`_shard_state`).
     """
     core = backward.core
     base = backward._base
@@ -489,30 +541,79 @@ def save_streamed_backward_state(path, backward, processed_subgrids=None):
         "naf_keys": [],
         "processed": list(map(list, processed_subgrids or [])),
         "stream_version": int(getattr(backward, "stream_version", 0)),
-        "mesh": None,  # one device (meshes: ROADMAP A8)
+        # the layout the state was sharded with (None: one device); a
+        # restore onto another layout migrates it
+        "mesh": _mesh_meta(base.mesh),
     }
+    acc, pending, naf = _shard_state(backward)
     if base.residency == "sampled":
-        meta["has_acc"] = backward._acc is not None
+        meta["has_acc"] = acc is not None
         slab = backward._row_slab
         meta["row_slab"] = list(slab) if slab else None
-        if backward._acc is not None:
-            arrays["acc"] = _to_host(backward._acc)
-        meta["pending_offs"] = [int(o) for o, _ in backward._pending_rows]
-        for k, (_, rows) in enumerate(backward._pending_rows):
-            arrays[f"pending_{k}"] = _to_host(rows)
-    for key, rows in backward._naf.items():
+        if acc is not None:
+            arrays["acc"] = acc
+        meta["pending_offs"] = [int(o) for o, _ in pending]
+        for k, (_, rows) in enumerate(pending):
+            arrays[f"pending_{k}"] = rows
+    for key, rows in naf.items():
         meta["naf_keys"].append(int(key))
-        arrays[f"naf_{int(key)}"] = _to_host(rows)
+        arrays[f"naf_{int(key)}"] = rows
     _atomic_savez(path, arrays, meta)
+
+
+def _shard_state(backward):
+    """A streamed backward's state as host arrays over the whole padded
+    stack: (the sampled accumulator or None, the pending fold rows
+    [(off0, rows)], the kept rows {off0: rows}); on a mesh each gathered
+    over the shards along the facet axis (every shard holds the same
+    pending columns and kept offsets: they are fed the same subgrids)."""
+    parts = backward._shards or [backward]
+
+    def gather(tensors):
+        hosts = [_to_host(t) for t in tensors]
+        return hosts[0] if len(hosts) == 1 else np.concatenate(hosts)
+
+    acc = None
+    if all(p._acc is not None for p in parts):
+        acc = gather([p._acc for p in parts])
+    pending = [(off, gather([p._pending_rows[k][1] for p in parts]))
+               for k, (off, _) in enumerate(parts[0]._pending_rows)]
+    naf = {key: gather([p._naf[key] for p in parts])
+           for key in parts[0]._naf}
+    return acc, pending, naf
+
+
+def _set_shard_state(backward, acc, pending, naf):
+    """Put host state of the whole padded stack back into a streamed
+    backward: each array split along the facet axis onto the shards'
+    devices on a mesh (kept rows of the host residency stay on the
+    host)."""
+    base = backward._base
+    if backward._shards is None:
+        parts, bounds = [backward], [(0, base.stack.n_total)]
+    else:
+        parts = backward._shards
+        bounds = shard_bounds(base.stack.n_total, base.mesh)
+    on_device = base.residency != "host"
+    for p, (lo, hi) in zip(parts, bounds):
+        dev = p.core.device
+        p._acc = None if acc is None else _to_device(acc[lo:hi], dev)
+        p._pending_rows = [(off, _to_device(rows[lo:hi], dev))
+                           for off, rows in pending]
+        p._naf = {key: (_to_device(r[lo:hi], dev) if on_device
+                        else torch.from_numpy(np.array(r[lo:hi])))
+                  for key, r in naf.items()}
 
 
 def restore_streamed_backward_state(path, backward):
     """Restore a snapshot into a freshly constructed `StreamedBackward`
     (the same config, facets and residency; for the host and device
     residencies the same ``col_block``; for the sampled one the same
-    ``row_slab``). Corrupt generations fall back to the previous good one.
-    Returns the list of (off0, off1) subgrids already processed (also
-    assigned to ``backward.processed``)."""
+    ``row_slab``). The mesh layout may differ from the saving session's:
+    the state then migrates (module docstring). Corrupt generations fall
+    back to the previous good one. Returns the list of (off0, off1)
+    subgrids already processed (also assigned to ``backward.processed``).
+    """
     return _restore_with_fallback(
         path, lambda gen: _restore_streamed_one(gen, backward)
     )
@@ -523,7 +624,18 @@ def _restore_streamed_one(path, backward):
     with data:
         core = backward.core
         base = backward._base
-        _check_meta(meta, core, backward.stack.n_total, "streamed_backward")
+        # a snapshot of another layout (another shard count, or one
+        # device) migrates: real facets kept, padding regrown, re-placed
+        saved = (meta.get("mesh") or {}).get("n_devices", 1)
+        have = mesh_size(base.mesh)
+        migrate = "mesh" in meta and saved != have
+        _check_meta(meta, core, backward.stack.n_total, "streamed_backward",
+                    n_real=backward.stack.n_real if migrate else None)
+        n_real, n_total = backward.stack.n_real, backward.stack.n_total
+
+        def load(name):
+            arr = _load_array(data, meta, name, path)
+            return _migrate_stack(arr, n_real, n_total) if migrate else arr
         saved_res = meta.get("residency")
         is_sampled = base.residency == "sampled"
         if (saved_res == "sampled") != is_sampled:
@@ -547,18 +659,14 @@ def _restore_streamed_one(path, backward):
                 )
             # load and check every array before touching the backward, so
             # a corrupt generation leaves it as it was
-            acc = (_load_array(data, meta, "acc", path)
-                   if meta.get("has_acc") else None)
+            acc = load("acc") if meta.get("has_acc") else None
             pending = [
-                (int(off), _load_array(data, meta, f"pending_{k}", path))
+                (int(off), load(f"pending_{k}"))
                 for k, off in enumerate(meta.get("pending_offs") or [])
             ]
-            backward._acc = (None if acc is None
-                             else _to_device(acc, core.device))
+            _migrated(path, migrate, saved, have)
+            _set_shard_state(backward, acc, pending, {})
             del acc
-            backward._pending_rows = [
-                (off, _to_device(rows, core.device)) for off, rows in pending
-            ]
             backward.processed = list(processed)
             return processed
         # older snapshots did not record yB_pad; the rows arrays carry it as
@@ -577,13 +685,22 @@ def _restore_streamed_one(path, backward):
                 f"of the saving session); this session uses {base._yB_pad}: "
                 "construct StreamedBackward with the same col_block"
             )
-        rows = {int(key): _load_array(data, meta, f"naf_{key}", path)
-                for key in meta["naf_keys"]}
-        device = base.residency == "device"
-        backward._naf = {
-            key: (_to_device(r, core.device) if device
-                  else torch.from_numpy(np.array(r)))
-            for key, r in rows.items()
-        }
+        rows = {int(key): load(f"naf_{key}") for key in meta["naf_keys"]}
+        _migrated(path, migrate, saved, have)
+        _set_shard_state(backward, None, [], rows)
         backward.processed = list(processed)
         return processed
+
+
+def _migrated(path, migrate, saved, have):
+    """Count and record a cross-layout restore."""
+    if not migrate:
+        return
+    _metrics.count("ckpt.migrations")
+    _degrade.record(
+        "checkpoint", "migrate_layout",
+        f"{path!r} written on a {saved}-device layout; migrated onto "
+        f"{have} device(s)",
+    )
+    logger.warning("checkpoint %r: migrating a %s-device layout onto %s "
+                   "device(s)", path, saved, have)

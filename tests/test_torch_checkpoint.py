@@ -401,21 +401,54 @@ def test_v1_snapshot_without_checksums_still_restores(tmp_path):
 
 
 @pytest.mark.parametrize("change, match", [
-    (lambda m: m.update(mesh={"n_devices": 2, "facet_shards": 2,
-                              "axis": "facets"}), "A8"),
     (lambda m: m.update(row_slab=[0, 100]), "row_slab"),
     (lambda m: m.update(residency="host"), "residency"),
     (lambda m: m.update(backend="torch"), "backend"),
 ])
 def test_snapshots_of_another_session_are_refused(tmp_path, change, match):
-    """A snapshot of a device mesh (the port has none yet: ROADMAP A8),
-    another row slab, residency or backend raises a clear ValueError and
-    is not skipped as a corrupt generation."""
+    """A snapshot of another row slab, residency or backend raises a clear
+    ValueError and is not skipped as a corrupt generation."""
     config, fcs, ck = _saved_streamed(tmp_path)
     _rewrite_meta(ck, change)
     bwd = T.StreamedBackward(config, fcs, residency="sampled")
     with pytest.raises(ValueError, match=match) as err:
         restore_streamed_backward_state(ck, bwd)
+    assert not isinstance(err.value, CorruptCheckpointError)
+
+
+def test_snapshot_of_another_mesh_layout_migrates(tmp_path):
+    """A snapshot recorded for a mesh of 2 shards restores onto one device
+    by migration (A8; the JAX package's `_migrate_stack`): the real facets
+    kept, counted as ``ckpt.migrations`` and recorded as ``checkpoint /
+    migrate_layout``, with the saved state unchanged; a snapshot whose
+    real facet count differs is still refused."""
+    from swiftly_tpu_torch.obs import metrics
+    from swiftly_tpu_torch.resilience import degrade
+
+    config, fcs, ck = _saved_streamed(tmp_path)
+    want = T.StreamedBackward(config, fcs, residency="sampled")
+    want_done = restore_streamed_backward_state(ck, want)
+    _rewrite_meta(ck, lambda m: m.update(mesh={
+        "n_devices": 2, "facet_shards": 2, "axis": "facet"}))
+    degrade.reset()
+    metrics.reset()
+    metrics.enable()
+    try:
+        bwd = T.StreamedBackward(config, fcs, residency="sampled")
+        assert restore_streamed_backward_state(ck, bwd) == want_done
+        assert metrics.export()["counters"]["ckpt.migrations"] == 1
+    finally:
+        metrics.disable()
+        metrics.reset()
+    assert torch.equal(bwd._acc, want._acc)
+    assert [o for o, _ in bwd._pending_rows] == [
+        o for o, _ in want._pending_rows]
+    assert any(d["site"] == "checkpoint" and d["action"] == "migrate_layout"
+               for d in degrade.events())
+    _rewrite_meta(ck, lambda m: m.update(n_real=8))
+    with pytest.raises(ValueError, match="size mismatch") as err:
+        restore_streamed_backward_state(
+            ck, T.StreamedBackward(config, fcs, residency="sampled"))
     assert not isinstance(err.value, CorruptCheckpointError)
 
 

@@ -2,7 +2,8 @@
 
 For each sub-package of ``swiftly_tpu`` (``obs``, ``resilience``,
 ``parallel``, ``utils``, ``plan``, ``serve``, ``vis``, ``models``,
-``ops``, ``delta``, ``cache``, ``native``), every name in its ``__all__`` is exported by the port's
+``ops``, ``delta``, ``cache``, ``native``, ``mesh``), every name in its
+``__all__`` is exported by the port's
 counterpart in ``swiftly_tpu_torch``, or is listed below beside the
 ROADMAP step (section A) that will bring it. The JAX package's
 ``__all__`` is read by parsing its source with ``ast``: nothing of it is
@@ -19,20 +20,14 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # names of the JAX package's sub-packages not ported yet, by ROADMAP step
 PENDING = {
-    "A8": {  # multi-device: meshes, sharded execution
-        "parallel": {
-            "FACET_AXIS", "backward_all_sharded", "facet_sharding",
-            "forward_all_sharded", "initialize_multihost", "make_facet_mesh",
-            "mesh", "mesh_size", "pad_to_shards", "place_facet_sharded",
-            "replicated_sharding", "sharded", "split_accumulate_sharded",
-            "split_subgrid_sharded", "subgrid_from_columns_sharded",
-            "subgrids_from_columns_sharded",
-        },
+    "A8b": {  # process-spanning meshes over torch.distributed
+        "parallel": {"initialize_multihost"},
+        "mesh": {"initialize_multihost"},
     },
     "A15": {"utils": {"enable_compilation_cache"}},  # scripts, leftovers
 }
 SUBPACKAGES = ["obs", "resilience", "parallel", "utils", "plan", "serve",
-               "vis", "models", "ops", "delta", "cache", "native"]
+               "vis", "models", "ops", "delta", "cache", "native", "mesh"]
 
 
 def _reference_all(sub):

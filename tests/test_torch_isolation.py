@@ -46,7 +46,9 @@ def test_port_imports_with_jax_blocked():
         "swiftly_tpu_torch.plan.compiler, swiftly_tpu_torch.obs, "
         "swiftly_tpu_torch.resilience, swiftly_tpu_torch.utils.checkpoint, "
         "swiftly_tpu_torch.serve.procfleet, swiftly_tpu_torch.serve.ipc, "
-        "swiftly_tpu_torch.native; "
+        "swiftly_tpu_torch.native, swiftly_tpu_torch.mesh, "
+        "swiftly_tpu_torch.mesh.engine, swiftly_tpu_torch.mesh.recovery, "
+        "swiftly_tpu_torch.parallel.mesh, swiftly_tpu_torch.parallel.sharded; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swiftly_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)"
     )

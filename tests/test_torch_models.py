@@ -135,11 +135,28 @@ def test_oracle_and_io_slices_equal():
 
 
 def test_mesh_is_not_ported_yet():
+    """Meshes are ported (A8): a config takes a mesh and an spmd_mode on
+    the device backends, and refuses a mesh on the host backends or an
+    unknown spmd_mode with ValueError, as the JAX package's does."""
+    from swiftly_tpu_torch.parallel.mesh import make_facet_mesh
+
     p = jm.SWIFT_CONFIGS["1k[1]-n512-256"]
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm.SwiftlyConfig(backend="torch", device="cpu", mesh=object(), **p)
+    mesh = make_facet_mesh(devices=["cpu"] * 2)
+    for backend in ("torch", "planar"):
+        cfg = tm.SwiftlyConfig(backend=backend, device="cpu", mesh=mesh, **p)
+        assert cfg.mesh is mesh and cfg.spmd_mode == "shard_map"
+    cfg = tm.SwiftlyConfig(backend="torch", device="cpu", mesh=mesh,
+                           spmd_mode="gspmd", **p)
+    assert cfg.spmd_mode == "gspmd"
+    assert tm.SwiftlyConfig(backend="torch", device="cpu", **p).mesh is None
+    with pytest.raises(ValueError, match="spmd_mode"):
+        tm.SwiftlyConfig(backend="torch", device="cpu", mesh=mesh,
+                         spmd_mode="pmap", **p)
     # the native host backend (A14) is ported: a host core, no device
     cfg = tm.SwiftlyConfig(backend="native", device="cpu", **p)
     assert cfg.core.backend == "native" and cfg.core.device is None
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm.SwiftlyConfig(backend="native", mesh=object(), **p)
+    for backend in ("numpy", "native"):
+        with pytest.raises(ValueError, match="runs on the host"):
+            tm.SwiftlyConfig(backend=backend, mesh=mesh, **p)
+        with pytest.raises(ValueError, match="runs on the host"):
+            jm.SwiftlyConfig(backend=backend, mesh=object(), **p)
