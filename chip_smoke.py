@@ -81,25 +81,26 @@ this checkout, and holds each kernel against its plain PyTorch version:
    facets of the grid-corrected, band-limited sky model, a cache feed
    (``SpillCache`` / ``CachedColumnFeed``) seeded with the hottest
    column's rows, 2^20 zipf-over-columns samples with a 10% uniform tail
-   cut into 16 batches, of which the first 3 (``--serve-full``: all 16)
+   cut into 16 batches, of which the first 2 (``--serve-full``: all 16)
    are served through ``VisibilityService`` (pumped dry after every
-   second, the feed force-evicted after the second), every served
+   second and before the feed's forced eviction, which comes after the
+   second, or after the first when 2 are served), every served
    sample gridded by a version-pinned ``VisGridder`` and ingested by a
    sampled ``StreamedBackward``; gated on the oracle, the shed reasons,
    the cache ladder, the adjoint identity, bit-identity to a fresh
    forward's rows at another bucket (``degrid_batch`` fed the host's
    weights) and of a second gridding, the facet-update version gates, and
-   B4 launched once per pump that served a sample; then the traffic's
-   first batch (65,536 samples, from a freshly seeded feed) served again
-   under torch.profiler for the device's idle share and B4's device
-   time;
+   B4 launched once per pump that served a sample; then the first half
+   of the traffic's first batch (32,768 samples, from a freshly seeded
+   feed) served again under torch.profiler for the device's idle share
+   and B4's device time;
 9. the 128k streamed round trip at ``128k[1]-n32k-512``, planar f32, the
    full cover of 293 x 293 = 85,849 subgrids: facets made by
    ``make_sparse_facet`` (9 of 45056^2, 73 GB as dense real planes, never
    resident), ``StreamedForward(residency="device")`` choosing slabs of
    one facet synthesised on the card, fed by ``feed_backward_passes`` into
    a ``StreamedBackward(residency="sampled", fold_group=4)`` over one
-   2048-row slab that holds a source pixel, then ``finish_device``; one
+   1024-row slab that holds a source pixel, then ``finish_device``; one
    run synchronised at both ends, gated on the oracle RMS of >= 2% of the
    subgrids from every column (the direct-DFT oracle evaluated on the
    card in float64, ``_subgrid_rms_device``) and on the slab's rows of
@@ -107,8 +108,9 @@ this checkout, and holds each kernel against its plain PyTorch version:
    ``obs.Heartbeat`` (progress and ETA every 30 s, gated on counting
    every subgrid); its
    plan, seconds, peak memory beside the slab sizer's model, and
-   launches; then its first column group again under torch.profiler for
-   the device's busy share and the time by stage;
+   launches; then the first half of its first column group (a group of
+   half the plan's columns) again under torch.profiler for the device's
+   busy share and the time by stage;
 10. the host and device residencies at ``32k[1]-n16k-512``, planar f32,
    from real facet planes on the host (run after the slab checks): (a)
    ``StreamedForward(residency="host", col_block=512)`` (the FFT facet
@@ -237,7 +239,7 @@ this checkout, and holds each kernel against its plain PyTorch version:
    victim's breaker open -> half-open -> closed, one fabric roll and one
    stream copy, and a fleet record gated on ``validate_fleet_artifact``
    (each replica's ``serve`` block on ``validate_serve_artifact``); (e)
-   phase 8's first batch of 65,536 samples served through
+   the first half of phase 8's first batch, 32,768 samples, served through
    ``VisibilityService(row_source=FleetRowSource(fleet))``, gated on
    the oracle (``DEGRID_TOLERANCE``) and B4 launched once per pump that
    served a sample. It prints the device peak after every step;
@@ -307,6 +309,29 @@ this checkout, and holds each kernel against its plain PyTorch version:
    one ``mesh_32k`` line: walls, peaks, errors, the mesh facets' device
    digests, the collectives, the recovery reports and the launches.
 
+17. the facet mesh across processes (run after phase 16, which computes
+   its references): 3 rank processes started with the bootstrap knobs
+   (``SWIFTLY_COORDINATOR`` a ``file://`` rendezvous in a temporary dir),
+   each joining through ``parallel.mesh.bootstrap_from_env`` and making
+   ``make_facet_mesh(devices=["cuda:0"])``: one shard a rank, all on the
+   one card, so the backend rule picks gloo, and the collectives' CUDA
+   tensors cross through pinned host buffers. (a) At ``4k[1]-n2k-512``
+   the round trip (``MeshStreamedForward`` into ``MeshStreamedBackward``)
+   under the psum and under the ring, every group and each rank's
+   facets gated bit-equal (by ``_device_digest``) to phase 16 (b)'s
+   single-process 3-shard runs; (b) at ``32k[1]-n16k-512``, full width,
+   the psum forward's first group of ``MULTIPROC_COL_GROUP`` columns and
+   its fold into the mesh backward, on every rank under torch.profiler,
+   gated bit-equal to the same group of a single-process 3-shard run
+   (phase 16) and on B1 and B2 launching in every rank; each rank's B1
+   and B2 launches and traced ms (the tile engine's two flavours), host
+   staging seconds and GB a column against the model (gated on its
+   bytes), device peak, and the whole 32k round trip over gloo
+   extrapolated from the slowest rank's figures (printed as an
+   extrapolation; not run). A rank that fails or outlives
+   ``MULTIPROC_TIMEOUT_S`` fails the phase, with every rank's log; every
+   rank is stopped. It prints one ``multiproc_32k`` line.
+
 At phases 6, 10 (b), 11 (a), 16 (a) and 9 the streamed forward's sizer model
 (``parallel.streamed.stream_peak_bytes`` beside the backwards'
 ``device_bytes``) is printed beside the measured device peak
@@ -319,7 +344,8 @@ code. The last lines are the ``residency_32k`` JSON record of phase
 10, the ``spill_32k`` record of phase 11, the ``resume_32k`` record of
 phase 12, the ``plan_32k`` record of phase 13, the ``delta_32k`` record
 of phase 14, the ``procfleet_32k`` record of phase 15, the ``mesh_32k``
-record of phase 16, the ``native_1k``
+record of phase 16, the ``multiproc_32k`` record of phase 17, the
+``native_1k``
 record of phase 4 (b), the ``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
@@ -332,6 +358,7 @@ and the exact update; ``fleet``, (d) and (e)) and phase 15's
 (``procfleet``, the parent's recording; ``procfleet_workers``, the
 workers' launches, summed from their telemetry) and phase 16's
 (``mesh``, its part (a): the mesh's shards and the single-device twin)
+and phase 17's (``multiproc``, its part (b), summed over the ranks)
 too, with the times at that path's shapes) and
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits non-zero,
 and prints no result, without one.
@@ -362,7 +389,9 @@ shapes); ``--procfleet`` runs phase 2 and phase 15 alone, and prints one
 ``procfleet_32k`` JSON line (with B1 and B3 timed at the recording's and
 the workers' shapes); ``--mesh`` runs phase 2, phase 6's warm and timed
 round trips (unprofiled) and phase 16, and prints one ``mesh_32k`` JSON
-line (with B1, B2 and B3 timed at phase 16 (a)'s shapes).
+line (with B1, B2 and B3 timed at phase 16 (a)'s shapes); ``--multiproc``
+runs phase 2, phase 16 (for its references) and phase 17, and prints the
+``mesh_32k`` and ``multiproc_32k`` lines.
 """
 
 from __future__ import annotations
@@ -387,7 +416,8 @@ SMALL_CONFIG = "1k[1]-n512-256"
 # 45056^2 (73 GB as real f32 planes: never resident on one card), and the
 # height of the backward's output-row slab
 BIG_CONFIG = "128k[1]-n32k-512"
-BIG_SLAB_ROWS = 2048
+# (1024 rows: the fold's row blocks are (9, 118, 45056, 1024) as at 2048)
+BIG_SLAB_ROWS = 1024
 
 # Centre-relative source positions (fractions of N): the eight spread
 # sources of the JAX package's benchmark, so every subgrid column band
@@ -524,15 +554,19 @@ GRID_WRAPPED = [(300, 8, 61), (200, 4, 70), (200, 6, 70), (3300, 8, 448)]
 VIS_SAMPLES = 2**20
 VIS_BATCHES = 16
 # batches phase 8 serves by default (--serve-full: all VIS_BATCHES), to keep
-# the whole script inside its time limit beside phases 9 and 12
-VIS_SERVED = 3
+# the whole script inside its time limit beside phases 9, 12 and 17: one
+# from the cache feed, then one after its eviction
+VIS_SERVED = 2
 VIS_SEED = 1234
 VIS_ZIPF_S = 1.1
 VIS_MAX_DEPTH = 65536
 VIS_MAX_BATCH = 64
-VIS_EVICT_AFTER = 2  # batches served from the feed before it is evicted
-# whole batches in the profiled serving window, from the traffic's first
-VIS_PROFILE_BATCHES = 1
+# batches served from the feed before it is evicted (at most all but the
+# last served one)
+VIS_EVICT_AFTER = 2
+# samples in the profiled serving window: the first half of the
+# traffic's first batch
+VIS_PROFILE_SAMPLES = VIS_SAMPLES // VIS_BATCHES // 2
 # kernels whose batch varies per launch (grid, B4's pumps) are timed at
 # their most frequent and at their largest shapes
 VARIED_TIMED_SHAPES = 4
@@ -3758,7 +3792,7 @@ class _FleetClients:
 
 def delta_main(torch, config_name=MAIN_CONFIG, device="cuda", fold_group=4,
                col_group=DELTA_COL_GROUP, n_requests=FLEET_REQUESTS,
-               n_vis=VIS_SAMPLES // VIS_BATCHES):
+               n_vis=VIS_SAMPLES // VIS_BATCHES // 2):
     """Phase 14: incremental facet updates and the serving fleet at
     `config_name`, planar f32, from sparse facets of the grid-corrected sky
     model (module docstring): (a) ``IncrementalForward.record``; (b) K = 1
@@ -4101,9 +4135,9 @@ def delta_main(torch, config_name=MAIN_CONFIG, device="cuda", fold_group=4,
         fleet_counts_d = read_counts()
 
         # -- (e) visibilities through the fleet ---------------------------
-        uv_all, _ = vis_traffic(sgcs, n_vis * VIS_BATCHES, VIS_SEED,
-                                VIS_ZIPF_S, kernel.support + 1, N)
-        uv = np.array_split(uv_all, VIS_BATCHES)[0]
+        uv_all, _ = vis_traffic(sgcs, VIS_SAMPLES, VIS_SEED, VIS_ZIPF_S,
+                                kernel.support + 1, N)
+        uv = np.array_split(uv_all, VIS_BATCHES)[0][:n_vis]
         vsvc = sv.VisibilityService(
             subgrid_configs=sgcs, N=N, kernel=kernel,
             row_source=sv.FleetRowSource(fleet, priority=1),
@@ -4988,12 +5022,13 @@ def _log_collectives(config_name, rec):
                 f"{rec['model_bytes'] / 1e9:.6f} GB)")
 
 
-def _mesh_ring(torch, config_name, device, n_shards):
-    """Phase 16 (b): the forward at `config_name` over `n_shards` virtual
-    shards (no backward), once under the psum and once under the ring,
-    each of the ring's column groups held to the psum's within
-    `MESH_GROUP_REL`, both collectives' stages beside
-    ``collective_bytes_forward``'s model."""
+def _mesh_ring(torch, config_name, device, n_shards, fold_group=4):
+    """Phase 16 (b): the round trip at `config_name` over `n_shards`
+    virtual shards, once under the psum and once under the ring, each of
+    the ring's column groups held to the psum's within `MESH_GROUP_REL`,
+    both collectives' stages beside ``collective_bytes_forward``'s model;
+    the digests of every group and of each shard's facets (phase 17 (a)'s
+    references)."""
     import swiftly_tpu_torch as st
     from swiftly_tpu_torch import mesh as smesh
     from swiftly_tpu_torch.obs import metrics
@@ -5018,18 +5053,28 @@ def _mesh_ring(torch, config_name, device, n_shards):
             with _env("SWIFTLY_MESH_COLLECTIVE", coll):
                 fwd = smesh.MeshStreamedForward(cfg, tasks, mesh=mesh)
                 fwd.col_group = MESH_DRILL_COL_GROUP
+                bwd = smesh.MeshStreamedBackward(cfg, fcs, mesh=mesh,
+                                                 fold_group=fold_group)
                 feed = _TimedFeed(torch, fwd, []) if cuda else fwd
                 groups[coll] = []
                 if cuda:
                     torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                for _, group in feed.stream_column_groups(sgcs):
+                for per_col, group in feed.stream_column_groups(sgcs):
                     groups[coll].append(group.clone())
+                    bwd.add_subgrid_group(
+                        [[sg for _, sg in col] for col in per_col], group)
+                facets = bwd.finish_device()
                 if cuda:
                     torch.cuda.synchronize()
                 out[coll] = {"wall_s": time.perf_counter() - t0,
                              "forward_device_s": (feed.forward_s() if cuda
-                                                  else None)}
+                                                  else None),
+                             "group_digests": [_device_digest(torch, g)
+                                               for g in groups[coll]],
+                             "facet_digests": [_device_digest(torch, t)
+                                               for t in facets.shards]}
+                del facets, bwd
                 require(fwd.last_plan["collective"] == coll,
                         f"mesh (b): ran {fwd.last_plan['collective']}, "
                         f"not {coll}")
@@ -5052,8 +5097,9 @@ def _mesh_ring(torch, config_name, device, n_shards):
     out.update(max_group_rel=worst, group_rel_bound=MESH_GROUP_REL,
                collective=rec)
     _log_collectives(config_name, rec)
-    log(f"{config_name} mesh (b): psum forward {out['psum']['wall_s']:.3f} "
-        f"s, ring forward {out['ring']['wall_s']:.3f} s, groups "
+    log(f"{config_name} mesh (b): psum round trip "
+        f"{out['psum']['wall_s']:.3f} s, ring round trip "
+        f"{out['ring']['wall_s']:.3f} s, groups "
         f"{worst:.3e} from the psum's (bound {MESH_GROUP_REL:.0e})")
     require(rec["psum"]["count"] == n_cols
             and rec["ring_step"]["count"] == n_cols,
@@ -5231,8 +5277,19 @@ def mesh_main(torch, phase6=None, config_name=MAIN_CONFIG, device="cuda",
     require(psum_rec["bytes"] == model_bytes,
             f"mesh: psum moved {psum_rec['bytes']} B, model {model_bytes}")
 
+    # phase 17 (b)'s reference: the psum forward's first group of
+    # MULTIPROC_COL_GROUP columns and its fold into a fresh mesh backward,
+    # each shard's facets digested
+    t0 = time.perf_counter()
+    out["first_group"] = _first_group_digests(
+        torch, smesh, cfg, tasks, fcs, sgcs, mesh, fold_group)
+    log(f"{config_name} mesh: phase 17 (b)'s reference (the first group "
+        f"of {MULTIPROC_COL_GROUP} columns, its fold) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    gc_collect(torch)
+
     # (b) the ring against the psum, at the drill's config
-    out["b"] = _mesh_ring(torch, drill_config, device, n_shards)
+    out["b"] = _mesh_ring(torch, drill_config, device, n_shards, fold_group)
 
     # (c) the elastic drill
     out["drill"] = _mesh_drill(torch, drill_config, device, fold_group,
@@ -5242,8 +5299,471 @@ def mesh_main(torch, phase6=None, config_name=MAIN_CONFIG, device="cuda",
     return out
 
 
+def _first_group_digests(torch, smesh, cfg, tasks, fcs, sgcs, mesh,
+                         fold_group, col_group=None):
+    """The psum forward's first column group over `mesh` (of `col_group`
+    columns, default `MULTIPROC_COL_GROUP`) and its fold into a fresh
+    mesh backward: the group's digest and each of this process's shards'
+    facets' digests (phase 17 (b) on both sides)."""
+    col_group = col_group or MULTIPROC_COL_GROUP
+    with _env("SWIFTLY_MESH_COLLECTIVE", "psum"):
+        fwd = smesh.MeshStreamedForward(cfg, tasks, mesh=mesh,
+                                        col_group=col_group)
+        gen = fwd.stream_column_groups(sgcs)
+        per_col, group = next(gen)
+        bwd = smesh.MeshStreamedBackward(cfg, fcs, mesh=mesh,
+                                         fold_group=fold_group)
+        bwd.add_subgrid_group([[sg for _, sg in col] for col in per_col],
+                              group)
+        facets = bwd.finish_device()
+        out = {"col_group": col_group,
+               "group_digest": _device_digest(torch, group),
+               "fold_digests": [_device_digest(torch, t)
+                                for t in facets.shards]}
+        gen.close()
+    return out
+
+
 def _mesh_line(res):
     """Phase 16's JSON record, without the per-shape launch counts."""
+    return {k: v for k, v in res.items() if k != "counts"}
+
+
+# -- phase 17: the facet mesh across processes ------------------------------
+
+MULTIPROC_RANKS = 3  # a shard a rank, all on cuda:0: phase 16's 3 shards
+MULTIPROC_COL_GROUP = 4  # (b)'s first group: 4 columns, one fold group
+MULTIPROC_TIMEOUT_S = 300  # the ranks' own limit, start-up included
+
+
+def _cgemm_flavour(name):
+    """Which port kernel a device activity of the shared tile engine is:
+    ``colpass`` (B1) or ``fold`` (B2, its L operand conjugated: the
+    engine's last template argument), else None."""
+    if "cgemm_kernel<" not in name:
+        return None
+    args = name.split("cgemm_kernel<", 1)[1].split(">", 1)[0].split(",")
+    return "fold" if args[-1].strip() == "true" else "colpass"
+
+
+def _rank_counts(counts):
+    """`read_counts` as JSON: shapes as lists."""
+    return {k: [n, [[list(shape), c] for shape, c in shapes.items()]]
+            for k, (n, shapes) in counts.items()}
+
+
+def _rank_round_trips(torch, st, smesh, mesh, config_name, col_group,
+                      fold_group, device):
+    """Phase 17 (a) in one rank: the round trip of `config_name` under
+    the psum and under the ring over the process mesh; the digests of
+    every group and of this rank's facets."""
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    tasks = [(fc, (lambda fc=fc: st.make_real_facet(
+        N, fc, sources_for(N), dtype=np.float32))) for fc in fcs]
+    out = {}
+    for coll in ("psum", "ring"):
+        with _env("SWIFTLY_MESH_COLLECTIVE", coll):
+            fwd = smesh.MeshStreamedForward(cfg, tasks, mesh=mesh,
+                                            col_group=col_group)
+            bwd = smesh.MeshStreamedBackward(cfg, fcs, mesh=mesh,
+                                             fold_group=fold_group)
+            t0 = time.perf_counter()
+            digests = []
+            for per_col, group in fwd.stream_column_groups(sgcs):
+                digests.append(_device_digest(torch, group))
+                bwd.add_subgrid_group(
+                    [[sg for _, sg in col] for col in per_col], group)
+            facets = bwd.finish_device()
+            out[coll] = {"wall_s": time.perf_counter() - t0,
+                         "collective": fwd.last_plan["collective"],
+                         "group_digests": digests,
+                         "facet_digests": [_device_digest(torch, t)
+                                           for t in facets.shards]}
+            del fwd, bwd, facets
+    return out
+
+
+def _rank_first_group(torch, st, smesh, mesh, config_name, col_group,
+                      fold_group, device):
+    """Phase 17 (b) in one rank: the psum forward's first column group
+    of `config_name` over the process mesh and its fold into the mesh
+    backward, timed, profiled on the card (B1 and B2 by the tile
+    engine's flavour), with the collectives' host staging and the
+    device peak."""
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_setup = time.perf_counter()
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    n_cols = len({sg.off0 for sg in sgcs})
+    tasks = [(fc, (lambda fc=fc: st.make_real_facet(
+        N, fc, sources_for(N), dtype=np.float32))) for fc in fcs]
+    out = {"config": config_name, "col_group": col_group,
+           "n_groups": -(-n_cols // col_group), "n_cols": n_cols,
+           "setup_s": time.perf_counter() - t_setup}
+    with _env("SWIFTLY_MESH_COLLECTIVE", "psum"):
+        t0 = time.perf_counter()
+        fwd = smesh.MeshStreamedForward(cfg, tasks, mesh=mesh,
+                                        col_group=col_group)
+        fwd._upload_resident_facets()
+        sync()
+        out["facets_s"] = time.perf_counter() - t0
+        bwd = smesh.MeshStreamedBackward(cfg, fcs, mesh=mesh,
+                                         fold_group=fold_group)
+        before = _reset_peak(torch)
+        reset_counts()
+        mesh.staging.update(d2h_bytes=0, h2d_bytes=0, seconds=0.0)
+        prof = None
+        t0 = time.perf_counter()
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.__enter__()
+        out["profiler_start_s"] = time.perf_counter() - t0
+        try:
+            sync()
+            t0 = time.perf_counter()
+            gen = fwd.stream_column_groups(sgcs)
+            per_col, group = next(gen)
+            sync()
+            out["forward_s"] = time.perf_counter() - t0
+            staging = dict(mesh.staging)
+            t0 = time.perf_counter()
+            bwd.add_subgrid_group([[sg for _, sg in col] for col in per_col],
+                                  group)
+            sync()
+            out["feed_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            facets = bwd.finish_device()
+            sync()
+            out["finish_s"] = time.perf_counter() - t0
+        finally:
+            t0 = time.perf_counter()
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            out["profiler_stop_s"] = time.perf_counter() - t0
+        gen.close()
+        t0 = time.perf_counter()
+        out["counts"] = _rank_counts(read_counts())
+        out["peak_gib"] = (_peak(torch) - before) / 2**30 if cuda else None
+        out["peak_total_gib"] = _peak(torch) / 2**30 if cuda else None
+        out["group_cols"] = int(group.shape[0])
+        out["group_digest"] = _device_digest(torch, group)
+        out["fold_digests"] = [_device_digest(torch, t)
+                               for t in facets.shards]
+        out["staging"] = staging
+        out["partial_bytes"] = (len(per_col[0]) * cfg.core.xM_size ** 2 * 2
+                                * 4)
+        if prof is not None:
+            spans = {"colpass": [0.0, 0], "fold": [0.0, 0]}
+            for name, a, b in _device_events(prof):
+                kind = _cgemm_flavour(name)
+                if kind is not None:
+                    spans[kind][0] += (b - a) / 1e6
+                    spans[kind][1] += 1
+            out["traced"] = {k: {"ms": v[0], "launches": v[1]}
+                             for k, v in spans.items()}
+        out["digests_and_trace_s"] = time.perf_counter() - t0
+        del fwd, bwd, facets, group
+    return out
+
+
+def multiproc_rank(job_path):
+    """A rank of phase 17, started by `_MultiprocRanks` with the bootstrap
+    knobs in its environment: joins the process group and builds the
+    mesh of its one shard, then waits for the parent's go file (its
+    start-up overlaps phase 16), runs (a) and (b) and writes its record.
+    """
+    import os
+
+    import torch
+
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch import mesh as smesh
+    from swiftly_tpu_torch.parallel.mesh import bootstrap_from_env
+
+    job = json.loads(Path(job_path).read_text())
+    device = job["device"]
+    rec = {"imported_s": time.time() - job["spawned_at"]}
+    t_start = time.perf_counter()
+    info = bootstrap_from_env()
+    require(info is not None, "phase 17 rank: no bootstrap knobs")
+    if device == "cuda":
+        torch.cuda.set_device(0)
+        torch.cuda.init()
+    mesh = smesh.make_facet_mesh(devices=[torch.device(device)])
+    if device == "cuda":
+        # the profiler's first start in a process is slow: pay it here,
+        # while phase 16 runs, not inside (b)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]):
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+    rec.update(rank=info["process_id"], mesh=repr(mesh),
+               backend=mesh.backend, pid=os.getpid(),
+               joined_s=time.perf_counter() - t_start)
+    go = Path(job["go"])
+    deadline = time.monotonic() + MULTIPROC_TIMEOUT_S
+    while not go.exists():
+        require(time.monotonic() < deadline, "phase 17 rank: no go file")
+        time.sleep(0.05)
+    t_start = time.perf_counter()
+    reset_counts()
+    rec["a"] = _rank_round_trips(torch, st, smesh, mesh, job["ring_config"],
+                                 job["ring_col_group"], job["fold_group"],
+                                 device)
+    rec["a"]["counts"] = _rank_counts(read_counts())
+    rec["a_s"] = time.perf_counter() - t_start
+    rec["b"] = _rank_first_group(torch, st, smesh, mesh, job["main_config"],
+                                 job["col_group"], job["fold_group"], device)
+    rec["wall_s"] = time.perf_counter() - t_start
+    Path(job["out"]).write_text(json.dumps(rec))
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+class _MultiprocRanks:
+    """Phase 17's rank processes: started before phase 16 (a rank's
+    imports, CUDA context and bootstrap overlap it), released by a go
+    file once phase 16 is done, then waited for. Any rank that fails or
+    outlives `MULTIPROC_TIMEOUT_S` fails the phase with every rank's log;
+    `stop` kills whatever still runs and removes the work dir."""
+
+    def __init__(self, device="cuda", n_ranks=MULTIPROC_RANKS,
+                 config_name=MAIN_CONFIG, ring_config=MESH_DRILL_CONFIG,
+                 fold_group=4):
+        import os
+        import tempfile
+
+        self.n_ranks = n_ranks
+        self.work = Path(tempfile.mkdtemp(prefix="swiftly_multiproc_"))
+        self.go = self.work / "go"
+        self.procs, self._logs = [], []
+        for r in range(n_ranks):
+            job = {"device": device, "ring_config": ring_config,
+                   "ring_col_group": MESH_DRILL_COL_GROUP,
+                   "main_config": config_name,
+                   "col_group": MULTIPROC_COL_GROUP,
+                   "fold_group": fold_group, "go": str(self.go),
+                   "out": str(self.work / f"rank{r}.json"),
+                   "spawned_at": time.time()}
+            (self.work / f"job{r}.json").write_text(json.dumps(job))
+            env = dict(os.environ,
+                       SWIFTLY_COORDINATOR=f"file://{self.work / 'rdv'}",
+                       SWIFTLY_NUM_PROCESSES=str(n_ranks),
+                       SWIFTLY_PROCESS_ID=str(r))
+            env.pop("SWIFTLY_MESH_COLLECTIVE", None)
+            log_f = open(self.work / f"rank{r}.log", "w")
+            self._logs.append(log_f)
+            self.procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--multiproc-rank", str(self.work / f"job{r}.json")],
+                cwd=ROOT, env=env, stdout=log_f, stderr=subprocess.STDOUT))
+
+    def release(self):
+        self.go.write_text("go")
+
+    def wait(self):
+        """The ranks' records, in rank order, once every rank exited 0."""
+        deadline = time.monotonic() + MULTIPROC_TIMEOUT_S
+        failed = None
+        while any(p.poll() is None for p in self.procs):
+            bad = [r for r, p in enumerate(self.procs)
+                   if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                failed = bad or "timeout"
+                break
+            time.sleep(0.1)
+        self.stop(remove=False)
+        failed = failed or [r for r, p in enumerate(self.procs)
+                            if p.returncode != 0] or None
+        if failed is not None:
+            tails = "\n".join(
+                f"--- rank {r} (rc {p.returncode}):\n"
+                + (self.work / f"rank{r}.log").read_text()[-2500:]
+                for r, p in enumerate(self.procs))
+            require(False, f"phase 17: rank(s) {failed} failed\n{tails}")
+        return [json.loads((self.work / f"rank{r}.json").read_text())
+                for r in range(self.n_ranks)]
+
+    def stop(self, remove=True):
+        import shutil
+
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in self._logs:
+            f.close()
+        if remove:
+            shutil.rmtree(self.work, ignore_errors=True)
+
+
+def _merge_counts(records):
+    """The ranks' launch counts summed, in `read_counts`'s form."""
+    out = {}
+    for rec in records:
+        for k, (n, shapes) in rec.items():
+            tot, acc = out.get(k, (0, {}))
+            for shape, c in shapes:
+                acc[tuple(shape)] = acc.get(tuple(shape), 0) + c
+            out[k] = (tot + n, acc)
+    return out
+
+
+def multiproc_main(torch, mesh16, ranks=None, device="cuda",
+                   config_name=MAIN_CONFIG, fold_group=4):
+    """Phase 17: the facet mesh across `MULTIPROC_RANKS` processes, one
+    shard each, all on one card, over gloo (module docstring), held bit
+    for bit to phase 16's single-process runs (`mesh16`, `mesh_main`'s
+    record). `ranks`: the `_MultiprocRanks` started before phase 16
+    (None: started now)."""
+    t_phase = time.perf_counter()
+    ring = mesh16["b"]
+    first = mesh16["first_group"]
+    require(ring["col_group"] == MESH_DRILL_COL_GROUP
+            and first["col_group"] == MULTIPROC_COL_GROUP,
+            "phase 17: phase 16's references are of another grouping")
+    gc_collect(torch)
+    if ranks is None:
+        ranks = _MultiprocRanks(device, config_name=config_name,
+                                ring_config=ring["config"],
+                                fold_group=fold_group)
+    try:
+        ranks.release()
+        recs = ranks.wait()
+    finally:
+        ranks.stop()
+    n_ranks = ranks.n_ranks
+    out = {"ranks": n_ranks, "backend": recs[0]["backend"],
+           "mesh": recs[0]["mesh"],
+           "imported_s": [r["imported_s"] for r in recs],
+           "joined_s": [r["joined_s"] for r in recs],
+           "a_s": [r["a_s"] for r in recs],
+           "rank_wall_s": [r["wall_s"] for r in recs]}
+    require(all(r["backend"] == "gloo" for r in recs),
+            f"phase 17: ranks on one card must run gloo, got "
+            f"{[r['backend'] for r in recs]}")
+    # (a) the round trips at the ring's config, every digest
+    a = {}
+    for coll in ("psum", "ring"):
+        equal_groups = all(r["a"][coll]["group_digests"]
+                           == ring[coll]["group_digests"] for r in recs)
+        equal_facets = all(r["a"][coll]["facet_digests"]
+                           == [ring[coll]["facet_digests"][r["rank"]]]
+                           for r in recs)
+        a[coll] = {"wall_s": [r["a"][coll]["wall_s"] for r in recs],
+                   "groups_bit_equal": equal_groups,
+                   "facets_bit_equal": equal_facets}
+        log(f"{ring['config']} multiproc (a) {coll}: {n_ranks} ranks over "
+            f"{out['backend']}, round trip "
+            f"{max(a[coll]['wall_s']):.3f} s (slowest rank), groups "
+            f"bit-equal to phase 16's: {equal_groups}, each rank's facets "
+            f"bit-equal to its shard's: {equal_facets}")
+        require(all(r["a"][coll]["collective"] == coll for r in recs),
+                f"phase 17 (a): ranks ran another collective than {coll}")
+        require(equal_groups and equal_facets,
+                f"phase 17 (a): the {coll} round trip across processes "
+                f"differs from phase 16's single process")
+    out["a"] = a
+    # (b) the first 32k group and its fold
+    b = [r["b"] for r in recs]
+    part = b[0]["partial_bytes"]
+    cols = b[0]["group_cols"]
+    rows = []
+    for r, rb in zip(recs, b):
+        counts = {k: v[0] for k, v in rb["counts"].items()}
+        root = r["rank"] == 0
+        model_d2h = part
+        model_h2d = (n_ranks - 1) * part if root else part
+        st_ = rb["staging"]
+        row = {
+            "rank": r["rank"], "b1_launches": counts["colpass"],
+            "b2_launches": counts["fold"],
+            "b1_ms": (rb.get("traced") or {}).get("colpass", {}).get("ms"),
+            "b2_ms": (rb.get("traced") or {}).get("fold", {}).get("ms"),
+            "forward_s": rb["forward_s"], "feed_s": rb["feed_s"],
+            "finish_s": rb["finish_s"], "facets_s": rb["facets_s"],
+            "overheads_s": {k: rb[k] for k in (
+                "setup_s", "profiler_start_s", "profiler_stop_s",
+                "digests_and_trace_s")},
+            "staging_s_per_col": st_["seconds"] / cols,
+            "staging_d2h_gb_per_col": st_["d2h_bytes"] / cols / 1e9,
+            "staging_h2d_gb_per_col": st_["h2d_bytes"] / cols / 1e9,
+            "model_d2h_gb_per_col": model_d2h / 1e9,
+            "model_h2d_gb_per_col": model_h2d / 1e9,
+            "peak_gib": rb["peak_gib"], "peak_total_gib": rb["peak_total_gib"],
+            "group_bit_equal": rb["group_digest"] == first["group_digest"],
+            "fold_bit_equal": (rb["fold_digests"]
+                               == [first["fold_digests"][r["rank"]]]),
+        }
+        rows.append(row)
+        log(f"{config_name} multiproc (b) rank {row['rank']}: first group "
+            f"({cols} columns) {row['forward_s']:.3f} s, fold "
+            f"{row['feed_s']:.3f} + finish {row['finish_s']:.3f} s "
+            f"(facets {row['facets_s']:.3f} s); B1 {row['b1_launches']} "
+            f"launches, {row['b1_ms'] or 0:.3f} ms traced in all; B2 "
+            f"{row['b2_launches']} launches, {row['b2_ms'] or 0:.3f} ms "
+            f"traced in all (3 ranks share the card); host staging {row['staging_s_per_col']:.4f} s, d2h "
+            f"{row['staging_d2h_gb_per_col']:.4f} GB (model "
+            f"{row['model_d2h_gb_per_col']:.4f}), h2d "
+            f"{row['staging_h2d_gb_per_col']:.4f} GB (model "
+            f"{row['model_h2d_gb_per_col']:.4f}) a column; device peak "
+            f"{row['peak_total_gib'] or 0:.2f} GiB; group bit-equal "
+            f"{row['group_bit_equal']}, fold bit-equal "
+            f"{row['fold_bit_equal']}")
+        require(row["group_bit_equal"] and row["fold_bit_equal"],
+                f"phase 17 (b): rank {row['rank']}'s first group or its "
+                f"fold differs from phase 16's single process")
+        require(row["b1_launches"] > 0 and row["b2_launches"] > 0
+                or device != "cuda",
+                f"phase 17 (b): B1/B2 not launched in rank {row['rank']}")
+        require(abs(st_["d2h_bytes"] - cols * model_d2h) == 0
+                and abs(st_["h2d_bytes"] - cols * model_h2d) == 0
+                or device != "cuda",
+                f"phase 17 (b): rank {row['rank']} staged {st_} against "
+                f"the model's {cols} x ({model_d2h}, {model_h2d}) B")
+    n_groups = b[0]["n_groups"]
+    slow = max(range(n_ranks), key=lambda k: b[k]["forward_s"]
+               + b[k]["feed_s"])
+    extrapolated = (b[slow]["facets_s"] + n_groups * (
+        b[slow]["forward_s"] + b[slow]["feed_s"]) + b[slow]["finish_s"])
+    out["b"] = {"config": config_name, "col_group": first["col_group"],
+                "n_groups": n_groups, "ranks": rows,
+                "extrapolated_round_trip_s": extrapolated}
+    log(f"{config_name} multiproc (b): the whole round trip over gloo, "
+        f"EXTRAPOLATED from rank {slow}'s first group (facets + "
+        f"{n_groups} x (group + fold) + finish): {extrapolated:.1f} s "
+        f"(not run)")
+    # the kernels line's path: (b), counted from 0 in every rank; (a)'s
+    # launches beside it in the record
+    out["counts"] = _merge_counts([rb["counts"] for rb in b])
+    out["launches"] = {k: v[0] for k, v in out["counts"].items()}
+    out["launches_a"] = {
+        k: v[0]
+        for k, v in _merge_counts([r["a"]["counts"] for r in recs]).items()}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _multiproc_line(res):
+    """Phase 17's JSON record, without the per-shape launch counts."""
     return {k: v for k, v in res.items() if k != "counts"}
 
 
@@ -5436,7 +5956,10 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
     del facets, feed, fwd, bwd
     gc_collect(torch)
     if profile:
-        out.update(profile_big(torch, executors, sgcs, plan["col_group"]))
+        # half the plan's column group: the profiled window's share of the
+        # script's time limit
+        out.update(profile_big(torch, executors, sgcs,
+                               max(1, plan["col_group"] // 2)))
     return out
 
 
@@ -5692,12 +6215,15 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
     sync()
     t0 = time.perf_counter()
     tracked, pending = [], 0
+    # the feed is evicted before the last served batch at the latest, and
+    # the batches before the eviction are pumped dry from the cache
+    evict_at = min(VIS_EVICT_AFTER, n_serve - 1)
     for k, b in enumerate(batches[:n_serve]):
-        if k == VIS_EVICT_AFTER:
+        if k == evict_at:
             spill.reset()  # forced eviction: the feed's index dangles
         tracked.append((b, service.submit(b, priority=int(priorities[k]))))
         pending += 1
-        if pending >= 2 or k == n_serve - 1:
+        if pending >= 2 or k == n_serve - 1 or k + 1 == evict_at:
             while service.pump_once():
                 pass
             pending = 0
@@ -5903,12 +6429,12 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
         require(out["serve_b4_launches"] == out["pumps"] > 0,
                 f"serving launched B4 {out['serve_b4_launches']} times in "
                 f"{out['pumps']} pumps that served a sample")
-        # the traffic's first batch again, from a freshly seeded feed
+        # the first half of the traffic's first batch again, from a
+        # freshly seeded feed
         _, feed = vis_feed(hot_col, hot_stack, feed_tag)
         out.update(profile_vis(
             torch, sv, fwd_ref, sgcs, kernel, feed,
-            [(batches[k], int(priorities[k]))
-             for k in range(VIS_PROFILE_BATCHES)]))
+            [(batches[0][:VIS_PROFILE_SAMPLES], int(priorities[0]))]))
         mark("profiled")
     return out
 
@@ -5925,7 +6451,7 @@ def _device_profile(torch, cuda):
 
 
 def profile_vis(torch, sv, fwd, sgcs, kernel, feed, window, rows=12):
-    """Whole batches of the main traffic, `window` = [(samples, priority)],
+    """Samples of the main traffic, `window` = [(samples, priority)],
     served again under torch.profiler (device activity only) by a fresh
     service with the cache feed `feed`, submitted together and pumped dry
     as the counted run does: the device's busy time against the window's
@@ -6234,6 +6760,11 @@ def _args():
     p.add_argument("--mesh", action="store_true",
                    help="phase 2, phase 6 unprofiled and phase 16 (the "
                    "facet mesh) alone, B1/B2/B3 timed at its shapes")
+    p.add_argument("--multiproc", action="store_true",
+                   help="phase 2, phase 16 (its references) and phase 17 "
+                   "(the facet mesh across 3 processes on the card) alone")
+    p.add_argument("--multiproc-rank", metavar="JOB",
+                   help=argparse.SUPPRESS)  # a rank of phase 17
     p.add_argument("--delta", action="store_true",
                    help="phase 2, then phase 14 (incremental facet updates "
                    "and the serving fleet) alone")
@@ -6306,6 +6837,8 @@ def main():
     import torch
 
     args = _args()
+    if args.multiproc_rank:
+        return multiproc_rank(args.multiproc_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one "
               "NVIDIA GPU", file=sys.stderr)
@@ -6388,6 +6921,19 @@ def main():
         log(smi)
         log(json.dumps({"mesh_32k": line}))
         return 0
+    if args.multiproc:
+        ranks = _MultiprocRanks()
+        try:
+            mesh = mesh_main(torch)
+            done("mesh")
+            res = multiproc_main(torch, mesh, ranks)
+        finally:
+            ranks.stop()
+        done("multiproc")
+        log(smi)
+        log(json.dumps({"mesh_32k": _mesh_line(mesh)}))
+        log(json.dumps({"multiproc_32k": _multiproc_line(res)}))
+        return 0
     if args.delta:
         res = delta_main(torch)
         done("delta")
@@ -6445,9 +6991,15 @@ def main():
     procfleet = procfleet_main(torch)
     done("procfleet")
     gc_collect(torch)
-    mesh = mesh_main(torch, phase6=streamed)
-    done("mesh")
-    del streamed["facet_rows"]
+    ranks = _MultiprocRanks()  # their start-up overlaps phase 16
+    try:
+        mesh = mesh_main(torch, phase6=streamed)
+        done("mesh")
+        del streamed["facet_rows"]
+        multiproc = multiproc_main(torch, mesh, ranks)
+    finally:
+        ranks.stop()
+    done("multiproc")
     gc_collect(torch)
     slabs = slabs_main(torch)
     done("slabs")
@@ -6480,7 +7032,8 @@ def main():
                "fleet": {"counts": delta["counts_fleet"]},
                "procfleet": {"counts": procfleet["counts_record"]},
                "procfleet_workers": {"counts": procfleet["counts_workers"]},
-               "mesh": {"counts": mesh["counts"]}}
+               "mesh": {"counts": mesh["counts"]},
+               "multiproc": {"counts": multiproc["counts"]}}
     for path, result in results.items():
         for kname, (launches, shapes) in result["counts"].items():
             if launches == 0:
@@ -6518,6 +7071,7 @@ def main():
     log(json.dumps({"delta_32k": _delta_line(delta)}))
     log(json.dumps({"procfleet_32k": _procfleet_line(procfleet)}))
     log(json.dumps({"mesh_32k": _mesh_line(mesh)}))
+    log(json.dumps({"multiproc_32k": _multiproc_line(multiproc)}))
     log(json.dumps({"native_1k": native}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",

@@ -804,14 +804,15 @@ class SwiftlyBackward:
                 col.shards, self._offs1.shards, self._masks1.shards,
                 self._MNAF_BMNAFs.shards)):
             batched.accumulate_facet_batch(
-                shard_core(core, self.mesh.devices[i]), c, off0, o1, m1,
-                stack.size, acc)
+                shard_core(core, self.mesh.local_devices[i]), c, off0, o1,
+                m1, stack.size, acc)
         self.queue.admit(self._MNAF_BMNAFs.shards)
 
     def finish(self):
         """Drain accumulators and return the finished facet stack
         [F, yB, yB] (on a mesh gathered, without the padding, on the
-        first shard's device)."""
+        first shard's device; over processes the other ranks' facets
+        zero)."""
         for off0, col in self.lru.pop_all():
             self._fold_column(off0, col)
         if self._MNAF_BMNAFs is None:
@@ -827,7 +828,7 @@ class SwiftlyBackward:
             else:
                 facets = ShardedStack([
                     batched.finish_facets_batch(
-                        shard_core(self.core, self.mesh.devices[i]), acc,
+                        shard_core(self.core, self.mesh.local_devices[i]), acc,
                         o0.tolist(), m0, self.stack.size)
                     for i, (acc, o0, m0) in enumerate(zip(
                         self._MNAF_BMNAFs.shards, self._offs0.shards,

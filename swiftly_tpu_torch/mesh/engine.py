@@ -100,7 +100,8 @@ def attach_mesh(swiftly_config, mesh):
 
 def host_replica(arr):
     """One host copy of a replicated mesh result: a tensor (the first
-    shard's copy) or a `ShardedStack` of replicas (its first shard)."""
+    shard's copy) or a `ShardedStack` of replicas (its first addressable
+    shard: this rank's first, over processes; nothing crosses ranks)."""
     if isinstance(arr, ShardedStack):
         arr = arr.shards[0]
     if isinstance(arr, torch.Tensor):
@@ -111,7 +112,9 @@ def host_replica(arr):
 def host_gather(arr):
     """Host copy of a (possibly facet-sharded) mesh result: a
     `ShardedStack` gathered over its shards, its placement padding
-    dropped; a tensor or array as it is."""
+    dropped (over processes the global shape, the rows of other ranks'
+    shards zero, as the JAX package's addressable-shard gather); a
+    tensor or array as it is."""
     if isinstance(arr, ShardedStack):
         return arr.numpy()
     if isinstance(arr, torch.Tensor):

@@ -33,12 +33,13 @@ import time
 from ..obs import metrics as _metrics
 from ..obs import recorder as _recorder
 from ..obs import trace as _trace
-from ..parallel.mesh import make_facet_mesh, mesh_size
+from ..parallel.mesh import mesh_size
 from ..resilience import degrade as _degrade
 from ..resilience.faults import ShardLostError
 from ..resilience.watchdog import collective_timeout_s
 from ..utils.checkpoint import (
     checkpoint_generations,
+    rank_checkpoint_path,
     restore_streamed_backward_state,
 )
 
@@ -58,6 +59,12 @@ def survivor_mesh(mesh, lost_shard=None):
     :param lost_shard: index of the dead shard; default the last one
         (deterministic for drills; a detector passes the shard whose
         collective stalled)
+
+    A mesh over processes re-plans within its process group: every rank
+    must name the same lost shard, and a loss that leaves a rank with no
+    shard (a lost process) raises a `RuntimeError` naming the rank. The
+    survivors' shards may lie on other ranks than before: the autosave's
+    restore brings each row to its new rank (`utils.checkpoint`).
     """
     devices = list(mesh.devices)
     lost = len(devices) - 1 if lost_shard is None else int(lost_shard)
@@ -71,7 +78,7 @@ def survivor_mesh(mesh, lost_shard=None):
         raise ShardLostError(
             "no surviving devices to re-plan onto", shard=lost
         )
-    return make_facet_mesh(devices=survivors), lost
+    return mesh.without_shard(lost), lost
 
 
 def recover_engines(forward, backward, plan_inputs=None,
@@ -118,7 +125,8 @@ def recover_engines(forward, backward, plan_inputs=None,
     new_bwd = backward.rebuild_on(mesh, layout)
     processed = ()
     migrated = False
-    if ckpt_path and checkpoint_generations(ckpt_path):
+    if ckpt_path and checkpoint_generations(
+            rank_checkpoint_path(ckpt_path, forward.mesh)):
         processed = restore_streamed_backward_state(ckpt_path, new_bwd)
         migrated = True
     wall = time.monotonic() - t0
@@ -160,11 +168,13 @@ def run_elastic_pass(forward, backward, subgrid_configs, spill,
 
     Streams ``forward.stream_column_groups(subgrid_configs, spill=...)``
     into ``backward.add_subgrid_group``, autosaving to `ckpt_path` every
-    `autosave_every` subgrids. A `ShardLostError` in the loop (an
-    injected ``mesh.shard_loss`` / ``mesh.feed`` fault, or the watchdog's
-    `CollectiveStalledError` at ``mesh.psum`` / ``mesh.ring_step``) runs
-    `recover_engines`, and the pass resumes on the rebuilt engines,
-    skipping the groups the migrated snapshot holds.
+    `autosave_every` subgrids (over processes each rank to its own file,
+    `utils.checkpoint.rank_checkpoint_path`). A `ShardLostError` in the
+    loop (an injected ``mesh.shard_loss`` / ``mesh.feed`` fault, or the
+    watchdog's `CollectiveStalledError` at ``mesh.psum`` /
+    ``mesh.ring_step``) runs `recover_engines`, and the pass resumes on
+    the rebuilt engines, skipping the groups the migrated snapshot
+    holds.
 
     Returns ``(forward', backward', report)``: the (possibly rebuilt)
     engines, the backward with the whole pass folded in, and::

@@ -1,6 +1,7 @@
 """Execution over facet and subgrid stacks: the batched whole-cover path,
-the streamed (facets-resident / sampled) path, and facet meshes of one
-process with their sharded programs (`mesh`, `sharded`).
+the streamed (facets-resident / sampled) path, and facet meshes, in one
+process or across processes, with their sharded programs (`mesh`,
+`sharded`).
 
 Every public name is re-exported here, as the JAX package's
 ``swiftly_tpu.parallel`` does (``from swiftly_tpu_torch.parallel import
@@ -12,6 +13,7 @@ from . import batched, mesh, sharded, streamed
 from .mesh import (
     FACET_AXIS,
     facet_sharding,
+    initialize_multihost,
     make_facet_mesh,
     mesh_size,
     pad_to_shards,
@@ -43,6 +45,7 @@ __all__ = [
     "facet_sharding",
     "feed_backward_passes",
     "forward_all_sharded",
+    "initialize_multihost",
     "make_facet_mesh",
     "mesh",
     "mesh_size",

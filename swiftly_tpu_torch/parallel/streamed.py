@@ -121,7 +121,11 @@ pipeline, before one finish on the first shard's device. Every backward
 stage (column passes, folds, finishes) runs in each shard's own executor
 with no collective, so per facet the mesh backward's bits are the
 single-device backward's. Facet slabs (``facet_group``) are refused on a
-mesh, and sparse facets are densified, as in the JAX package.
+mesh, and sparse facets are densified, as in the JAX package. On a mesh
+over processes the executors are this rank's shards only (the facet
+callables of other ranks' shards are never called), the collective
+crosses ranks, and each rank finishes the subgrids on its own first
+shard's device, with the bits of the single-process mesh.
 """
 
 from __future__ import annotations
@@ -168,9 +172,9 @@ from .batched import (
 )
 from .mesh import (
     ShardedStack,
+    local_bounds,
     mesh_size,
     resolve_collective,
-    shard_bounds,
     shard_core,
 )
 from .sharded import collective_sum
@@ -313,13 +317,14 @@ class _StreamedBase:
                                            device=dev)
 
     def shard_parts(self):
-        """[(config, facet configs, (lo, hi))] of each shard on the mesh:
-        the config on the shard's device (no mesh; the core copied there)
-        and the shard's slice of the padded stack."""
+        """[(config, facet configs, (lo, hi))] of each shard of this rank
+        on the mesh (every shard, in one process): the config on the
+        shard's device (no mesh; the core copied there) and the shard's
+        slice of the padded stack."""
         configs = self.stack.padded_configs()
         parts = []
-        for dev, (lo, hi) in zip(self.mesh.devices,
-                                 shard_bounds(self.stack.n_total, self.mesh)):
+        for dev, (lo, hi) in zip(self.mesh.local_devices,
+                                 local_bounds(self.stack.n_total, self.mesh)):
             cfg = copy.copy(self.config)
             cfg.mesh = None
             cfg.core = shard_core(self.core, dev)
@@ -2542,7 +2547,9 @@ def _resident_transients(base, S, subgrid_size, yB):
     the shards before it hold until the collective, or the collective's
     own buffers: the psum's n partials and sum; the ring's n partials,
     their zero-padded flat copies, n gathered copies and the rotations'
-    chunks (the virtual shards of one device, all on it)."""
+    chunks (the virtual shards of one device, all on it). Over processes
+    the n are this rank's shards, but for the psum's: shard 0's rank
+    lands every shard's partial before it adds them."""
     core = base.core
     n = mesh_size(base.mesh)
     F = base.stack.n_total // n
@@ -2550,9 +2557,10 @@ def _resident_transients(base, S, subgrid_size, yB):
             _sampled_transients(core, F, yB))
     if n == 1:
         return T
+    k = len(base.mesh.local)
     part = S * core.xM_size * core.xM_size * _sizes(core)[0]
-    held = n + 1 if resolve_collective(n) == "psum" else 3 * n + 2
-    return max(T + (n - 1) * part, held * part)
+    held = n + 1 if resolve_collective(n) == "psum" else 3 * k + 2
+    return max(T + (k - 1) * part, held * part)
 
 
 def resident_working_set(base, real=False, extra_out_stacks=0):
@@ -3419,7 +3427,9 @@ class StreamedBackward:
         if self._finished:
             raise RuntimeError("finish() was already called")
         if self._shards is not None:
-            facets = np.concatenate([sub.finish() for sub in self._shards])
+            facets = ShardedStack(
+                [torch.from_numpy(sub.finish()) for sub in self._shards],
+                base.mesh).numpy(real=False)
             self._finished = True
             return facets[: self.stack.n_real]
         core = base.core

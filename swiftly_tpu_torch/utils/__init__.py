@@ -1,7 +1,7 @@
 """Host-side utilities of the port: FLOP models, checkpointing, the
 subgrid-stream spill cache and the profiling helpers (the JAX package's
-``swiftly_tpu/utils``, as far as ported: its compilation cache is ROADMAP
-A15)."""
+``swiftly_tpu/utils``; its XLA compilation cache has no counterpart:
+the port's nvcc builds are always cached, in ``ops/_build.py``)."""
 
 from .checkpoint import (
     CorruptCheckpointError,

@@ -62,7 +62,14 @@ device) it migrates them: the real facets kept, the zero padding regrown
 for the new shard count (`_migrate_stack`, exact: padding facets fold to
 zero on any layout), re-placed, counted as ``ckpt.migrations`` and
 recorded in the degradation ledger (``checkpoint / migrate_layout``).
-The elastic recovery of `swiftly_tpu_torch.mesh` resumes through it.
+The elastic recovery of `swiftly_tpu_torch.mesh` resumes through it. On
+a mesh over processes each rank saves its own shards (the others' rows
+zero) to a file of its own (`rank_checkpoint_path`: ``<stem>.rank<r>``),
+and the meta records which rank held each shard. A restore is then a
+call of every rank: their metas must agree (else every rank raises), and
+each row whose shard moved to another rank (a lost shard's re-plan, or
+any other layout) is broadcast from the rank that saved it, as its bytes
+(`_rows_from_owners`), before each rank places its own shards.
 """
 
 from __future__ import annotations
@@ -82,15 +89,17 @@ from ..resilience.retry import retry_transient
 from ..parallel.mesh import (
     FACET_AXIS,
     ShardedStack,
+    _collective_group,
+    local_bounds,
     mesh_size,
     place_facet_sharded,
-    shard_bounds,
 )
 
 __all__ = [
     "CorruptCheckpointError",
     "checkpoint_generations",
     "ckpt_keep",
+    "rank_checkpoint_path",
     "restore_backward_state",
     "restore_streamed_backward_state",
     "save_backward_state",
@@ -135,6 +144,18 @@ def checkpoint_generations(path):
     return out
 
 
+def rank_checkpoint_path(path, mesh):
+    """The file this rank's snapshot of a session on `mesh` goes to:
+    `path` itself in one process (or without a mesh); on a mesh over
+    processes ``<stem>.rank<r><suffix>``, since each rank saves only its
+    own shards and ranks on one host must not write one file."""
+    path = str(path)
+    if mesh is None or not mesh.spans_processes:
+        return path
+    stem, suffix = os.path.splitext(path)
+    return f"{stem}.rank{mesh.rank}{suffix}"
+
+
 def _crc(arr) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).view(np.uint8).data)
 
@@ -149,6 +170,22 @@ def _pinned_pair(dtype, n):
                   for _ in range(2)]
 
 
+def _global_host(hosts, mesh, axis=0):
+    """This rank's per-shard host arrays as the whole padded stack: on a
+    mesh over processes the other ranks' shards are zero."""
+    if mesh is None:
+        return hosts[0]
+    per = hosts[0].shape[axis]
+    shape = list(hosts[0].shape)
+    shape[axis] = per * mesh_size(mesh)
+    out = np.empty(shape, hosts[0].dtype)
+    local = dict(zip(mesh.local, hosts))
+    for i in range(mesh_size(mesh)):
+        idx = (slice(None),) * axis + (slice(i * per, (i + 1) * per),)
+        out[idx] = local[i] if i in local else 0
+    return out
+
+
 def _to_host(x):
     """A host numpy array of `x` (a tensor on any device, a
     `parallel.mesh.ShardedStack`, gathered with its padding, or an
@@ -156,8 +193,8 @@ def _to_host(x):
     current stream, double-buffered: a chunk's device copy runs while the
     host copies the other buffer out."""
     if isinstance(x, ShardedStack):
-        return np.concatenate([_to_host(t) for t in x.shards],
-                              axis=x.facet_axis)
+        return _global_host([_to_host(t) for t in x.shards], x.mesh,
+                            x.facet_axis)
     if not isinstance(x, torch.Tensor):
         return np.asarray(x)
     x = x.detach()
@@ -433,7 +470,56 @@ def _mesh_meta(mesh):
     if mesh is None:
         return None
     n = int(mesh_size(mesh))
-    return {"n_devices": n, "facet_shards": n, "axis": FACET_AXIS}
+    out = {"n_devices": n, "facet_shards": n, "axis": FACET_AXIS}
+    if mesh.spans_processes:
+        # the rank that saved each shard's rows (`_rows_from_owners`)
+        out["ranks"] = list(mesh.ranks)
+    return out
+
+
+def _rows_from_owners(arrays, meta, path, mesh, n_real, n_total):
+    """Bring every saved row to the rank that holds it on `mesh`.
+
+    On a mesh over processes each rank's snapshot holds only the rows of
+    the shards it owned when it saved (the others zero). Each real row
+    whose shard now lies on another rank is broadcast from the rank that
+    saved it, as its bytes, so the restore is exact on any layout. A call
+    of every rank, all restoring the same snapshot: their metas are
+    compared first and, if they differ, every rank raises. `arrays` are
+    the facet-stacked arrays as saved (axis 0 the saving layout's padded
+    facets), changed in place; `n_real` / `n_total` are the restoring
+    stack's facets and its padded count.
+    """
+    if mesh is None or not mesh.spans_processes:
+        return
+    import torch.distributed as dist
+
+    group = _collective_group("gloo")  # host arrays: the gloo group
+    mine = {k: v for k, v in meta.items() if k != "crc"}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine, group=group)
+    differ = [r for r, m in enumerate(every) if m != mine]
+    if differ:
+        raise RuntimeError(
+            f"rank {mesh.rank} restores {path!r}, but rank(s) {differ} "
+            f"hold another snapshot (another generation or session): "
+            f"every rank of a mesh must restore the same one")
+    saved = (meta.get("mesh") or {}).get("ranks")
+    if saved is None:  # written in one process: the file holds every row
+        return
+    per_saved = meta["n_total"] // len(saved)
+    per_now = n_total // mesh_size(mesh)
+    moves = [(owner, i * per_saved, min((i + 1) * per_saved, n_real))
+             for i, owner in enumerate(saved)]
+    moves = [(owner, lo, hi) for owner, lo, hi in moves
+             if any(mesh.ranks[j // per_now] != owner
+                    for j in range(lo, hi))]
+    for name in sorted(arrays):
+        arr = arrays[name] = np.require(arrays[name],
+                                        requirements=["C", "W"])
+        for owner, lo, hi in moves:
+            rows = torch.from_numpy(arr[lo:hi].reshape(-1).view(np.uint8))
+            dist.broadcast(rows, src=owner, group=group)
 
 
 # -- SwiftlyBackward -----------------------------------------------------------
@@ -456,8 +542,12 @@ def save_backward_state(path, backward, processed_subgrids=None):
     :param backward: the SwiftlyBackward instance
     :param processed_subgrids: optional list of (off0, off1) already folded
         in, stored for the caller to skip on resume
+
+    On a mesh over processes each rank writes its own file
+    (`rank_checkpoint_path`).
     """
     core = backward.core
+    mesh = getattr(backward, "mesh", None)
     arrays = {}
     meta = {
         "version": _VERSION,
@@ -469,13 +559,14 @@ def save_backward_state(path, backward, processed_subgrids=None):
         "lru_keys": [],
         "processed": list(map(list, processed_subgrids or [])),
         "has_mnaf": backward._MNAF_BMNAFs is not None,
+        "mesh": _mesh_meta(mesh),
     }
     if backward._MNAF_BMNAFs is not None:
         arrays["MNAF_BMNAFs"] = _to_host(backward._MNAF_BMNAFs)
     for key, col in backward.lru._store.items():
         meta["lru_keys"].append(int(key))
         arrays[f"lru_{int(key)}"] = _to_host(col)
-    _atomic_savez(path, arrays, meta)
+    _atomic_savez(rank_checkpoint_path(path, mesh), arrays, meta)
 
 
 def restore_backward_state(path, backward):
@@ -483,6 +574,7 @@ def restore_backward_state(path, backward):
     (built with the same config and facets as the one saved). Corrupt
     generations fall back to the previous good one. Returns the list of
     (off0, off1) subgrids already processed."""
+    path = rank_checkpoint_path(path, getattr(backward, "mesh", None))
     return _restore_with_fallback(
         path, lambda gen: _restore_backward_one(gen, backward)
     )
@@ -494,14 +586,16 @@ def _restore_backward_one(path, backward):
         core = backward.core
         _check_meta(meta, core, backward.stack.n_total, "backward")
         mesh = getattr(backward, "mesh", None)
+        names = (["MNAF_BMNAFs"] if meta["has_mnaf"] else []) + [
+            f"lru_{key}" for key in meta["lru_keys"]]
+        arrays = {n: _load_array(data, meta, n, path) for n in names}
+        _rows_from_owners(arrays, meta, path, mesh, backward.stack.n_real,
+                          backward.stack.n_total)
         if meta["has_mnaf"]:
-            backward._MNAF_BMNAFs = _place(
-                core, _load_array(data, meta, "MNAF_BMNAFs", path), mesh)
+            backward._MNAF_BMNAFs = _place(core, arrays["MNAF_BMNAFs"],
+                                           mesh)
         for key in meta["lru_keys"]:
-            backward.lru.set(
-                key, _place(core, _load_array(data, meta, f"lru_{key}",
-                                              path), mesh)
-            )
+            backward.lru.set(key, _place(core, arrays[f"lru_{key}"], mesh))
         return [tuple(p) for p in meta["processed"]]
 
 
@@ -522,7 +616,8 @@ def save_streamed_backward_state(path, backward, processed_subgrids=None):
         backward's own ``processed`` ledger
 
     On a mesh the state is the shards': each array is gathered over them
-    (`_shard_state`).
+    (`_shard_state`); over processes each rank writes its own file
+    (`rank_checkpoint_path`).
     """
     core = backward.core
     base = backward._base
@@ -558,7 +653,7 @@ def save_streamed_backward_state(path, backward, processed_subgrids=None):
     for key, rows in naf.items():
         meta["naf_keys"].append(int(key))
         arrays[f"naf_{int(key)}"] = rows
-    _atomic_savez(path, arrays, meta)
+    _atomic_savez(rank_checkpoint_path(path, base.mesh), arrays, meta)
 
 
 def _shard_state(backward):
@@ -566,12 +661,13 @@ def _shard_state(backward):
     stack: (the sampled accumulator or None, the pending fold rows
     [(off0, rows)], the kept rows {off0: rows}); on a mesh each gathered
     over the shards along the facet axis (every shard holds the same
-    pending columns and kept offsets: they are fed the same subgrids)."""
+    pending columns and kept offsets: they are fed the same subgrids);
+    over processes the other ranks' facets are zero."""
     parts = backward._shards or [backward]
+    mesh = backward._base.mesh
 
     def gather(tensors):
-        hosts = [_to_host(t) for t in tensors]
-        return hosts[0] if len(hosts) == 1 else np.concatenate(hosts)
+        return _global_host([_to_host(t) for t in tensors], mesh)
 
     acc = None
     if all(p._acc is not None for p in parts):
@@ -586,14 +682,14 @@ def _shard_state(backward):
 def _set_shard_state(backward, acc, pending, naf):
     """Put host state of the whole padded stack back into a streamed
     backward: each array split along the facet axis onto the shards'
-    devices on a mesh (kept rows of the host residency stay on the
-    host)."""
+    devices on a mesh, this rank's shards only (kept rows of the host
+    residency stay on the host)."""
     base = backward._base
     if backward._shards is None:
         parts, bounds = [backward], [(0, base.stack.n_total)]
     else:
         parts = backward._shards
-        bounds = shard_bounds(base.stack.n_total, base.mesh)
+        bounds = local_bounds(base.stack.n_total, base.mesh)
     on_device = base.residency != "host"
     for p, (lo, hi) in zip(parts, bounds):
         dev = p.core.device
@@ -614,6 +710,7 @@ def restore_streamed_backward_state(path, backward):
     back to the previous good one. Returns the list of (off0, off1)
     subgrids already processed (also assigned to ``backward.processed``).
     """
+    path = rank_checkpoint_path(path, backward._base.mesh)
     return _restore_with_fallback(
         path, lambda gen: _restore_streamed_one(gen, backward)
     )
@@ -633,9 +730,17 @@ def _restore_streamed_one(path, backward):
                     n_real=backward.stack.n_real if migrate else None)
         n_real, n_total = backward.stack.n_real, backward.stack.n_total
 
-        def load(name):
-            arr = _load_array(data, meta, name, path)
-            return _migrate_stack(arr, n_real, n_total) if migrate else arr
+        def load(names):
+            # every array read and checked before the backward is touched
+            # (a corrupt generation leaves it as it was), then its rows
+            # brought to their ranks and migrated
+            arrays = {n: _load_array(data, meta, n, path) for n in names}
+            _rows_from_owners(arrays, meta, path, base.mesh, n_real,
+                              n_total)
+            if migrate:
+                arrays = {n: _migrate_stack(a, n_real, n_total)
+                          for n, a in arrays.items()}
+            return arrays
         saved_res = meta.get("residency")
         is_sampled = base.residency == "sampled"
         if (saved_res == "sampled") != is_sampled:
@@ -657,13 +762,13 @@ def _restore_streamed_one(path, backward):
                     f"session uses row_slab="
                     f"{list(have_slab) if have_slab else None}"
                 )
-            # load and check every array before touching the backward, so
-            # a corrupt generation leaves it as it was
-            acc = load("acc") if meta.get("has_acc") else None
-            pending = [
-                (int(off), load(f"pending_{k}"))
-                for k, off in enumerate(meta.get("pending_offs") or [])
-            ]
+            offs = meta.get("pending_offs") or []
+            arrays = load((["acc"] if meta.get("has_acc") else [])
+                          + [f"pending_{k}" for k in range(len(offs))])
+            acc = arrays.pop("acc", None)
+            pending = [(int(off), arrays[f"pending_{k}"])
+                       for k, off in enumerate(offs)]
+            del arrays
             _migrated(path, migrate, saved, have)
             _set_shard_state(backward, acc, pending, {})
             del acc
@@ -685,7 +790,9 @@ def _restore_streamed_one(path, backward):
                 f"of the saving session); this session uses {base._yB_pad}: "
                 "construct StreamedBackward with the same col_block"
             )
-        rows = {int(key): load(f"naf_{key}") for key in meta["naf_keys"]}
+        arrays = load([f"naf_{key}" for key in meta["naf_keys"]])
+        rows = {int(key): arrays[f"naf_{key}"] for key in meta["naf_keys"]}
+        del arrays
         _migrated(path, migrate, saved, have)
         _set_shard_state(backward, None, [], rows)
         backward.processed = list(processed)

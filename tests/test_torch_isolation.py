@@ -48,7 +48,10 @@ def test_port_imports_with_jax_blocked():
         "swiftly_tpu_torch.serve.procfleet, swiftly_tpu_torch.serve.ipc, "
         "swiftly_tpu_torch.native, swiftly_tpu_torch.mesh, "
         "swiftly_tpu_torch.mesh.engine, swiftly_tpu_torch.mesh.recovery, "
-        "swiftly_tpu_torch.parallel.mesh, swiftly_tpu_torch.parallel.sharded; "
+        "swiftly_tpu_torch.parallel.mesh, swiftly_tpu_torch.parallel.sharded, "
+        "swiftly_tpu_torch.tools, swiftly_tpu_torch.tools.calibration_report, "
+        "swiftly_tpu_torch.tools.tower_report, "
+        "swiftly_tpu_torch.tools.trace_report; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swiftly_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)"
     )

@@ -1,8 +1,8 @@
 """The plan-accuracy ledger of the port (`swiftly_tpu_torch.obs.ledger`).
 
 The port's counterparts of the module-level cases of
-``tests/test_plan_ledger.py`` (the cases that drive ``scripts/`` wait for
-ROADMAP A15): the join (`stage_accuracy`, `plan_accuracy_block`) with its
+``tests/test_plan_ledger.py`` (the cases that drive ``scripts/`` are in
+``tests/test_torch_tools.py``): the join (`stage_accuracy`, `plan_accuracy_block`) with its
 ratio, fan-out and coverage; the validator's no-silent-gaps schema; the
 sig-fig stamping of measured walls; the total-mapping guard over the
 port's own stage sites and compiled plans; the calibration history,

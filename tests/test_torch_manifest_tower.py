@@ -7,8 +7,8 @@ alerts, heartbeat fields, per-source tracks, merged cross-process
 timelines), of ``tests/test_obs.py`` (the manifest, the artifact
 validators, the heartbeat and partial artifacts, the autotune refit and
 the plan artifact's validator) and of ``tests/test_trace.py`` (the trace
-validators). The cases that drive ``scripts/`` wait for ROADMAP A15, and
-the serve-journey cases for ``SubgridService`` (A12). Beside them: the
+validators). The cases that drive ``scripts/`` are in
+``tests/test_torch_tools.py``, and the serve-journey cases for ``SubgridService`` (A12). Beside them: the
 manifest's card facts and versions, `utils.profiling`, and the stage
 timers' device time.
 """

@@ -1,7 +1,7 @@
 """The port's mesh-streamed engine (`swiftly_tpu_torch.mesh`) over 8
 virtual CPU shards, pinned to the JAX package's single-chip streamed
 engine: the counterparts of ``tests/test_mesh_engine.py`` (the
-multi-process bootstrap cases wait for ROADMAP A8b).
+multi-process bootstrap cases are in ``tests/test_torch_multiproc.py``).
 
 The JAX test's geometry: N = 256, 3 x 3 facets over 8 shards, so the
 stack pads 9 -> 16 in every case. No JAX mesh program runs (ROADMAP §C:
