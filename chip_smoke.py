@@ -53,7 +53,9 @@ this checkout, and holds each kernel against its plain PyTorch version:
    and temperature read after each), checked against the oracle on
    sampled subgrids and on all facets, the three runs' facets
    bit-identical; then one more round trip under torch.profiler, its device-busy time
-   against its own synchronised window; then the slab paths at 32k: the
+   against its own synchronised window; then the slab paths at
+   ``16k[1]-n8k-512`` (``SIDE_CONFIG``: cut from 32k to keep the whole
+   script inside its time limit, as phases 10, 11 and 12 (b) are): the
    forward with ``facet_group`` forced to 1 and 3, from dense real planes
    on the host (the pinned staging ring) and from sparse facets
    synthesised on the card, against the resident forward and the oracle,
@@ -90,9 +92,9 @@ this checkout, and holds each kernel against its plain PyTorch version:
    the cache ladder, the adjoint identity, bit-identity to a fresh
    forward's rows at another bucket (``degrid_batch`` fed the host's
    weights) and of a second gridding, the facet-update version gates, and
-   B4 launched once per pump that served a sample; then the first half
-   of the traffic's first batch (32,768 samples, from a freshly seeded
-   feed) served again under torch.profiler for the device's idle share
+   B4 launched once per pump that served a sample; then the first
+   eighth of the traffic's first batch (8,192 samples, from a freshly
+   seeded feed) served again under torch.profiler for the device's idle share
    and B4's device time;
 9. the 128k streamed round trip at ``128k[1]-n32k-512``, planar f32, the
    full cover of 293 x 293 = 85,849 subgrids: facets made by
@@ -108,10 +110,10 @@ this checkout, and holds each kernel against its plain PyTorch version:
    ``obs.Heartbeat`` (progress and ETA every 30 s, gated on counting
    every subgrid); its
    plan, seconds, peak memory beside the slab sizer's model, and
-   launches; then the first half of its first column group (a group of
-   half the plan's columns) again under torch.profiler for the device's
+   launches; then the first quarter of its first column group (a group
+   of a quarter of the plan's columns) again under torch.profiler for the device's
    busy share and the time by stage;
-10. the host and device residencies at ``32k[1]-n16k-512``, planar f32,
+10. the host and device residencies at ``16k[1]-n8k-512``, planar f32,
    from real facet planes on the host (run after the slab checks): (a)
    ``StreamedForward(residency="host", col_block=512)`` (the FFT facet
    pass into the pinned host row buffer, two deep) ->
@@ -130,12 +132,12 @@ this checkout, and holds each kernel against its plain PyTorch version:
    ``SWIFTLY_COLPASS=fft``, ``SWIFTLY_COLPASS_BWD=fft``,
    ``SWIFTLY_FOLD=fft`` and ``SWIFTLY_FOLD=ct`` against the default
    bodies, each within 1e-5 (relative), with its seconds;
-11. the partitioned sampled round trip at ``32k[1]-n16k-512`` as the JAX
+11. the partitioned sampled round trip at ``16k[1]-n8k-512`` as the JAX
    package's ``roundtrip-streamed`` composes it, planar f32, from real
    facet planes on the host (run after phase 10): the plan from
    ``plan.compile_plan(..., n_facet_env=3, n_row_env=3, feed_env=3)``
-   (3 facet passes x 3 row slabs of 3755 rows, no multiple of the fold's
-   row block; 3 passes a feed) on the card's budget
+   (3 facet passes x 3 row slabs of 1877-1878 rows, no multiple of the
+   fold's row block; 3 passes a feed) on the card's budget
    (``plan.hbm_budget_bytes``), gated equal to what
    ``plan.plan_backward_passes`` and ``plan.plan_backward_feed`` give by
    hand with the margins the port derives (``plan.plan_margins``); per
@@ -151,7 +153,7 @@ this checkout, and holds each kernel against its plain PyTorch version:
    temporary disk tier, removed at the end. Gated on (a)'s two runs, (b)
    and (c) giving the same bits part for part, the parts within 1e-6
    (RMS over the largest value) of the unpartitioned reference, the
-   oracle facet RMS, 74 B1 forward launches in (a) and (c) and 3 x 74 in
+   oracle facet RMS, 37 B1 forward launches in (a) and (c) and 3 x 37 in
    (b), (a) recording once and replaying (n_feeds - 1) x n_groups
    whole groups with no fallback, and (c) writing and reading its disk
    tier; then (a)'s second feed once more from its recording with one
@@ -168,13 +170,16 @@ this checkout, and holds each kernel against its plain PyTorch version:
    phase 6's facet SHA-256, a wall within 5% of the lesser of phase 6's
    two timed runs, the stage vocabulary with FLOPs and the export's MFU
    against ``utils.peak_tflops``, a Chrome trace whose spans nest, and
-   the HBM gauge equal to ``torch.cuda.max_memory_allocated``; (b) with
-   ``SWIFTLY_CKPT_KEEP=1``, an autosave after group 3 (30 columns, 2 of
-   them pending a fold) and a ``FaultPlan`` killing the 4th ``bwd.feed``
-   (``WorkerKilled``), then a fresh forward and backward restored from the
-   snapshot feeding the 44 columns left, gated on phase 6's facet SHA-256,
-   2 pending columns in the snapshot, the recorder's post-mortem naming
-   the kill, 44 B1 forward launches, and the device memory back to its
+   the HBM gauge equal to ``torch.cuda.max_memory_allocated``; (b) at
+   ``16k[1]-n8k-512`` (``SIDE_CONFIG``, 37 columns; cut from 32k, whose
+   9.55 GB snapshot took ~42 s to save and restore), an uninterrupted
+   round trip for the reference, then with ``SWIFTLY_CKPT_KEEP=1``, an
+   autosave after group 3 (30 columns, 2 of them pending a fold) and a
+   ``FaultPlan`` killing the 4th ``bwd.feed`` (``WorkerKilled``), then a
+   fresh forward and backward restored from the snapshot feeding the 7
+   columns left, gated on the uninterrupted run's facet SHA-256, 2
+   pending columns in the snapshot, the recorder's post-mortem naming
+   the kill, 7 B1 forward launches, and the device memory back to its
    start after the kill; it prints the snapshot's GB, its save and
    restore seconds, the peak across the kill and the resume and the
    launches, and deletes the snapshot;
@@ -239,7 +244,7 @@ this checkout, and holds each kernel against its plain PyTorch version:
    victim's breaker open -> half-open -> closed, one fabric roll and one
    stream copy, and a fleet record gated on ``validate_fleet_artifact``
    (each replica's ``serve`` block on ``validate_serve_artifact``); (e)
-   the first half of phase 8's first batch, 32,768 samples, served through
+   the first quarter of phase 8's first batch, 16,384 samples, served through
    ``VisibilityService(row_source=FleetRowSource(fleet))``, gated on
    the oracle (``DEGRID_TOLERANCE``) and B4 launched once per pump that
    served a sample. It prints the device peak after every step;
@@ -332,21 +337,48 @@ this checkout, and holds each kernel against its plain PyTorch version:
    ``MULTIPROC_TIMEOUT_S`` fails the phase, with every rank's log; every
    rank is stopped. It prints one ``multiproc_32k`` line.
 
+18. the precision and complex-product knobs and the operator tools (run
+   after phase 9, whose forward it prints its estimate beside; it holds
+   its forwards to phase 6's sampled subgrids). (a) Phase 6's 32k
+   forward again with the executor built under ``SWIFTLY_PRECISION`` =
+   high, then default (TF32 passes on the governed products only; the
+   kernels stay IEEE), then highest: each one's relative RMS (absolute x
+   N^2) against the oracle at phase 6's sampled subgrids, gated on the
+   JAX package's budget (``planar_backend.PRECISION_RMS_BUDGET_REL``),
+   high closer than default, its RMS against phase 6's output, the
+   forward's device seconds and the sampled facet pass's seconds and
+   TFLOP/s alone; the highest run gated bit-equal to phase 6's; then one
+   TF32 pass and one three-pass product at the facet pass's shape held to
+   their plain versions within ``_tf32_bound`` (and unlike the IEEE
+   product), the flag off afterwards. (b) At ``TOOLS_CONFIG`` the round
+   trip under ``SWIFTLY_CMATMUL=karatsuba`` and under 4mul: the plan
+   stamped, the bits differing, each within the f32 budget of the oracle
+   and ``FACET_RMS``. (c) The tools (``swiftly_tpu_torch.tools``) on the
+   card: `demo_api`'s checkpointed loop at ``TOOLS_CONFIG`` killed at the
+   third column and resumed, bit-equal to the whole run, then its main;
+   `demo_sparse_facet` (facet RMS within ``SPARSE_DEMO_RMS``) and
+   `demo_serve` (every request served) at ``TOOLS_CONFIG``;
+   `plan_explain --config 128k[1]-n32k-512`; `roofline` over one 32k
+   column group (every line beside the card's name and power limit);
+   `estimate_large_config` at 128k, its forward estimate printed beside
+   phase 9's measured forward. It prints one ``tools`` line.
+
 At phases 6, 10 (b), 11 (a), 16 (a) and 9 the streamed forward's sizer model
 (``parallel.streamed.stream_peak_bytes`` beside the backwards'
 ``device_bytes``) is printed beside the measured device peak
 (``torch.cuda.max_memory_allocated``) and gated to lie within 1.0 and
 1.3 times it (``SIZER_BAND``).
 
-The launch counters are set to 0 just before each 32k and 128k path runs
-and read just after it. Every phase that fails ends the run with a non-zero exit
-code. The last lines are the ``residency_32k`` JSON record of phase
-10, the ``spill_32k`` record of phase 11, the ``resume_32k`` record of
+The launch counters are set to 0 just before each 16k, 32k and 128k path
+runs and read just after it. Every phase that fails ends the run with a
+non-zero exit code. The last lines are the ``residency_16k`` JSON record of phase
+10, the ``spill_16k`` record of phase 11, the ``resume_32k`` record of
 phase 12, the ``plan_32k`` record of phase 13, the ``delta_32k`` record
 of phase 14, the ``procfleet_32k`` record of phase 15, the ``mesh_32k``
 record of phase 16, the ``multiproc_32k`` record of phase 17, the
-``native_1k``
-record of phase 4 (b), the ``vis`` JSON record of phase 8, the
+``native_1k`` record of phase 4 (b), the ``tools`` record of phase 18,
+the
+``vis`` JSON record of phase 8, the
 ``kernels`` JSON record (per kernel, ``launches`` and the times beside it
 are its main path's: the 32k streamed path's for B3, B1 and B2, the
 visibility path's for B4 and ``grid``; ``paths`` holds each path's
@@ -377,9 +409,9 @@ prints one ``big`` JSON line; ``--serve-ab DIR --pairs N`` builds the
 kernels of the checkout DIR and of this one, then runs ``--serve-short``
 on each in turn, N times each in their own processes (parent, tree, tree,
 parent, ...), and prints the medians and spreads. ``--residency`` runs
-phase 2 and phase 10 alone and prints one ``residency_32k`` JSON line;
+phase 2 and phase 10 alone and prints one ``residency_16k`` JSON line;
 ``--spill`` runs phase 2, phase 11 and phase 7 at phase 11's shapes and
-prints one ``spill_32k`` JSON line; ``--resume`` runs phase 2, phase 6's
+prints one ``spill_16k`` JSON line; ``--resume`` runs phase 2, phase 6's
 warm and timed round trips (unprofiled) and phase 12, and prints one
 ``resume_32k`` JSON line; ``--plan`` runs phase 2, phase 6's warm and
 timed round trips (unprofiled) and phase 13, and prints one ``plan_32k``
@@ -391,7 +423,9 @@ the workers' shapes); ``--mesh`` runs phase 2, phase 6's warm and timed
 round trips (unprofiled) and phase 16, and prints one ``mesh_32k`` JSON
 line (with B1, B2 and B3 timed at phase 16 (a)'s shapes); ``--multiproc``
 runs phase 2, phase 16 (for its references) and phase 17, and prints the
-``mesh_32k`` and ``multiproc_32k`` lines.
+``mesh_32k`` and ``multiproc_32k`` lines; ``--tools`` runs phase 2, phase
+6's warm and timed round trips (unprofiled) and phase 18, and prints one
+``tools`` line (phase 9's forward not measured).
 """
 
 from __future__ import annotations
@@ -418,6 +452,12 @@ SMALL_CONFIG = "1k[1]-n512-256"
 BIG_CONFIG = "128k[1]-n32k-512"
 # (1024 rows: the fold's row blocks are (9, 118, 45056, 1024) as at 2048)
 BIG_SLAB_ROWS = 1024
+# Phase 6's slab checks, phases 10 and 11 and phase 12 (b) run here: the
+# same widths as MAIN_CONFIG (9 facets, 448-pixel subgrids) over a quarter
+# of its facet area and subgrids. They were cut from 32k to keep the whole
+# script inside its time limit on a slow host: their host copies, disk
+# tiers and snapshots are the script's most host-bound work.
+SIDE_CONFIG = "16k[1]-n8k-512"
 
 # Centre-relative source positions (fractions of N): the eight spread
 # sources of the JAX package's benchmark, so every subgrid column band
@@ -564,9 +604,9 @@ VIS_MAX_BATCH = 64
 # batches served from the feed before it is evicted (at most all but the
 # last served one)
 VIS_EVICT_AFTER = 2
-# samples in the profiled serving window: the first half of the
-# traffic's first batch
-VIS_PROFILE_SAMPLES = VIS_SAMPLES // VIS_BATCHES // 2
+# samples in the profiled serving window: the first eighth of the
+# traffic's first batch (the window's share of the script's time limit)
+VIS_PROFILE_SAMPLES = VIS_SAMPLES // VIS_BATCHES // 8
 # kernels whose batch varies per launch (grid, B4's pumps) are timed at
 # their most frequent and at their largest shapes
 VARIED_TIMED_SHAPES = 4
@@ -659,6 +699,18 @@ def _cuda_ms(torch, fn, iters):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def _once_ms(torch, fn):
+    """Device time of one call of `fn` (CUDA events, no warm-up: for a
+    call whose products the path just ran)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
 
 
 def _device_ms(torch, fn, iters, hold_cycles=200_000_000):
@@ -1890,6 +1942,9 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
     require(sorted(samples) == idxs, "sampled subgrids missing from the feed")
     sg_rms = [st.check_subgrid(N, sgcs[i], core.as_complex(samples[i]),
                                sources) for i in idxs]
+    # the timed run's sampled subgrids, on the host, for phase 18's
+    # forwards to be held to
+    subgrid_samples = {i: samples[i].cpu() for i in idxs}
     del samples
     f_rms = []
     for i, fc in enumerate(fcs):  # the oracle is the input real plane
@@ -1904,7 +1959,7 @@ def streamed_main(torch, config_name=MAIN_CONFIG, device="cuda", dtype=None,
                max_facet_rms=max(f_rms), facet_rms_bound=FACET_RMS,
                bit_identical_to_warm_run=(None if warm_digests is None
                                           else digests == warm_digests),
-        facet_digests=digests,
+        facet_digests=digests, subgrid_samples=subgrid_samples,
         # every MESH_ROW_STRIDE-th row of the facets, on the host, for
         # phase 16's mesh to be held to
         facet_rows=facets[:, ::MESH_ROW_STRIDE].cpu())
@@ -1973,8 +2028,10 @@ def streamed_stages(torch, cfg, fcs, facets_in):
     krows = torch.as_tensor(sm.sampled_row_indices(core, offs0), device="cuda")
     e0 = torch.as_tensor(np.asarray([fc.off0 - yB // 2 for fc in fcs]),
                          device="cuda")
-    sampled_ms = _cuda_ms(torch, lambda: sm._facet_pass_sampled(
-        core, fwd._dev_facets, e0, krows, real_facets=True), 1)
+    # one timed pass, no warm-up: the round trips before it ran the same
+    # products
+    sampled_ms = _once_ms(torch, lambda: sm._facet_pass_sampled(
+        core, fwd._dev_facets, e0, krows, real_facets=True))
     out = {"facet_upload_s": upload_s, "sampled_pass_s": sampled_ms / 1e3,
            "sampled_pass_rows": int(krows.shape[0])}
     log(f"streamed stages: facet upload {upload_s:.3f} s, sampled facet pass "
@@ -2067,13 +2124,13 @@ def _max_abs(torch, a, b, chunk=256):
     return diff, scale
 
 
-def slabs_main(torch, config_name=MAIN_CONFIG, fold_group=4,
+def slabs_main(torch, config_name=SIDE_CONFIG, fold_group=4,
                split_row=5000, device="cuda"):
-    """The slab paths at 32k beside phase 6 (planar f32): the forward with
-    facet_group forced to 1 and 3, from dense real planes on the host (the
-    pinned staging ring) and from sparse facets synthesised on the card,
-    against the resident forward (the f32 kernel bound, relative to the
-    largest value) and the oracle, reruns bit-identical; one forward fed
+    """The slab paths beside phase 6 (planar f32, at `config_name`): the
+    forward with facet_group forced to 1 and 3, from dense real planes on
+    the host (the pinned staging ring) and from sparse facets synthesised
+    on the card, against the resident forward (the f32 kernel bound,
+    relative to the largest value) and the oracle, reruns bit-identical; one forward fed
     into the whole backward and two row slabs split at `split_row` (no
     multiple of the fold's row block), the slabs concatenated equal to the
     whole; ``synth_facet_device`` equal to the densified upload."""
@@ -2106,7 +2163,8 @@ def slabs_main(torch, config_name=MAIN_CONFIG, fold_group=4,
 
     ref, fwd_ref, ref_s = forward(dense, None)
     require(fwd_ref.last_plan["mode"] == "resident",
-            f"the 32k forward did not stay resident: {fwd_ref.last_plan}")
+            f"the {config_name} forward did not stay resident: "
+            f"{fwd_ref.last_plan}")
     out["resident_s"] = ref_s
     runs = {}
     for source, data in (("host", dense), ("sparse", sparse)):
@@ -2123,17 +2181,18 @@ def slabs_main(torch, config_name=MAIN_CONFIG, fold_group=4,
             want = "device-synth-sparse" if source == "sparse" else "host"
             require(plan["mode"] == "grouped" and plan["facet_group"] == fg
                     and plan["facet_source"] == want,
-                    f"32k {source} facet_group {fg}: plan {plan}")
+                    f"{config_name} {source} facet_group {fg}: plan {plan}")
             require(diff / scale <= KERNEL_REL_TOL["float32"],
-                    f"32k {source} facet_group {fg}: {diff / scale:.3e} from "
-                    "the resident forward")
-            require(rms <= bound, f"32k {source} facet_group {fg}: subgrid "
-                    f"RMS {rms:.3e} over {bound:.3e}")
+                    f"{config_name} {source} facet_group {fg}: "
+                    f"{diff / scale:.3e} from the resident forward")
+            require(rms <= bound, f"{config_name} {source} facet_group "
+                    f"{fg}: subgrid RMS {rms:.3e} over {bound:.3e}")
             if (source, fg) in (("host", 3), ("sparse", 1)):
                 again, _, rec["rerun_s"] = forward(data, fg)
                 rec["bit_identical_rerun"] = bool(torch.equal(again, got))
                 require(rec["bit_identical_rerun"],
-                        f"32k {source} facet_group {fg}: reruns differ")
+                        f"{config_name} {source} facet_group {fg}: reruns "
+                        "differ")
                 del again
             del got
             runs[f"{source}_fg{fg}"] = rec
@@ -2164,7 +2223,7 @@ def slabs_main(torch, config_name=MAIN_CONFIG, fold_group=4,
                             torch.equal(p, full[:, a:b]) for p, (a, b) in
                             zip(parts, ((0, split_row), (split_row, yB))))}
     require(out["row_slabs"]["concatenated_equal_whole"],
-            "32k row slabs differ from the whole backward")
+            f"{config_name} row slabs differ from the whole backward")
     del full, parts, whole, slabs, fwd
 
     sfwd = st.StreamedForward(cfg, list(zip(fcs, sparse)), residency="device")
@@ -2310,10 +2369,10 @@ def _host_facets_rel_rms(torch, got, ref, device="cuda"):
     return (d2 / count) ** 0.5 / scale
 
 
-def residency_main(torch, config_name=MAIN_CONFIG, fold_group=4,
+def residency_main(torch, config_name=SIDE_CONFIG, fold_group=4,
                    col_block=512, device="cuda", warm=True):
-    """Phase 10: the host and device residencies at 32k, planar f32, from
-    real facet planes on the host. (a) ``StreamedForward(residency=
+    """Phase 10: the host and device residencies at `config_name`, planar
+    f32, from real facet planes on the host. (a) ``StreamedForward(residency=
     "host")`` (the FFT facet pass into the host row buffer, a column's
     rows uploaded for each column pass) -> ``stream_columns(...,
     device_arrays=True)`` -> ``StreamedBackward(residency="device")
@@ -2563,9 +2622,10 @@ def _residency_line(res):
 # -- phase 11: the partitioned round trip over a recorded stream -----------
 
 # The plan's operator overrides: 3 facet passes x 3 output-row slabs, 3
-# passes a feed (3 feeds). At 3 facets a pass the fold's row block is 1408
-# rows, so 2 slabs of 5632 rows would be 4 blocks each; 3 slabs of 3755
-# rows are no multiple of it (the clamped last block runs).
+# passes a feed (3 feeds). At SIDE_CONFIG (facets of 5632) and 3 facets a
+# pass the fold's row block is 2816 rows, so 2 slabs of 2816 rows would be
+# one block each; 3 slabs of 1877 and 1878 rows are no multiple of it (the
+# clamped last block runs).
 SPILL_FACET_PASSES = 3
 SPILL_ROW_SLABS = 3
 SPILL_FEED_GROUP = 3
@@ -2612,12 +2672,12 @@ class _RssPeak:
         self.peak = max(self.peak, _rss_gib())
 
 
-def spill_main(torch, config_name=MAIN_CONFIG, fold_group=4, device="cuda",
+def spill_main(torch, config_name=SIDE_CONFIG, fold_group=4, device="cuda",
                facet_passes=SPILL_FACET_PASSES, row_slabs=SPILL_ROW_SLABS,
                feed_group=SPILL_FEED_GROUP, warm=True, phase6_digests=None):
-    """Phase 11: the partitioned sampled round trip at 32k as the JAX
-    package's ``roundtrip-streamed`` composes it (bench.py:700-960), planar
-    f32, from real facet planes on the host: the plan
+    """Phase 11: the partitioned sampled round trip at `config_name` as the
+    JAX package's ``roundtrip-streamed`` composes it (bench.py:700-960),
+    planar f32, from real facet planes on the host: the plan
     (``plan_backward_passes`` with the operator overrides,
     ``plan_backward_feed``), then per feed chunk ``StreamedBackward(
     residency="sampled", row_slab=...)`` over the chunk's facets fed by
@@ -3005,16 +3065,18 @@ def _spans_nest(events):
 
 def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
                 col_group=RESUME_COL_GROUP, save_groups=RESUME_SAVE_GROUPS,
-                kill_feed=RESUME_KILL_FEED, device="cuda"):
+                kill_feed=RESUME_KILL_FEED, device="cuda",
+                kill_config=SIDE_CONFIG):
     """Phase 12 (module docstring): the streamed round trip with
     ``StreamedForward(residency="device", col_group=...)`` into
-    ``StreamedBackward(residency="sampled", fold_group=...)``: (a) with
-    metrics, trace and recorder on, against phase 6's bits and wall time
-    (`phase6`: its ``facet_digests`` and ``roundtrip_s``; None: an
-    unobserved run here is the reference); (b) killed at the
-    `kill_feed`-th ``bwd.feed`` after one autosave at `save_groups`
-    groups, then resumed by a fresh forward and backward from the
-    snapshot, against the same bits."""
+    ``StreamedBackward(residency="sampled", fold_group=...)``: (a) at
+    `config_name` with metrics, trace and recorder on, against phase 6's
+    bits and wall time (`phase6`: its ``facet_digests`` and
+    ``roundtrip_s``; None: an unobserved run here is the reference); (b)
+    at `kill_config`, killed at the `kill_feed`-th ``bwd.feed`` after one
+    autosave at `save_groups` groups, then resumed by a fresh forward and
+    backward from the snapshot, against the bits of an uninterrupted run
+    there."""
     import os
     import shutil
     import tempfile
@@ -3025,29 +3087,36 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
     from swiftly_tpu_torch.utils import checkpoint, peak_tflops
 
     cuda = device == "cuda"
-    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
-                           device=device, **st.SWIFT_CONFIGS[config_name])
-    N = cfg.image_size
-    fcs = st.make_full_facet_cover(cfg)
-    sgcs = st.make_full_subgrid_cover(cfg)
-    F = len(fcs)
-    S = len(sgcs) // len({sg.off0 for sg in sgcs})
-    n_cols = len(sgcs) // S
-    idxs = list(range(0, len(sgcs), max(1, len(sgcs) // MIN_SUBGRID_SAMPLES)))
+
+    def setup(name):
+        """The configuration `name`'s cover and real facets on the host."""
+        cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                               device=device, **st.SWIFT_CONFIGS[name])
+        N = cfg.image_size
+        fcs = st.make_full_facet_cover(cfg)
+        sgcs = st.make_full_subgrid_cover(cfg)
+        tasks = list(zip(fcs, [st.make_real_facet(N, fc, sources_for(N))
+                               for fc in fcs]))
+        S = len(sgcs) // len({sg.off0 for sg in sgcs})
+        return SimpleNamespace(cfg=cfg, fcs=fcs, sgcs=sgcs, tasks=tasks, S=S,
+                               n_cols=len(sgcs) // S)
+
     t0 = time.perf_counter()
-    tasks = list(zip(fcs, [st.make_real_facet(N, fc, sources_for(N))
-                           for fc in fcs]))
-    out = {"config": config_name, "col_group": col_group,
-           "fold_group": fold_group, "facet_setup_s": time.perf_counter() - t0}
+    base = setup(config_name)
+    sgcs = base.sgcs
+    idxs = list(range(0, len(sgcs), max(1, len(sgcs) // MIN_SUBGRID_SAMPLES)))
+    out = {"config": config_name, "kill_config": kill_config,
+           "col_group": col_group, "fold_group": fold_group,
+           "facet_setup_s": time.perf_counter() - t0}
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    def executors():
-        fwd = st.StreamedForward(cfg, tasks, residency="device",
+    def executors(ctx=base):
+        fwd = st.StreamedForward(ctx.cfg, ctx.tasks, residency="device",
                                  col_group=col_group)
-        bwd = st.StreamedBackward(cfg, fcs, residency="sampled",
+        bwd = st.StreamedBackward(ctx.cfg, ctx.fcs, residency="sampled",
                                   fold_group=fold_group)
         return fwd, bwd
 
@@ -3057,7 +3126,8 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
     def round_trip(fwd, bwd, cover):
         """The feed and the finish in a window synchronised at both ends,
         as phase 6 times it."""
-        feed = _TimedFeed(torch, fwd, idxs) if cuda else fwd
+        feed = _TimedFeed(torch, fwd, idxs if cover is sgcs else []) \
+            if cuda else fwd
         sync()
         t = time.perf_counter()
         st.feed_backward_passes(feed, cover, [bwd])
@@ -3159,7 +3229,14 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
                     f"max_memory_allocated {peak_a}")
         gc_collect(torch)
 
-        # (b) kill after one autosave, then resume
+        # (b) at kill_config: an uninterrupted round trip (the reference),
+        # then a kill after one autosave and the resume
+        side = setup(kill_config)
+        S, n_cols = side.S, side.n_cols
+        facets, ref_b_s = round_trip(*executors(side), side.sgcs)
+        ref_b = digests(facets)
+        del facets
+        gc_collect(torch)
         ck = os.path.join(tmp, "bwd.npz")
         metrics.reset()
         recorder.reset()
@@ -3169,12 +3246,12 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
                            "at": kill_feed}])
 
         def killed_run():
-            fwd, bwd = executors()
+            fwd, bwd = executors(side)
             bwd.enable_autosave(ck, every_subgrids=save_groups * col_group * S)
             t = time.perf_counter()
             try:
                 with faults.active(plan):
-                    st.feed_backward_passes(fwd, sgcs, [bwd])
+                    st.feed_backward_passes(fwd, side.sgcs, [bwd])
             except WorkerKilled as exc:
                 return str(exc), time.perf_counter() - t
             raise AssertionError("the planned kill did not fire")
@@ -3187,14 +3264,15 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
         snap_bytes = os.path.getsize(ck)
         gens = checkpoint.checkpoint_generations(ck)
         reset_counts()
-        fwd, bwd = executors()
+        fwd, bwd = executors(side)
         sync()
         t = time.perf_counter()
         processed = set(checkpoint.restore_streamed_backward_state(ck, bwd))
         sync()
         restore_s = time.perf_counter() - t
         pending = [o for o, _ in bwd._pending_rows]
-        rest = [sg for sg in sgcs if (sg.off0, sg.off1) not in processed]
+        rest = [sg for sg in side.sgcs
+                if (sg.off0, sg.off1) not in processed]
         counts_before = read_counts()
         reset_counts()
         facets, resumed_s = round_trip(fwd, bwd, rest)
@@ -3205,6 +3283,7 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
         b1_fwd = sum(v for key, v in counts["colpass"][1].items() if key[-1])
         rest_cols = len({sg.off0 for sg in rest})
         b = {
+            "config": kill_config, "uninterrupted_s": ref_b_s,
             "kill": kill_msg, "killed_run_s": killed_s,
             "snapshot_gb": snap_bytes / 1e9, "generations": len(gens),
             "save_s": saves.get("total_s"), "saves": saves.get("count"),
@@ -3216,18 +3295,18 @@ def resume_main(torch, phase6=None, config_name=MAIN_CONFIG, fold_group=4,
             "b1_forward_launches": b1_fwd,
             "launches": {k: v[0] for k, v in counts.items()},
             "restore_launches": {k: v[0] for k, v in counts_before.items()},
-            "bits_equal_phase6": dig_b == phase6["facet_digests"],
+            "bits_equal_uninterrupted": dig_b == ref_b,
             "post_mortem": {k: pm[k] for k in ("trigger", "reason",
                                                "n_events", "by_kind")},
         }
         out["b"] = b
-        log(f"{config_name} resume (b): {json.dumps(b)}")
+        log(f"{kill_config} resume (b): {json.dumps(b)}")
         named = any(e["kind"] == "fault" and "bwd.feed" in e["name"]
                     and "kill" in str(e["detail"]) for e in pm["events"])
         want_cols = n_cols - save_groups * col_group
         want_pending = (save_groups * col_group) % fold_group
-        require(b["bits_equal_phase6"], "resume (b): the resumed facets "
-                "differ from phase 6's")
+        require(b["bits_equal_uninterrupted"], "resume (b): the resumed "
+                "facets differ from the uninterrupted run's")
         require(b["saves"] == 1 and len(gens) == 1,
                 f"resume (b): {b['saves']} autosaves, generations {gens}")
         require(len(processed) == save_groups * col_group * S,
@@ -3792,7 +3871,7 @@ class _FleetClients:
 
 def delta_main(torch, config_name=MAIN_CONFIG, device="cuda", fold_group=4,
                col_group=DELTA_COL_GROUP, n_requests=FLEET_REQUESTS,
-               n_vis=VIS_SAMPLES // VIS_BATCHES // 2):
+               n_vis=VIS_SAMPLES // VIS_BATCHES // 4):
     """Phase 14: incremental facet updates and the serving fleet at
     `config_name`, planar f32, from sparse facets of the grid-corrected sky
     model (module docstring): (a) ``IncrementalForward.record``; (b) K = 1
@@ -5956,10 +6035,10 @@ def big_main(torch, config_name=BIG_CONFIG, fold_group=4,
     del facets, feed, fwd, bwd
     gc_collect(torch)
     if profile:
-        # half the plan's column group: the profiled window's share of the
-        # script's time limit
+        # a quarter of the plan's column group: the profiled window's
+        # share of the script's time limit
         out.update(profile_big(torch, executors, sgcs,
-                               max(1, plan["col_group"] // 2)))
+                               max(1, plan["col_group"] // 4)))
     return out
 
 
@@ -6429,7 +6508,7 @@ def vis_main(torch, config_name=MAIN_CONFIG, device="cuda",
         require(out["serve_b4_launches"] == out["pumps"] > 0,
                 f"serving launched B4 {out['serve_b4_launches']} times in "
                 f"{out['pumps']} pumps that served a sample")
-        # the first half of the traffic's first batch again, from a
+        # the first quarter of the traffic's first batch again, from a
         # freshly seeded feed
         _, feed = vis_feed(hot_col, hot_stack, feed_tag)
         out.update(profile_vis(
@@ -6500,6 +6579,418 @@ def profile_vis(torch, sv, fwd, sgcs, kernel, feed, window, rows=12):
     for name, (n, total) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:rows]:
         log(f"  {total / 1e6:10.1f} ms {n:8d}  {name[:90]}")
     return out
+
+
+# -- phase 18: the precision and complex-product knobs, the operator tools ---
+
+
+TOOLS_CONFIG = "4k[1]-n2k-512"
+# demo_sparse_facet's sources reach amplitude 99 (the JAX package's demo);
+# its f32 round trip's facet RMS is ~2e-6 at 4k, a wrong offset or window
+# errs by the signal itself (~1 and more). Bound: 1e-4.
+SPARSE_DEMO_RMS = 1e-4
+
+
+def _tf32_bound(K, passes):
+    """Elementwise bound on |cuBLAS TF32 product - its plain version| over
+    (|A| @ |B|), for a contraction of length K: each side errs from the
+    exact product by at most r + (passes K + 2) 2^-24, r the operands'
+    rounding to TF32 (one pass: both operands, 2u + u^2 with u = 2^-10,
+    which covers truncation as well as rounding to nearest; three passes:
+    lo.lo left out and lo rounded, 4 u^2), the rest each pass's float32
+    sum over K terms and the passes' sum; the two sides' bounds add."""
+    u = 2.0 ** -10
+    r = 2 * u + u * u if passes == 1 else 4 * u * u
+    return 2 * (r + (passes * K + 2) * 2.0 ** -24)
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _ms(torch, fn, iters, device):
+    """`_cuda_ms` on the card; host milliseconds (a rehearsal) elsewhere."""
+    if torch.device(device).type == "cuda":
+        return _cuda_ms(torch, fn, iters)
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def check_tf32_passes(torch, rows, K, C, seed=0, device="cuda"):
+    """One TF32 pass (``default``) and one three-pass product (``high``)
+    of the facet pass's shape [rows, K] @ [K, C] (the sampled phase matrix
+    against one real facet plane) on the card: cuBLAS with TF32 against
+    the plain version (operands rounded to TF32, IEEE products) within
+    `_tf32_bound`, each unlike the IEEE product (TF32 really ran), and the
+    flag off afterwards; their times and the IEEE product's."""
+    from swiftly_tpu_torch.ops import planar_backend as plk
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = torch.randn((rows, K), generator=g, device=device)
+    b = torch.randn((K, C), generator=g, device=device)
+    ieee = plk.contract(a, b, "highest")
+    scale = plk.contract(a.abs(), b.abs(), "highest")
+    out = {"shape": [rows, K, C],
+           "ieee_ms": _ms(torch, lambda: plk.contract(a, b, "highest"), 5,
+                          device)}
+    for precision, passes in (("default", 1), ("high", 3)):
+        got = plk.contract(a, b, precision)
+        want = plk.contract_plain(a, b, precision)
+        bound = _tf32_bound(K, passes)
+        ratio = float(((got - want).abs() / scale).max())
+        off_ieee = float(((got - ieee).abs() / scale).max())
+        out[precision] = {
+            "max_err_over_scale": ratio, "bound": bound,
+            "vs_ieee_over_scale": off_ieee,
+            "ms": _ms(torch, lambda: plk.contract(a, b, precision), 5,
+                      device),
+            "plain_ms": _ms(torch, lambda: plk.contract_plain(
+                a, b, precision), 5, device)}
+        require(ratio <= bound,
+                f"{precision}: cuBLAS TF32 against its plain version "
+                f"{ratio:.3e} of |A|@|B|, over the bound {bound:.3e}")
+        require(off_ieee > 2.0 ** -24,
+                f"{precision}: the TF32 product equals the IEEE one")
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the TF32 flag was left on")
+    log(f"tf32 passes at [{rows}, {K}] @ [{K}, {C}]: " + json.dumps(out))
+    return out
+
+
+class _SampleFeed:
+    """The forward as ``feed_backward_passes`` sees it, with copies of the
+    `wanted` subgrids kept as they pass (no timing: `_TimedFeed`'s events
+    need the card)."""
+
+    def __init__(self, forward, wanted):
+        self.forward = forward
+        self.wanted = set(wanted)
+        self.samples = {}
+
+    def stream_column_groups(self, subgrid_configs, spill=None):
+        for per_col, group in self.forward.stream_column_groups(
+                subgrid_configs, spill=spill):
+            for c, col in enumerate(per_col):
+                for s, (i, _) in enumerate(col):
+                    if i in self.wanted:
+                        self.samples[i] = group[c, s].clone()
+            yield per_col, group
+
+
+def _knob_forward(torch, st, cfg, tasks, sgcs, idxs, precision, device):
+    """Phase 6's streamed forward (facets resident, real planes) with the
+    executor built under ``SWIFTLY_PRECISION=precision``: the sampled
+    subgrids `idxs`, the forward's seconds (synchronised), the plan, and
+    the sampled facet pass over the whole cover's rows timed alone (CUDA
+    events) at the executor's knobs."""
+    from swiftly_tpu_torch.parallel import streamed as sm
+
+    with _env("SWIFTLY_PRECISION", precision):
+        fwd = st.StreamedForward(cfg, tasks, residency="device")
+    feed = _SampleFeed(fwd, idxs)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in feed.stream_column_groups(sgcs):
+        pass
+    _sync(torch, device)
+    fwd_s = time.perf_counter() - t0
+    core = fwd.core
+    yB = tasks[0][0].size
+    offs0 = sorted({sg.off0 for sg in sgcs})
+    krows = torch.as_tensor(sm.sampled_row_indices(core, offs0),
+                            device=device)
+    e0 = torch.as_tensor(np.asarray([fc.off0 - yB // 2 for fc, _ in tasks]),
+                         device=device)
+    # one timed pass, no warm-up: the forward just ran the same products
+    if torch.device(device).type == "cuda":
+        pass_ms = _once_ms(torch, lambda: sm._facet_pass_sampled(
+            core, fwd._dev_facets, e0, krows, real_facets=True))
+    else:
+        pass_ms = _ms(torch, lambda: sm._facet_pass_sampled(
+            core, fwd._dev_facets, e0, krows, real_facets=True), 1, device)
+    plan = fwd.last_plan
+    del fwd
+    return feed.samples, fwd_s, plan, pass_ms / 1e3, int(krows.shape[0])
+
+
+def _tool_run(main, argv):
+    """A tool's ``main(argv)`` with its stdout kept (returned) and the
+    logging it configures undone afterwards (its INFO lines go to stderr
+    while it runs)."""
+    import contextlib
+    import io
+    import logging
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+    finally:
+        for h in root.handlers[:]:
+            if h not in handlers:
+                root.removeHandler(h)
+        root.setLevel(level)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def tools_main(torch, phase6=None, big=None, device="cuda",
+               config_name=MAIN_CONFIG, tools_config=TOOLS_CONFIG,
+               big_config=BIG_CONFIG):
+    """Phase 18 (module docstring): (a) the precision knob on phase 6's
+    forward, (b) karatsuba on a round trip, (c) the operator tools."""
+    import tempfile
+
+    import swiftly_tpu_torch as st
+    from swiftly_tpu_torch.ops import planar_backend as plk
+    from swiftly_tpu_torch.tools import (
+        demo_api, demo_serve, demo_sparse_facet, estimate_large_config,
+        plan_explain, roofline)
+    from swiftly_tpu_torch.tools._cli import catalogue_params, cli_parser
+    from swiftly_tpu_torch.utils.flops import sampled_facet_pass_flops
+
+    budget = plk.PRECISION_RMS_BUDGET_REL
+    out = {"config": config_name, "budget": budget}
+    t_phase = time.perf_counter()
+    reset_counts()
+
+    # (a) the precision knob on phase 6's forward
+    cfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                           device=device, **st.SWIFT_CONFIGS[config_name])
+    N = cfg.image_size
+    sources = sources_for(N)
+    fcs = st.make_full_facet_cover(cfg)
+    sgcs = st.make_full_subgrid_cover(cfg)
+    tasks = [(fc, st.make_real_facet(N, fc, sources, dtype=np.float32))
+             for fc in fcs]
+    F, yB = len(fcs), fcs[0].size
+    ref = (phase6 or {}).get("subgrid_samples")
+    idxs = (sorted(ref) if ref else
+            list(range(0, len(sgcs), max(1, len(sgcs)
+                                          // MIN_SUBGRID_SAMPLES))))
+    runs = {}
+    for precision in ("high", "default", "highest"):
+        samples, fwd_s, plan, pass_s, rows = _knob_forward(
+            torch, st, cfg, tasks, sgcs, idxs, precision, device)
+        require(plan["precision"] == precision and plan["cmatmul"] == "4mul",
+                f"the forward's plan says {plan['precision']}, "
+                f"{plan['cmatmul']}")
+        got = [samples[i] for i in idxs]
+        rms = _subgrid_rms_device(torch, N, [sgcs[i] for i in idxs], got,
+                                  sources)
+        rec = {"forward_s": fwd_s, "rel_rms_vs_oracle": max(rms) * N * N,
+               "facet_pass_s": pass_s,
+               "facet_pass_tflops_per_s": sampled_facet_pass_flops(
+                   cfg.core, F, yB, rows, True) / pass_s / 1e12}
+        if ref:
+            d2 = [float(((g.cpu().double() - ref[i].double()) ** 2)
+                        .sum(-1).mean()) for g, i in zip(got, idxs)]
+            rec["rel_rms_vs_highest"] = float(np.sqrt(np.mean(d2))) * N * N
+            rec["bit_equal_to_phase6"] = all(
+                torch.equal(g.cpu(), ref[i]) for g, i in zip(got, idxs))
+        runs[precision] = rec
+        log(f"{config_name} forward at SWIFTLY_PRECISION={precision}: "
+            + json.dumps(rec) + f" (budget {budget[precision]})")
+        require(rec["rel_rms_vs_oracle"] <= budget[precision],
+                f"{precision}: relative RMS {rec['rel_rms_vs_oracle']:.3e} "
+                f"over the budget {budget[precision]}")
+        del samples, got
+    require(runs["high"]["rel_rms_vs_oracle"]
+            < runs["default"]["rel_rms_vs_oracle"],
+            "high is no closer to the oracle than default")
+    if ref:
+        require(runs["highest"]["bit_equal_to_phase6"],
+                "the highest forward after high and default is not "
+                "bit-equal to phase 6's")
+    out["precision"] = runs
+    out["tf32"] = check_tf32_passes(torch, cfg.core.xM_yN_size, yB, yB,
+                                    device=device)
+    gc_collect(torch)
+
+    # (b) karatsuba on a round trip at tools_config
+    tcfg = st.SwiftlyConfig(backend="planar", dtype=torch.float32,
+                            device=device, **st.SWIFT_CONFIGS[tools_config])
+    tN = tcfg.image_size
+    tsrc = sources_for(tN)
+    tfcs = st.make_full_facet_cover(tcfg)
+    tsgcs = st.make_full_subgrid_cover(tcfg)
+    ttasks = [(fc, st.make_real_facet(tN, fc, tsrc, dtype=np.float32))
+              for fc in tfcs]
+    kara = {}
+    for algo in ("karatsuba", "4mul"):
+        with _env("SWIFTLY_CMATMUL", algo):
+            fwd = st.StreamedForward(tcfg, ttasks, residency="device")
+            bwd = st.StreamedBackward(tcfg, tfcs, residency="sampled")
+        feed = _SampleFeed(fwd, range(len(tsgcs)))
+        st.feed_backward_passes(feed, tsgcs, [bwd])
+        facets = bwd.finish_device()
+        sg = _subgrid_rms_device(torch, tN, tsgcs,
+                                 [feed.samples[i] for i in range(len(tsgcs))],
+                                 tsrc)
+        f_rms = max(_facet_rms(torch, facets[i], torch.as_tensor(
+            d, device=facets.device)) for i, (_, d) in enumerate(ttasks))
+        kara[algo] = {"plan_cmatmul": fwd.last_plan["cmatmul"],
+                      "rel_rms_vs_oracle": max(sg) * tN * tN,
+                      "max_facet_rms": f_rms,
+                      "digest": _sha(facets)}
+        del fwd, bwd, feed, facets
+    out["karatsuba"] = kara
+    log(f"{tools_config} round trip under SWIFTLY_CMATMUL: "
+        + json.dumps(kara))
+    require(kara["karatsuba"]["plan_cmatmul"] == "karatsuba",
+            "the karatsuba run's plan says 4mul")
+    require(kara["karatsuba"]["digest"] != kara["4mul"]["digest"],
+            "karatsuba gave 4mul's bits")
+    for algo, rec in kara.items():
+        require(rec["rel_rms_vs_oracle"] <= budget["highest"],
+                f"{algo}: relative RMS {rec['rel_rms_vs_oracle']:.3e} over "
+                f"the f32 budget")
+        require(rec["max_facet_rms"] <= FACET_RMS,
+                f"{algo}: facet RMS {rec['max_facet_rms']:.3e} over bound")
+
+    # (c) the operator tools on the card
+    tools = {}
+    tmp = tempfile.mkdtemp(prefix="swiftly_tools_smoke_")
+    try:
+        # demo_api's loop: a checkpoint a column, a kill, a resume
+        ex = lambda: (st.StreamedForward(tcfg, ttasks, residency="device"),  # noqa: E731
+                      st.StreamedBackward(tcfg, tfcs, residency="sampled"))
+        t0 = time.perf_counter()
+        whole = demo_api.run_streamed_with_checkpoint(*ex(), tsgcs)
+        ck = Path(tmp) / "bwd.npz"
+        seen = {"n": 0}
+
+        class _Killed(RuntimeError):
+            pass
+
+        def killer(items):
+            seen["n"] += 1
+            if seen["n"] == 3:
+                raise _Killed()
+
+        try:
+            demo_api.run_streamed_with_checkpoint(
+                *ex(), tsgcs, ck_path=ck, every=1, on_column=killer)
+            require(False, "demo_api: the kill did not fire")
+        except _Killed:
+            pass
+        folded = {"n": 0}
+        resumed = demo_api.run_streamed_with_checkpoint(
+            *ex(), tsgcs, ck_path=ck, every=1,
+            on_column=lambda items: folded.__setitem__("n", folded["n"] + 1))
+        n_cols = len({sg.off0 for sg in tsgcs})
+        tools["demo_api_resume"] = {
+            "columns_refolded": folded["n"], "columns": n_cols,
+            "bit_equal": bool(np.array_equal(np.asarray(resumed),
+                                             np.asarray(whole))),
+            "s": time.perf_counter() - t0}
+        require(folded["n"] == n_cols - 2,
+                f"demo_api: the resume refolded {folded['n']} columns")
+        require(tools["demo_api_resume"]["bit_equal"],
+                "demo_api: the resumed facets differ from the whole run's")
+        del whole, resumed
+        rc, _, secs = _tool_run(demo_api.main, [
+            "--swift_config", tools_config, "--backend", "planar",
+            "--precision", "f32", "--execution", "streamed-device",
+            "--checkpoint", str(Path(tmp) / "ck"), "--device", device])
+        tools["demo_api"] = {"rc": rc, "s": secs}
+        require(rc == 0, f"demo_api exited {rc}")
+
+        # demo_sparse_facet over the FoV cover, its max facet RMS
+        args = cli_parser("phase 18").parse_args([
+            "--swift_config", tools_config, "--backend", "planar",
+            "--precision", "f32", "--execution", "streamed-device",
+            "--device", device])
+        args.fov_fraction, args.fov_x0, args.fov_y0 = 0.9, 0, 0
+        args.check_subgrid = False
+        t0 = time.perf_counter()
+        sparse_err = demo_sparse_facet.demo_sparse(
+            args, catalogue_params(tools_config))
+        tools["demo_sparse_facet"] = {"max_facet_rms": sparse_err,
+                                      "s": time.perf_counter() - t0}
+        require(np.isfinite(sparse_err) and sparse_err <= SPARSE_DEMO_RMS,
+                f"demo_sparse_facet: facet RMS {sparse_err:.3e}")
+
+        rc, text, secs = _tool_run(demo_serve.main, [
+            "--swift_config", tools_config, "--backend", "planar",
+            "--precision", "f32", "--requests", "200", "--device", device])
+        stats = json.loads(text)
+        tools["demo_serve"] = {"rc": rc, "s": secs,
+                               "n_served": stats.get("n_served"),
+                               "p99_ms": stats.get("p99_ms")}
+        require(rc == 0 and stats.get("n_served") == 200,
+                f"demo_serve: rc {rc}, served {stats.get('n_served')}")
+
+        rc, text, secs = _tool_run(plan_explain.main,
+                                   ["--config", big_config])
+        tools["plan_explain"] = {"rc": rc, "s": secs,
+                                 "lines": len(text.splitlines())}
+        require(rc == 0 and "predicted wall" in text,
+                f"plan_explain exited {rc}")
+        log(f"plan_explain --config {big_config}:\n{text.rstrip()}")
+
+        rc, text, secs = _tool_run(roofline.main, [
+            "--config", config_name, "--reps", "2", "--device", device])
+        recs = [json.loads(line) for line in text.splitlines()
+                if line.startswith("{")]
+        tools["roofline"] = {"rc": rc, "s": secs, "stages": {
+            r["stage"]: {k: r.get(k) for k in (
+                "seconds", "tflops_per_s", "effective_GBps",
+                "roofline_share", "bound_by", "precision")}
+            for r in recs if r["stage"] != "model"}}
+        require(rc == 0 and [r["stage"] for r in recs][:4]
+                == ["dispatch", "synth", "sampled", "column"],
+                f"roofline exited {rc}")
+        require(device != "cuda" or all(r.get("card") for r in recs),
+                "roofline printed a number without the card")
+        log("roofline over one 32k column group:\n" + text.rstrip())
+        gc_collect(torch)
+
+        eargs = estimate_large_config.parser().parse_args(
+            ["--config", big_config, "--device", device])
+        import contextlib
+        import io
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            est = estimate_large_config.measure(eargs)
+        tools["estimate_large_config"] = {
+            "forward_estimate_s": est, "s": time.perf_counter() - t0,
+            "phase9_forward_s": (big or {}).get("forward_s")}
+        log(f"estimate_large_config --config {big_config}:\n"
+            f"{buf.getvalue().rstrip()}")
+        log(f"{big_config}: the host-residency forward estimated at "
+            f"{est:.1f} s beside phase 9's measured forward (sampled "
+            f"facet pass from sparse facets synthesised on the card): "
+            + (f"{big['forward_s']:.1f} s" if big and "forward_s" in big
+               else "not measured in this run"))
+        require(np.isfinite(est) and est > 0,
+                "estimate_large_config gave no estimate")
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["tools"] = tools
+    out["counts"] = read_counts()
+    out["launches"] = {k: v[0] for k, v in out["counts"].items()}
+    out["phase_s"] = time.perf_counter() - t_phase
+    if device == "cuda":
+        missing = [k for k in ("cmatmul", "colpass", "fold")
+                   if out["launches"][k] == 0]
+        require(not missing, f"phase 18 launched {missing} no time")
+    return out
+
+
+def _tools_line(res):
+    """Phase 18's JSON record, without the per-shape launch counts."""
+    return {k: v for k, v in res.items() if k != "counts"}
 
 
 # -- main -------------------------------------------------------------------
@@ -6765,6 +7256,10 @@ def _args():
                    "(the facet mesh across 3 processes on the card) alone")
     p.add_argument("--multiproc-rank", metavar="JOB",
                    help=argparse.SUPPRESS)  # a rank of phase 17
+    p.add_argument("--tools", action="store_true",
+                   help="phase 2, phase 6 unprofiled and phase 18 (the "
+                   "precision and complex-product knobs and the operator "
+                   "tools) alone")
     p.add_argument("--delta", action="store_true",
                    help="phase 2, then phase 14 (incremental facet updates "
                    "and the serving fleet) alone")
@@ -6825,11 +7320,11 @@ def _time_streamed_kernels(torch, result):
 
 def spill_only_main(torch):
     """``--spill``: phase 11, then phase 7 for B1, B2 and B3 at its shapes;
-    one ``spill_32k`` JSON line."""
+    one ``spill_16k`` JSON line."""
     res = spill_main(torch)
     line = _spill_line(res)
     line["kernels"] = _time_streamed_kernels(torch, res)
-    log(json.dumps({"spill_32k": line}))
+    log(json.dumps({"spill_16k": line}))
     return 0
 
 
@@ -6877,7 +7372,7 @@ def main():
     if args.residency:
         res = residency_main(torch)
         done("residency")
-        log(json.dumps({"residency_32k": _residency_line(res)}))
+        log(json.dumps({"residency_16k": _residency_line(res)}))
         return 0
     if args.spill:
         return spill_only_main(torch)
@@ -6933,6 +7428,15 @@ def main():
         log(smi)
         log(json.dumps({"mesh_32k": _mesh_line(mesh)}))
         log(json.dumps({"multiproc_32k": _multiproc_line(res)}))
+        return 0
+    if args.tools:
+        streamed = streamed_main(torch, profile=False)
+        done("streamed")
+        gc_collect(torch)
+        res = tools_main(torch, phase6=streamed)
+        done("tools")
+        log(smi)
+        log(json.dumps({"tools": _tools_line(res)}))
         return 0
     if args.delta:
         res = delta_main(torch)
@@ -7007,7 +7511,7 @@ def main():
     residency = residency_main(torch)
     done("residency")
     gc_collect(torch)
-    spill = spill_main(torch, phase6_digests=streamed["facet_digests"])
+    spill = spill_main(torch)
     done("spill")
     gc_collect(torch)  # the earlier phases' device state
     vis = vis_main(torch, n_serve=None if args.serve_full else VIS_SERVED)
@@ -7015,6 +7519,10 @@ def main():
     gc_collect(torch)
     big = big_main(torch)
     done("128k")
+    gc_collect(torch)
+    tools = tools_main(torch, phase6=streamed, big=big)
+    done("tools")
+    del streamed["subgrid_samples"]
 
     # Phase 7: each kernel at the shapes each 32k path gave it.
     checks = {"cmatmul": check_cmatmul, "colpass": check_colpass,
@@ -7062,9 +7570,9 @@ def main():
         "profiled_window_s", "profiled_forward_s", "profiled_device_busy_s",
         "profiled_idle_share", "max_subgrid_rms", "max_facet_rms",
         "bit_identical_to_warm_run", "roundtrip_runs_s", "card_state")}}))
-    log(json.dumps({"slabs_32k": slabs}))
-    log(json.dumps({"residency_32k": _residency_line(residency)}))
-    log(json.dumps({"spill_32k": _spill_line(spill)}))
+    log(json.dumps({"slabs_16k": slabs}))
+    log(json.dumps({"residency_16k": _residency_line(residency)}))
+    log(json.dumps({"spill_16k": _spill_line(spill)}))
     log(json.dumps({"resume_32k": _resume_line(resume)}))
     log(json.dumps({"streamed_128k": _big_line(big)}))
     log(json.dumps({"plan_32k": _plan_line(plan13)}))
@@ -7073,6 +7581,7 @@ def main():
     log(json.dumps({"mesh_32k": _mesh_line(mesh)}))
     log(json.dumps({"multiproc_32k": _multiproc_line(multiproc)}))
     log(json.dumps({"native_1k": native}))
+    log(json.dumps({"tools": _tools_line(tools)}))
     vis_line = {k: vis[k] for k in (
         "config", "samples", "batches", "served_batches",
         "submitted_samples", "serve_s", "samples_per_s", "p50_ms",

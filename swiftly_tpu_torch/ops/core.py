@@ -24,6 +24,8 @@ therefore irrelevant to the result.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
@@ -276,14 +278,16 @@ class SwiftlyCore:
         if backend not in ("torch", "planar"):
             raise ValueError(f"Unknown SwiFTly backend: {backend}")
         self.device = resolve_device(device)
+        # the governed products' knobs, read now and kept (see knobs())
+        self.precision = plk.matmul_precision()
+        self.cmatmul = plk._cmatmul_algo()
         if backend == "torch":
             self._p = tpk
             dt = torch.complex64 if dtype is None else as_torch_dtype(dtype)
             self.dtype = _COMPLEX_OF.get(dt, dt)
             real = _REAL_OF[self.dtype]
         else:
-            self._p = plk
-            plk.set_matmul_precision()
+            self._p = plk.bound(self.precision, self.cmatmul)
             dt = torch.float32 if dtype is None else as_torch_dtype(dtype)
             self.dtype = _REAL_OF.get(dt, dt)
             real = self.dtype
@@ -292,6 +296,28 @@ class SwiftlyCore:
         self.real_dtype = real
         self._Fb = torch.as_tensor(fb, dtype=real, device=self.device)
         self._Fn = torch.as_tensor(fn, dtype=real, device=self.device)
+
+    def with_knobs(self):
+        """This core at the ``SWIFTLY_PRECISION`` / ``SWIFTLY_CMATMUL``
+        values the environment holds now: the core itself where they are
+        its own, else a shallow copy that computes with them (one per
+        pair, kept on the core). The window constants are shared."""
+        if self.backend in ("numpy", "native"):
+            return self
+        precision, cmatmul = plk.matmul_precision(), plk._cmatmul_algo()
+        if (precision, cmatmul) == (self.precision, self.cmatmul):
+            return self
+        cache = self.__dict__.setdefault("_knob_cores", {})
+        key = (precision, cmatmul)
+        if key not in cache:
+            other = copy.copy(self)
+            other.__dict__.pop("_knob_cores", None)
+            other.__dict__.pop("_shard_cores", None)
+            other.precision, other.cmatmul = key
+            if self.backend == "planar":
+                other._p = plk.bound(precision, cmatmul)
+            cache[key] = other
+        return cache[key]
 
     # -- layout properties -------------------------------------------------
 

@@ -46,7 +46,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 from collections import Counter
+from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -62,6 +64,7 @@ __all__ = [
     "cmatmul_plain",
     "cmatmul_stats",
     "colpass",
+    "colpass_blocks",
     "colpass_launches",
     "colpass_plain",
     "colpass_staging",
@@ -338,6 +341,37 @@ def engine_tile(name, dtype):
     fn(int(dtype == torch.float64), out)
     return {"tile": (out[0], out[1]), "thread": (out[2], out[3]),
             "stages": out[4], "shared_bytes": out[5]}
+
+
+@functools.lru_cache(maxsize=None)
+def _header_tile(dtype_name):
+    """B1's tile for "float" or "double" as ``csrc/cgemm.cuh`` fixes it at
+    compile time (``EngineTile<T>``, ``kBK``)."""
+    text = (Path(__file__).resolve().parent.parent / "csrc"
+            / "cgemm.cuh").read_text()
+    bm, bn, rm, rn, stages = (int(v) for v in re.search(
+        rf"struct EngineTile<{dtype_name}> {{\s*using type = "
+        rf"Tile<{dtype_name}, (\d+), (\d+), (\d+), (\d+), (\d+)>;",
+        text).groups())
+    bk = int(re.search(r"constexpr int kBK = (\d+);", text).group(1))
+    return {"bm": bm, "bn": bn, "bk": bk, "rm": rm, "rn": rn,
+            "stages": stages}
+
+
+def colpass_blocks(dtype, device="cpu"):
+    """The tile set B1 runs at `dtype`: {"bm", "bn", "bk", "rm", "rn",
+    "stages"}, what a plan's ``colpass_blocks`` records. B1's tile is
+    fixed when ``csrc/cgemm.cuh`` is compiled (no knob sets it); on a CUDA
+    `device` the tile is read from the built library (`engine_tile`), else
+    from the header."""
+    name = "double" if dtype == torch.float64 else "float"
+    tile = dict(_header_tile(name))
+    if torch.device(device).type == "cuda":
+        lib = engine_tile("colpass", dtype)
+        tile.update(bm=lib["tile"][0], bn=lib["tile"][1],
+                    rm=lib["thread"][0], rn=lib["thread"][1],
+                    stages=lib["stages"])
+    return tile
 
 
 def _aligned(*tensors):

@@ -19,13 +19,32 @@ The module implements the same namespace protocol as
 on it unchanged. Axes are logical (the re/im axis is not counted); negative
 axes count from the last logical axis.
 
-Precision: float32 products accumulate in float32 with no TF32 (the twin
-of ``Precision.HIGHEST``); float64 for the exactness tests.
+Precision: ``SWIFTLY_PRECISION`` (``highest`` | ``high`` | ``default``,
+``matmul_precision``) and ``SWIFTLY_CMATMUL`` (``4mul`` | ``karatsuba``,
+``_cmatmul_algo``) govern the products the JAX package leaves to XLA, and
+only those: the factored FFT's contractions here and the streamed
+executors' facet pass, einsum bodies and plain folds
+(``parallel/streamed.py``). Every governed product goes through
+``contract``: ``highest`` is IEEE float32 (TF32 off, the twin of
+``Precision.HIGHEST``), ``default`` one TF32 pass (each operand rounded
+to TF32's 10-bit mantissa, as the TPU's one bf16 pass rounds to 7 bits),
+``high`` three TF32 passes over a hi/lo split (the TPU's bf16 x 3).
+float64 ignores the knob, as XLA does. The hand-written kernels (B1-B4,
+``grid``) are the counterparts of the JAX package's Pallas kernels,
+which hard-code ``HIGHEST``: they stay IEEE float32 under every setting,
+and so does the direct DFT (n <= 1024, kernel B3, always 4mul).
+A core or executor reads both knobs when it is built and keeps them
+(``SwiftlyCore.precision`` / ``.cmatmul``; its ``_p`` is this module with
+the FFTs bound to them, ``bound``).
 """
 
 from __future__ import annotations
 
 import functools
+import os
+import sys
+import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,15 +53,22 @@ from . import primitives as tpk
 from .kernels import cmatmul
 
 __all__ = [
+    "PRECISION_RMS_BUDGET_REL",
+    "Split",
+    "bound",
     "broadcast_along",
+    "contract",
+    "contract_plain",
     "extract_mid",
     "fft",
     "from_planar",
     "ifft",
     "ndim",
     "pad_mid",
+    "presplit",
+    "matmul_precision",
     "roll_axis",
-    "set_matmul_precision",
+    "round_tf32",
     "to_planar",
     "wrapped_embed",
     "wrapped_embed_add_",
@@ -54,12 +80,162 @@ __all__ = [
 _DIRECT_MAX = 1024
 
 
-def set_matmul_precision():
-    """Full-f32 matmuls: no TF32 in cuBLAS (the twin of the JAX package's
-    ``Precision.HIGHEST``, ``planar_backend.py:158-175``). TF32 keeps about
-    three decimal digits, which would degrade every FFT to ~1e-3."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+# The relative-RMS budget of a forward against the direct-DFT oracle under
+# each setting (relative RMS = absolute RMS x N^2, the unit-source
+# normalisation): a copy of the JAX package's ``PRECISION_RMS_BUDGET_REL``
+# (``bench.py``), its loose bounds on a lost flag or a dtype downcast.
+PRECISION_RMS_BUDGET_REL = {
+    "highest": 3e-4,
+    "high": 3e-2,
+    "default": 3e-2,
+}
+
+
+def matmul_precision() -> str:
+    """The governed products' precision, ``SWIFTLY_PRECISION``
+    (highest|high|default, default highest; the JAX package's
+    ``planar_backend.py:164-176``). Read when a core or executor is
+    built."""
+    name = os.environ.get("SWIFTLY_PRECISION", "highest").lower()
+    if name not in ("default", "high", "highest"):
+        raise ValueError(
+            f"SWIFTLY_PRECISION must be default|high|highest, got {name!r}"
+        )
+    return name
+
+
+def _cmatmul_algo() -> str:
+    """The factored FFT's and the einsum bodies' complex-product algorithm,
+    ``SWIFTLY_CMATMUL``: "4mul" (four real products, the most accurate) or
+    "karatsuba" (three, ~2x the float32 rounding error). Read when a core
+    or executor is built."""
+    algo = os.environ.get("SWIFTLY_CMATMUL", "4mul")
+    if algo not in ("4mul", "karatsuba"):
+        raise ValueError(f"SWIFTLY_CMATMUL must be 4mul|karatsuba, got {algo!r}")
+    return algo
+
+
+# -- the contraction helper --------------------------------------------------
+#
+# cuBLAS takes TF32 from one process-wide flag
+# (torch.backends.cuda.matmul.allow_tf32), read when a product launches.
+# Every governed product on the card launches under _TF32_LOCK with the
+# flag set to its own mode and restored in a `finally`: a TF32 pass holds
+# the lock from setting the flag to restoring it, and an IEEE product
+# launches under the lock with the flag forced off, so no governed product
+# of another executor or thread can launch inside another's window, and
+# an exception restores the flag. The lock is held for the launch only
+# (cuBLAS fixes the math mode when it enqueues), not the device time. The
+# port's other float32 work on the card is its hand-written kernels, which
+# no flag reaches.
+
+_TF32_LOCK = threading.Lock()
+
+
+def round_tf32(x):
+    """float32 `x` rounded to TF32's 10-bit mantissa (to nearest, ties to
+    even), on `x`'s device; the result is a float32 tensor that TF32 holds
+    exactly."""
+    bits = x.contiguous().view(torch.int32)
+    bits = bits + (0x0FFF + ((bits >> 13) & 1))
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _product(a, b, spec):
+    return torch.matmul(a, b) if spec is None else torch.einsum(spec, a, b)
+
+
+def _launch(a, b, spec, tf32):
+    """One cuBLAS product on the card with TF32 `tf32`, under the lock."""
+    flags = torch.backends.cuda.matmul
+    with _TF32_LOCK:
+        prev = flags.allow_tf32
+        flags.allow_tf32 = tf32
+        try:
+            return _product(a, b, spec)
+        finally:
+            flags.allow_tf32 = prev
+
+
+def _tf32_pass(a, b, spec, plain):
+    """One TF32 pass: cuBLAS with TF32 on the card, else (or with `plain`)
+    the plain version, each operand rounded to TF32 and an IEEE product."""
+    if a.device.type != "cuda":
+        return _product(round_tf32(a), round_tf32(b), spec)
+    if plain:
+        return _launch(round_tf32(a), round_tf32(b), spec, False)
+    return _launch(a, b, spec, True)
+
+
+class Split(NamedTuple):
+    """A float32 operand split for ``high``: ``hi`` rounded to TF32 and
+    ``lo = x - hi`` (exact). `presplit` makes one, so that an operand
+    used in many products is split once."""
+    hi: torch.Tensor
+    lo: torch.Tensor
+
+
+def presplit(x, precision):
+    """`x` as `contract` takes it at `precision`: a `Split` for ``high``
+    on a float32 tensor, else `x` itself."""
+    if precision != "high" or x.dtype != torch.float32:
+        return x
+    hi = round_tf32(x)
+    return Split(hi, x - hi)
+
+
+def _real_contract(a, b, precision, spec, plain):
+    if precision == "default":
+        return _tf32_pass(a, b, spec, plain)
+    # high: x = hi + lo with hi = x rounded to TF32 (lo = x - hi is exact),
+    # hi.hi + hi.lo + lo.hi, the small terms summed first
+    ah, al = a if isinstance(a, Split) else presplit(a, "high")
+    bh, bl = b if isinstance(b, Split) else presplit(b, "high")
+    return ((_tf32_pass(ah, bl, spec, plain) + _tf32_pass(al, bh, spec, plain))
+            + _tf32_pass(ah, bh, spec, plain))
+
+
+def contract(a, b, precision="highest", spec=None, plain=False):
+    """``torch.matmul(a, b)`` (or ``torch.einsum(spec, a, b)``) at the
+    governed products' `precision`: "highest" IEEE, "default" one TF32
+    pass, "high" three. float64 ignores the knob; a complex64 operand runs
+    as real products on its planes (the TF32 modes' four real products).
+    `plain` runs the TF32 passes' plain version on any device. Under
+    ``high`` either operand may be a `Split` (`presplit`)."""
+    if isinstance(a, Split) or isinstance(b, Split):
+        return _real_contract(a, b, precision, spec, plain)
+    dt = a.dtype
+    if precision == "highest" or dt in (torch.float64, torch.complex128):
+        if a.device.type != "cuda":
+            return _product(a, b, spec)
+        return _launch(a, b, spec, False)
+    if precision not in ("high", "default"):
+        raise ValueError(
+            f"precision must be default|high|highest, got {precision!r}")
+    if not (a.is_complex() or b.is_complex()):
+        return _real_contract(a, b, precision, spec, plain)
+    ar, ai = (a.real, a.imag) if a.is_complex() else (a, None)
+    br, bi = (b.real, b.imag) if b.is_complex() else (b, None)
+
+    def f(x, y):
+        return _real_contract(x.contiguous(), y.contiguous(), precision,
+                              spec, plain)
+
+    re = f(ar, br)
+    im = None
+    if ai is not None and bi is not None:
+        re = re - f(ai, bi)
+    if bi is not None:
+        im = f(ar, bi)
+    if ai is not None:
+        im = f(ai, br) if im is None else im + f(ai, br)
+    return torch.complex(re, im)
+
+
+def contract_plain(a, b, precision="highest", spec=None):
+    """`contract`'s plain version: TF32 passes as rounded operands and IEEE
+    products on the tensors' own device (what the CPU runs)."""
+    return contract(a, b, precision, spec, plain=True)
 
 
 def to_planar(a, dtype=torch.float32, device="cpu"):
@@ -171,9 +347,14 @@ def _twiddle(n1: int, n2: int, sign: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @functools.lru_cache(maxsize=64)
-def _planes(kind: str, args: tuple, dtype, device: str):
+def _planes(kind: str, args: tuple, dtype, device: str, karatsuba=False):
     """A float64 numpy matrix pair cast to `dtype` on `device` (cached:
-    the constants are built once per size, as XLA bakes them in)."""
+    the constants are built once per size, as XLA bakes them in); with
+    `karatsuba` also the sums Karatsuba takes, ``(wr, wi, wr + wi,
+    wi - wr)``."""
+    if karatsuba:
+        wr, wi = _planes(kind, args, dtype, device)
+        return wr, wi, wr + wi, wi - wr
     build = _dft_matrix if kind == "dft" else _twiddle
     return tuple(
         torch.from_numpy(m).to(device=device, dtype=dtype)
@@ -181,13 +362,31 @@ def _planes(kind: str, args: tuple, dtype, device: str):
     )
 
 
-def _cmatmul(ar, ai, br, bi):
-    """``(ar + i ai) @ (br + i bi)`` as four real ``torch.matmul`` products
-    ("4mul"), the factored FFT's contractions."""
-    return (
-        torch.matmul(ar, br) - torch.matmul(ai, bi),
-        torch.matmul(ar, bi) + torch.matmul(ai, br),
-    )
+def _cmatmul(zr, zi, w, precision="highest", algo="4mul", spec=None,
+             w_left=False):
+    """The complex product of data ``z = zr + i zi`` and matrix `w`
+    (``z @ w``, or ``w @ z`` with `w_left`; ``torch.einsum(spec, z, w)``
+    with `spec`), each real product through `contract` at `precision`
+    (the JAX package's ``_cmatmul``, ``planar_backend.py:192-211``).
+
+    "4mul": four real products, `w` = (wr, wi). "karatsuba": three, `w` =
+    (wr, wi, wr + wi, wi - wr) (``_planes(..., karatsuba=True)``):
+    k1 = (zr+zi)·wr, k2 = zi·(wr+wi), k3 = zr·(wi-wr);
+    re = k1 - k2, im = k1 + k3."""
+    if w_left:
+        def f(x, m):
+            return contract(m, x, precision, spec)
+    else:
+        def f(x, m):
+            return contract(x, m, precision, spec)
+    if algo == "karatsuba":
+        k1 = f(zr + zi, w[0])
+        k2 = f(zi, w[2])
+        k3 = f(zr, w[3])
+        return k1 - k2, k1 + k3
+    # each operand enters two products: under "high" split it once
+    zr, zi, wr, wi = (presplit(x, precision) for x in (zr, zi, w[0], w[1]))
+    return f(zr, wr) - f(zi, wi), f(zr, wi) + f(zi, wr)
 
 
 def _fft_direct_centred(z, sign: int):
@@ -202,25 +401,27 @@ def _fft_direct_centred(z, sign: int):
     return torch.stack([outr, outi], dim=-1).reshape(lead + (n, 2))
 
 
-def _fft_factored(z, sign: int):
+def _fft_factored(z, sign: int, precision="highest", algo="4mul"):
     """Uncentred DFT (four-step n = n1*n2) along the second-to-last axis
     of planar z; the inverse 1/n scale is folded into the twiddle.
 
     The reference's steps (``planar_backend.py:239-269``) in a transposed
     layout that suits ``torch.matmul``: the big n1-point DFT is one
     [rows*n2, n1] x [n1, n1] product, the small n2-point DFT a product
-    with an [n2, n2] matrix, and the result lands in output order.
+    with an [n2, n2] matrix, and the result lands in output order. Both
+    contractions are governed products (`_cmatmul`).
     """
     n = z.shape[-2]
     n1, n2 = _factor(n)
     dev, dt = str(z.device), z.dtype
+    kara = algo == "karatsuba"
     # i = i2 + n2*i1: split the index into (i1, i2), then lay out (i2, i1)
     xr = z[..., 0].unflatten(-1, (n1, n2)).transpose(-1, -2).contiguous()
     xi = z[..., 1].unflatten(-1, (n1, n2)).transpose(-1, -2).contiguous()
 
     # Step 1: DFT over i1 -> (..., i2, k1)
-    w1r, w1i = _planes("dft", (n1, sign, False), dt, dev)
-    ar, ai = _cmatmul(xr, xi, w1r, w1i)
+    w1 = _planes("dft", (n1, sign, False), dt, dev, kara)
+    ar, ai = _cmatmul(xr, xi, w1, precision, algo)
     del xr, xi
 
     # Step 2: twiddle T[k1, i2] (elementwise, transposed)
@@ -231,15 +432,15 @@ def _fft_factored(z, sign: int):
     del ar, ai
 
     # Step 3: DFT over i2 -> (..., k2, k1), i.e. W2^T @ b
-    w2r, w2i = _planes("dft", (n2, sign, False), dt, dev)
-    cr, ci = _cmatmul(w2r.T, w2i.T, br, bi)
+    w2 = tuple(m.T for m in _planes("dft", (n2, sign, False), dt, dev, kara))
+    cr, ci = _cmatmul(br, bi, w2, precision, algo, w_left=True)
     del br, bi
 
     # Output index k = k1 + n1*k2: (k2, k1) flattens in output order
     return torch.stack([cr, ci], dim=-1).reshape(z.shape[:-2] + (n, 2))
 
 
-def _fft_centred(a, axis: int, sign: int):
+def _fft_centred(a, axis: int, sign: int, precision="highest", algo="4mul"):
     ax = _phys(axis) % a.ndim
     n = a.shape[ax]
     z = a.movedim(ax, -2)
@@ -247,16 +448,53 @@ def _fft_centred(a, axis: int, sign: int):
         z = _fft_direct_centred(z, sign)
     else:
         z = torch.roll(z, -(n // 2), dims=-2)  # ifftshift
-        z = _fft_factored(z, sign)
+        z = _fft_factored(z, sign, precision, algo)
         z = torch.roll(z, n // 2, dims=-2)  # fftshift
     return z.movedim(-2, ax)
 
 
 def fft(a, axis: int):
-    """Centred-zero FFT along logical `axis` of a planar tensor."""
+    """Centred-zero FFT along logical `axis` of a planar tensor (IEEE
+    float32 products, 4mul; a core's ``_p.fft`` takes its knobs)."""
     return _fft_centred(a, axis, -1)
 
 
 def ifft(a, axis: int):
     """Centred-zero inverse FFT along logical `axis` of a planar tensor."""
     return _fft_centred(a, axis, +1)
+
+
+class _Bound:
+    """This module's namespace with `fft` / `ifft` bound to one precision
+    and complex-product algorithm: a core's ``_p``. Every other name is
+    the module's."""
+
+    def __init__(self, precision, cmatmul):
+        self.precision = precision
+        self.cmatmul = cmatmul
+
+    def __getattr__(self, name):
+        return getattr(sys.modules[__name__], name)
+
+    def __reduce__(self):
+        return bound, (self.precision, self.cmatmul)
+
+    def __repr__(self):
+        return f"planar_backend.bound({self.precision!r}, {self.cmatmul!r})"
+
+    def fft(self, a, axis: int):
+        return _fft_centred(a, axis, -1, self.precision, self.cmatmul)
+
+    def ifft(self, a, axis: int):
+        return _fft_centred(a, axis, +1, self.precision, self.cmatmul)
+
+
+@functools.lru_cache(maxsize=None)
+def bound(precision="highest", cmatmul="4mul"):
+    """The namespace a core at these knobs computes with (one per pair)."""
+    if precision not in PRECISION_RMS_BUDGET_REL:
+        raise ValueError(
+            f"precision must be default|high|highest, got {precision!r}")
+    if cmatmul not in ("4mul", "karatsuba"):
+        raise ValueError(f"cmatmul must be 4mul|karatsuba, got {cmatmul!r}")
+    return _Bound(precision, cmatmul)

@@ -509,6 +509,7 @@ def shard_core(core, device):
     if device not in cache:
         other = copy.copy(core)
         other.__dict__.pop("_shard_cores", None)
+        other.__dict__.pop("_knob_cores", None)
         other.device = device
         other._Fb = core._Fb.to(device)
         other._Fn = core._Fn.to(device)

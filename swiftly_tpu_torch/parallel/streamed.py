@@ -257,6 +257,17 @@ def _to_host_layout(core, data):
     return np.asarray(data, dtype=_np_dtype(core))
 
 
+def _plan_knobs(core, colpass):
+    """A forward plan's record of what ran: the governed products' knobs
+    and, where the body is B1, the tile set B1 runs (so that what
+    ``plan.autotune`` learns from a record is that tile)."""
+    out = {"precision": core.precision, "cmatmul": core.cmatmul}
+    if colpass == "kernel":
+        out["colpass_blocks"] = kernels.colpass_blocks(core.real_dtype,
+                                                       core.device)
+    return out
+
+
 def _identity(core, n):
     """The n x n identity in the core's layout, on its device."""
     eye = torch.eye(n, dtype=core.real_dtype, device=core.device)
@@ -281,7 +292,8 @@ class _StreamedBase:
         from ..api import _FacetStack
 
         self.config = swiftly_config
-        self.core = swiftly_config.core
+        # SWIFTLY_PRECISION / SWIFTLY_CMATMUL read now and kept on the core
+        self.core = swiftly_config.core.with_knobs()
         if self.core.backend in ("numpy", "native"):
             raise ValueError(
                 "Streamed execution requires a device backend "
@@ -296,7 +308,6 @@ class _StreamedBase:
                 "facet_configs must be non-empty (the streamed paths "
                 "size their programs from the first facet)"
             )
-        plk.set_matmul_precision()  # full f32 products: no TF32
         self.residency = residency
         self.mesh = getattr(swiftly_config, "mesh", None)
         self.stack = _FacetStack(facet_configs, pad_to=mesh_size(self.mesh))
@@ -487,6 +498,12 @@ def _facet_pass_sampled(core, facets, e0, krows, real_facets=False):
         dt = core.real_dtype
         out = torch.empty((F, R, yB), dtype=core.dtype,
                           device=facets[0].device)
+
+    def mm(a, b):
+        return plk.contract(a, b, core.precision)
+
+    # under "high" each facet plane is split once, not once a row block
+    facets = tuple(plk.presplit(f, core.precision) for f in facets)
     for r0 in range(0, R, step):
         kr = krows[r0:r0 + step]
         A_re, A_im = _sampled_A_real(core, yB, dt, kr)
@@ -497,17 +514,17 @@ def _facet_pass_sampled(core, facets, e0, krows, real_facets=False):
         dst = out[:, r0:r0 + step]
         if not _planar(core):
             (fc,) = facets
-            torch.mul(torch.matmul(torch.complex(A_re, A_im), fc),
+            torch.mul(mm(torch.complex(A_re, A_im), fc),
                       torch.complex(p_cos, p_sin), out=dst)
             continue
         if real_facets:
             (Fr,) = facets
-            o_re = torch.matmul(A_re, Fr)  # [F, rows, yB]
-            o_im = torch.matmul(A_im, Fr)
+            o_re = mm(A_re, Fr)  # [F, rows, yB]
+            o_im = mm(A_im, Fr)
         else:
             Fr, Fi = facets
-            o_re = torch.matmul(A_re, Fr) - torch.matmul(A_im, Fi)
-            o_im = torch.matmul(A_re, Fi) + torch.matmul(A_im, Fr)
+            o_re = mm(A_re, Fr) - mm(A_im, Fi)
+            o_im = mm(A_re, Fi) + mm(A_im, Fr)
         torch.sub(o_re * p_cos, o_im * p_sin, out=dst[..., 0])
         torch.add(o_re * p_sin, o_im * p_cos, out=dst[..., 1])
         del o_re, o_im
@@ -582,15 +599,15 @@ def _prepare_rows(core, NMBF, foffs1):
 
 def _ceinsum(core, spec, a, b):
     """A complex einsum written for the logical axes: complex tensors
-    directly, planar ones as four real einsums (the JAX package's
-    ``_ceinsum``)."""
+    directly, planar ones through ``planar_backend._cmatmul`` (four real
+    einsums, or three under karatsuba; the JAX package's ``_ceinsum``),
+    each a governed product at the core's precision."""
     if not _planar(core):
-        return torch.einsum(spec, a, b)
-    ar, ai, br, bi = a[..., 0], a[..., 1], b[..., 0], b[..., 1]
-    return torch.stack([
-        torch.einsum(spec, ar, br) - torch.einsum(spec, ai, bi),
-        torch.einsum(spec, ar, bi) + torch.einsum(spec, ai, br),
-    ], dim=-1)
+        return plk.contract(a, b, core.precision, spec)
+    br, bi = b[..., 0], b[..., 1]
+    w = (br, bi) if core.cmatmul == "4mul" else (br, bi, br + bi, bi - br)
+    return torch.stack(plk._cmatmul(a[..., 0], a[..., 1], w, core.precision,
+                                    core.cmatmul, spec), dim=-1)
 
 
 def _colpass_einsum_body(core, ops, NMBF_BF, sg_offs):
@@ -920,7 +937,7 @@ def _bwd_sampled_fold(core, acc, rows, e0, krows, row0=0, F_block=None):
             kernels.fold(cur[..., 0], cur[..., 1], b_cos, b_sin, Rr2, Ri2, w)
         else:
             Bm = torch.complex(b_cos, -b_sin).transpose(0, 1)  # [B, R]
-            cur += torch.matmul(Bm, rows2) * w[None, :, None]
+            cur += plk.contract(Bm, rows2, core.precision) * w[None, :, None]
     return acc
 
 
@@ -1072,9 +1089,12 @@ def _bwd_ct_fold(core, acc, rows, e0, krows, col_offs0, F_block=None):
     fb = core._p.extract_mid(core._Fb, yB, 0).to(dt)[:, None]  # no 1/yN
     flat = torch.as_tensor(r_idx.reshape(-1), device=dev)
 
+    def ein(spec, x, y):
+        return plk.contract(x, y, core.precision, spec)
+
     def cmul(spec, ar, ai, br, bi):
-        return (torch.einsum(spec, ar, br) - torch.einsum(spec, ai, bi),
-                torch.einsum(spec, ar, bi) + torch.einsum(spec, ai, br))
+        return (ein(spec, ar, br) - ein(spec, ai, bi),
+                ein(spec, ar, bi) + ein(spec, ai, br))
 
     for j0 in range(0, yB, W):
         for f in range(F):
@@ -1699,7 +1719,8 @@ class StreamedForward:
         G = self.col_group or self._auto_col_group(len(col_offs0))
         colpass = resolve_colpass(core, base.stack.n_total)
         self.last_plan = {"mode": "resident", "col_group": G,
-                          "colpass": colpass}
+                          "colpass": colpass,
+                          **_plan_knobs(core, colpass)}
         ops = self._operators() if colpass != "fft" else None
         fp_flops = cp_flops = 0
         if _metrics.enabled():
@@ -1755,7 +1776,8 @@ class StreamedForward:
         n = mesh_size(base.mesh)
         colpass = resolve_colpass(self.core, base.stack.n_total // n)
         return {"mode": mode, "colpass": colpass, "mesh_shards": n,
-                "collective": resolve_collective(n)}
+                "collective": resolve_collective(n),
+                **_plan_knobs(self.core, colpass)}
 
     def _mesh_column(self, plan, shard_rows, tensors, g, subgrid_size):
         """Column g of a group on the mesh: each shard's partials from its
@@ -1970,6 +1992,7 @@ class StreamedForward:
             "facet_source": ("device-synth-sparse" if self._facets_sparse
                              else "host"),
             "colpass": colpass, "stream_prefetch": use_prefetch,
+            **_plan_knobs(core, colpass),
         }
         fp_flops = step_flops = 0
         if _metrics.enabled():
@@ -2210,7 +2233,7 @@ class StreamedForward:
         plan = self.last_plan = dict(
             self._pass_stats, mode="host", col_block=base.col_block,
             n_blocks=base._n_blocks, colpass=colpass, column_uploads=0,
-            column_upload_bytes=0)
+            column_upload_bytes=0, **_plan_knobs(core, colpass))
         cp_flops = 0
         if _metrics.enabled():
             _metrics.gauge("fwd.plan", dict(plan))

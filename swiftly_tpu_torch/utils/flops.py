@@ -35,6 +35,7 @@ from ..ops.planar_backend import _DIRECT_MAX, _factor
 __all__ = [
     "H100_F32_TFLOPS",
     "H100_HBM_TB_PER_S",
+    "H100_TF32_TFLOPS",
     "backward_batched_flops",
     "backward_sampled_flops",
     "bwd_column_pass_flops",
@@ -60,6 +61,10 @@ H100_F32_TFLOPS = 67.0
 # Its HBM3 memory rate, TB/s (same data sheet): the bytes side of a
 # kernel's bound.
 H100_HBM_TB_PER_S = 3.35
+# Its dense TF32 tensor-core rate, TFLOP/s (same data sheet: 989 with
+# sparsity): the rate of the governed products' TF32 passes under
+# SWIFTLY_PRECISION=high|default.
+H100_TF32_TFLOPS = 494.7
 
 
 def fft_flops(n: int, batch: int) -> int:

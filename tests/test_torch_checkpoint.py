@@ -29,6 +29,7 @@ import torch
 import swiftly_tpu_torch as T
 from swiftly_tpu_torch.resilience import FaultPlan, WorkerKilled, faults
 from swiftly_tpu_torch.resilience.faults import corrupt_file
+from swiftly_tpu_torch.tools.demo_api import run_streamed_with_checkpoint
 from swiftly_tpu_torch.utils import checkpoint as tck
 from swiftly_tpu_torch.utils.checkpoint import (
     CorruptCheckpointError,
@@ -192,30 +193,6 @@ def test_kill_and_resume_through_the_feed_is_bit_identical(
     np.testing.assert_allclose(got, _jax_facets(size), rtol=0, atol=1e-10)
 
 
-def _column_loop(fwd, bwd, sgcs, ck=None, every=1, on_column=None):
-    """``scripts/demo_api.py``'s ``run_streamed_with_checkpoint`` on the
-    port: fold each forward column, snapshot every `every` columns, resume
-    from the snapshot if one exists, skipping the folded columns."""
-    processed = set()
-    if ck is not None and ck.exists():
-        processed = {tuple(p) for p in restore_streamed_backward_state(ck,
-                                                                       bwd)}
-    since = 0
-    for items, subgrids in fwd.stream_columns(sgcs, device_arrays=True):
-        keys = [(sg.off0, sg.off1) for _, sg in items]
-        if processed and all(k in processed for k in keys):
-            continue
-        bwd.add_subgrid_stack([sg for _, sg in items], subgrids[:len(items)])
-        processed.update(keys)
-        since += 1
-        if on_column is not None:
-            on_column(items)
-        if ck is not None and since >= every:
-            save_streamed_backward_state(ck, bwd, sorted(processed))
-            since = 0
-    return bwd.finish()
-
-
 class _Killed(RuntimeError):
     pass
 
@@ -233,7 +210,7 @@ def test_kill_and_resume_matches_uninterrupted(tmp_path, residency):
                 T.StreamedBackward(config, fcs, residency=residency,
                                    fold_group=fold_group))
 
-    ref = _column_loop(*executors(), sgcs)
+    ref = run_streamed_with_checkpoint(*executors(), sgcs)
     ck = tmp_path / "bwd.npz"
     count = {"n": 0}
 
@@ -243,11 +220,13 @@ def test_kill_and_resume_matches_uninterrupted(tmp_path, residency):
             raise _Killed()
 
     with pytest.raises(_Killed):
-        _column_loop(*executors(), sgcs, ck=ck, on_column=killer)
+        run_streamed_with_checkpoint(*executors(), sgcs, ck_path=ck,
+                                     every=1, on_column=killer)
     folded = {"cols": 0}
-    out = _column_loop(*executors(), sgcs, ck=ck,
-                       on_column=lambda items: folded.__setitem__(
-                           "cols", folded["cols"] + 1))
+    out = run_streamed_with_checkpoint(
+        *executors(), sgcs, ck_path=ck, every=1,
+        on_column=lambda items: folded.__setitem__("cols",
+                                                   folded["cols"] + 1))
     assert folded["cols"] == len(_cols(sgcs)) - 2
     np.testing.assert_array_equal(out, ref)
     np.testing.assert_allclose(config.core.as_complex(out), _jax_facets(),

@@ -33,7 +33,8 @@ def test_port_sources_are_found():
 def test_port_sources_import_no_jax_and_no_reference_package(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "swiftly_tpu"), (path, mod)
+        assert top not in ("jax", "jaxlib", "swiftly_tpu", "scripts",
+                           "bench"), (path, mod)
 
 
 def test_port_imports_with_jax_blocked():
@@ -51,7 +52,15 @@ def test_port_imports_with_jax_blocked():
         "swiftly_tpu_torch.parallel.mesh, swiftly_tpu_torch.parallel.sharded, "
         "swiftly_tpu_torch.tools, swiftly_tpu_torch.tools.calibration_report, "
         "swiftly_tpu_torch.tools.tower_report, "
-        "swiftly_tpu_torch.tools.trace_report; "
+        "swiftly_tpu_torch.tools.trace_report, "
+        "swiftly_tpu_torch.tools.demo_api, "
+        "swiftly_tpu_torch.tools.demo_sparse_facet, "
+        "swiftly_tpu_torch.tools.demo_serve, "
+        "swiftly_tpu_torch.tools.plan_explain, "
+        "swiftly_tpu_torch.tools.accuracy_vs_n, "
+        "swiftly_tpu_torch.tools.derivation_demo, "
+        "swiftly_tpu_torch.tools.estimate_large_config, "
+        "swiftly_tpu_torch.tools.roofline, swiftly_tpu_torch.knobs; "
         "assert not any(m == 'jax' or m.startswith(('jax.', 'swiftly_tpu.')) "
         "for m in sys.modules if sys.modules[m] is not None)"
     )

@@ -513,3 +513,18 @@ def test_cuda_fold_matches_plain(cuda_device, dtype, tol):
         again = acc0.clone()
         fold(*block(again), *args)
         assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_colpass_blocks_are_the_built_engines_tile(cuda_device, dtype):
+    """The tile a plan records (``kernels.colpass_blocks``) is the tile the
+    built B1 library reports (``engine_tile``), not only the header's."""
+    from swiftly_tpu_torch.ops.kernels import colpass_blocks, engine_tile
+
+    lib = engine_tile("colpass", dtype)
+    blocks = colpass_blocks(dtype, cuda_device)
+    assert (blocks["bm"], blocks["bn"]) == tuple(lib["tile"])
+    assert (blocks["rm"], blocks["rn"]) == tuple(lib["thread"])
+    assert blocks["stages"] == lib["stages"]
+    assert blocks == colpass_blocks(dtype, "cpu")  # the header's
